@@ -9,15 +9,27 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      run each kernel at the main path's shapes, hold it byte-exact
      against its plain PyTorch version on the card, time both with CUDA
      events, and compute its bound on this card;
-  3. the main path: write one sealed volume (default 1 GiB) with the
-     port's storage code, EC-encode it through ec_files.write_ec_files
-     on the cuda backend (fused shard CRCs, durable), publish .ecx and
-     .ecc, check the CRCs against the host shim, parity on sampled rows
-     against the numpy codec, and 64 needles read back through the
-     striping; then delete shard 3 and rebuild it, delete shards
-     {0, 5, 10, 13} and rebuild them, each byte-identical; the kernels'
-     launch counters must grow in every one of the three runs;
-  4. the report: a `kernels` JSON line, then the final status line.
+  3. the single-volume path: write one sealed volume (default 1 GiB)
+     with the port's storage code, EC-encode it through
+     ec_files.write_ec_files on the cuda backend (fused shard CRCs,
+     durable), publish .ecx and .ecc, check the CRCs against the host
+     shim, parity on sampled rows against the numpy codec, and 64
+     needles read back through the striping; then delete shard 3 and
+     rebuild it, delete shards {0, 5, 10, 13} and rebuild them, each
+     byte-identical; the kernels' launch counters must grow in every
+     one of the three runs;
+  4. the batch path (BASELINE.json config 3, "batched ec.encode over
+     256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
+     through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
+     fused CRCs, durable) and check CRCs, parity and needles; encode the
+     same volumes through write_ec_files in a loop, timed beside the
+     batch, every volume's CRCs equal to the batch's and 4 volumes
+     byte-identical to the single-volume path; rebuild shard 3
+     of the odd volumes and shards {0, 5, 10, 13} of the even ones in
+     one rebuild_ec_files_batch call (two signature groups); verify 16
+     volumes with MeshCodec.verify_batch_u32, clean and with planted
+     faults; the batch kernels' counters must grow in each run;
+  5. the report: a `kernels` JSON line, then the final status line.
 
 Without a CUDA device it prints the reason and exits 1 before any result.
 """
@@ -42,11 +54,18 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/gf_apply.cu"
+K3_SOURCE = "seaweedfs_tpu_torch/csrc/gf_verify.cu"
 K4_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c_rows.cu"
 K1_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:204 swar_apply_u32"
+K2_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:236 swar_apply_u32_batch"
+K3_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:321 swar_verify_u32_batch"
 K4_REPLACES = "seaweedfs_tpu/ec/crc_kernel.py:133 crc32c_rows"
 
 LANES = 262144  # 1 MiB of stream per row: the pipelined tile of the main path
+BATCH = 16  # volumes per round of the batch phase (WEED_EC_PIPELINE_BATCH)
+# BASELINE.json config 3: 256 sealed volumes, here of ~4 MiB of .dat each
+BATCH_VOLUMES = 256
+BATCH_VOLUME_BYTES = 4 << 20
 
 
 def log(msg: str) -> None:
@@ -186,13 +205,94 @@ def check_crc(seed: int, card: str) -> dict:
     }
 
 
-# --- phase 3: the main path -------------------------------------------------
+def check_gf_batch(name: str, rows, seed: int, card: str) -> dict:
+    """K2 at [16, 10, 262144] lanes (a batch round of the batch phase)."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    k, r = rows.shape[1], rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    # 160 MiB of input, beyond the 50 MB L2: timing sees HBM
+    x = torch.randint(-(2**31), 2**31 - 1, (BATCH, k, LANES), dtype=torch.int32,
+                      device="cuda", generator=g)
+    out = torch.empty((BATCH, r, LANES), dtype=torch.int32, device="cuda")
+    masks = codec_cuda.gf_masks(rows)
+    got = codec_cuda.gf_apply_u32_batch(rows, x, masks)
+    want = codec_cuda.gf_apply_batch_plain(rows, x)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"K2 {name}: kernel disagrees with its plain version")
+    del got, want
+    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32_batch(rows, x, masks, out), iters=16)
+    plain_ms = _time_ms(lambda i: codec_cuda.gf_apply_batch_plain(rows, x), 2, warm=1)
+    nbytes = BATCH * (k + r) * 4 * LANES
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"K2 gf_apply_batch {name} [{BATCH},{k},{LANES}]->[{BATCH},{r},{LANES}] on "
+        f"{card}: byte-exact vs plain (max_abs_err 0); kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms (bytes; {bound / ms:.3f} of it)"
+    )
+    return {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "max_abs_err": err,
+    }
 
 
-def write_volume(base: str, nbytes: int, seed: int) -> tuple[int, list]:
+def check_verify(rows, seed: int, card: str) -> dict:
+    """K3 at [16, 10, 262144] + [16, 4, 262144] lanes, with mismatches
+    planted in several volumes; timed with its counts' memset."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    k, r = rows.shape[1], rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-(2**31), 2**31 - 1, (BATCH, k, LANES), dtype=torch.int32,
+                      device="cuda", generator=g)
+    parity = codec_cuda.gf_apply_batch_plain(rows, x)
+    masks = codec_cuda.gf_masks(rows)
+    clean = codec_cuda.gf_verify_u32_batch(rows, x, parity, masks)
+    if clean.tolist() != [0] * BATCH:
+        raise AssertionError(f"K3 flags clean parity: {clean.tolist()}")
+    for v, n in ((1, 1), (6, 3), (15, 1000)):
+        lanes = torch.randperm(LANES, device="cuda", generator=g)[:n]
+        parity[v, v % r, lanes] ^= 0x01000100
+    got = codec_cuda.gf_verify_u32_batch(rows, x, parity, masks)
+    want = codec_cuda.gf_verify_batch_plain(rows, x, parity)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or got.tolist() != [1000 if v == 15 else 3 if v == 6 else int(v == 1)
+                               for v in range(BATCH)]:
+        raise AssertionError(f"K3: counts {got.tolist()}, plain {want.tolist()}")
+    ms = _kernel_ms(lambda i: codec_cuda.gf_verify_u32_batch(rows, x, parity, masks),
+                    iters=16)
+    plain_ms = _time_ms(lambda i: codec_cuda.gf_verify_batch_plain(rows, x, parity), 2,
+                        warm=1)
+    nbytes = BATCH * (k + r) * 4 * LANES + 4 * BATCH
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"K3 gf_verify_batch [{BATCH},{k},{LANES}]+[{BATCH},{r},{LANES}] on {card}: "
+        f"planted counts equal the plain version's (max_abs_err 0); kernel "
+        f"{ms:.4f} ms with its memset ({nbytes / ms / 1e6:.1f} GB/s), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.3f} of it)"
+    )
+    return {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "max_abs_err": err,
+    }
+
+
+# --- phase 3: the single-volume path ----------------------------------------
+
+
+def write_volume(base: str, nbytes: int, seed: int,
+                 max_payload: int = 4 << 20) -> tuple[int, list]:
     """A sealed v3 volume of about `nbytes`: superblock, needles with
-    random payloads of log-uniform size over 1 KiB-4 MiB, and .idx.
-    Returns (dat size, [(id, offset, size)])."""
+    random payloads of log-uniform size over 1 KiB-`max_payload`, and
+    .idx. Returns (dat size, [(id, offset, size)])."""
     from seaweedfs_tpu_torch.storage import idx as idx_codec
     from seaweedfs_tpu_torch.storage import types as t
     from seaweedfs_tpu_torch.storage.needle import Needle
@@ -205,7 +305,7 @@ def write_volume(base: str, nbytes: int, seed: int) -> tuple[int, list]:
         off = dat.tell()
         nid = 1
         while off < nbytes:
-            size = int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20))))
+            size = int(np.exp(rng.uniform(np.log(1024), np.log(max_payload))))
             n = Needle(cookie=int(rng.integers(1 << 32)), id=nid,
                        data=rng.bytes(size), append_at_ns=nid)
             rec = n.to_bytes(VERSION3)
@@ -229,36 +329,42 @@ def _file_crc(path: str) -> int:
             c = crc32c(b, c)
 
 
-def _counts():
+def _counts() -> dict:
     from seaweedfs_tpu_torch.ec import codec_cuda, crc_kernel
 
-    return codec_cuda.LAUNCHES, crc_kernel.LAUNCHES
+    return {
+        "gf_apply": codec_cuda.LAUNCHES,
+        "gf_apply_batch": codec_cuda.BATCH_LAUNCHES,
+        "gf_verify_batch": codec_cuda.VERIFY_LAUNCHES,
+        "crc32c_rows": crc_kernel.LAUNCHES,
+    }
 
 
 def _reset_counts() -> None:
-    for c in _counts():
+    for c in _counts().values():
         c.reset()
 
 
 def _read_counts() -> dict:
-    k1, k4 = _counts()
-    return {"gf_apply": k1.value, "crc32c_rows": k4.value}
+    return {name: c.value for name, c in _counts().items()}
 
 
-def profile_encode(base: str, workdir: str, card: str) -> dict:
-    """Encode the volume once more under torch.profiler and read the
-    device timeline: busy = the union of kernel, copy and memset
-    intervals on the card; idle share = 1 - busy / wall."""
+def _must_launch(label: str, launches: dict, names) -> None:
+    for kname in names:
+        if launches[kname] <= 0:
+            raise AssertionError(f"{label}: kernel {kname} was never launched")
+
+
+def profile_encode(encode, workdir: str, card: str, label: str = "encode") -> dict:
+    """Run encode() once more under torch.profiler and read the device
+    timeline: busy = the union of kernel, copy and memset intervals on
+    the card; idle share = 1 - busy / wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from seaweedfs_tpu_torch.ec import ec_files
-    from seaweedfs_tpu_torch.ec.codec import new_encoder
-
-    rs = new_encoder(backend="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ec_files.write_ec_files(base, rs=rs, want_crcs=True)
+        encode()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     path = os.path.join(workdir, "trace.json")
@@ -283,7 +389,8 @@ def profile_encode(base: str, workdir: str, card: str) -> dict:
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_ms_by_name": {k: round(v, 4) for k, v in sorted(by_cat.items())}}
-    log(f"profiled encode on {card}: " + json.dumps(out))
+    os.remove(path)
+    log(f"profiled {label} on {card}: " + json.dumps(out))
     return out
 
 
@@ -386,12 +493,257 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
                                               "compute_s", "write_s", "loop_s",
                                               "host_crc_rows")}))
         runs[label] = {"wall_s": wall, "launches": launches, "stats": st}
-    if device is None:  # on the card every run must have gone through both kernels
+    if device is None:  # on the card every run must have gone through K1 and K4
         for label, run in runs.items():
-            for kname, n in run["launches"].items():
-                if n <= 0:
-                    raise AssertionError(f"{label}: kernel {kname} was never launched")
-        runs["profiled_encode"] = profile_encode(base, workdir, card)
+            _must_launch(label, run["launches"], ("gf_apply", "crc32c_rows"))
+        runs["profiled_encode"] = profile_encode(
+            lambda: ec_files.write_ec_files(base, rs=rs, want_crcs=True), workdir, card)
+    return runs
+
+
+# --- phase 4: the batch path ------------------------------------------------
+
+
+def _stage_line(st: dict, keys) -> str:
+    return json.dumps({k: st[k] for k in keys if k in st})
+
+
+def _check_room(workdir: str, need: int) -> None:
+    free = shutil.disk_usage(workdir).free
+    if free < need:
+        raise AssertionError(
+            f"the batch phase needs {need / 2**30:.2f} GiB free in {workdir}, "
+            f"which has {free / 2**30:.2f} GiB"
+        )
+
+
+def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
+                    devices=None, card: str = "") -> dict:
+    """Encode `volumes` sealed volumes through ec_files.write_ec_files_batch,
+    rebuild two damage signatures in one rebuild_ec_files_batch call, and
+    verify 16 of them with MeshCodec.verify_batch_u32. devices=None runs
+    on the card through codec=None, as a user calls it; a list of devices
+    (["cpu"]) runs the same checks on an explicit mesh."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda, ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+    from seaweedfs_tpu_torch.parallel import MeshCodec, make_mesh
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.super_block import VERSION3
+
+    shard_bytes = 1 << 20  # one small row per volume: 14 x 1 MiB
+    odd, even = (3,), (0, 5, 10, 13)
+    need = volumes * (volume_bytes + 14 * shard_bytes) + (
+        (volumes // 2) * (len(odd) + len(even)) + 4 * 14) * shard_bytes
+    _check_room(workdir, int(need * 1.1))
+    codec = None if devices is None else MeshCodec(make_mesh(devices))
+    card_only = devices is None
+
+    t0 = time.perf_counter()
+    bases, entries, dat_bytes = [], [], 0
+    for v in range(volumes):
+        base = os.path.join(workdir, str(v + 1))
+        size, ents = write_volume(base, volume_bytes, seed * 100003 + v, max_payload=1 << 20)
+        bases.append(base)
+        entries.append(ents)
+        dat_bytes += size
+    log(f"batch volumes: {volumes} x ~{volume_bytes / 2**20:.2f} MiB, {dat_bytes} bytes of "
+        f".dat, {sum(map(len, entries))} needles, written in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    runs: dict = {}
+    old_limit = os.environ.get("WEED_EC_PIPELINE_BATCH")
+    os.environ["WEED_EC_PIPELINE_BATCH"] = str(BATCH)
+    try:
+        # --- encode ---
+        enc: dict = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        ec_files.write_ec_files_batch(bases, codec=codec, want_crcs=True, durable=True,
+                                      stats=enc)
+        if card_only:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        for base, crcs in zip(bases, enc["shard_crcs"]):
+            ec_files.write_sorted_file_from_idx(base, durable=True)
+            if ecc_sidecar.write_sidecar(base, crcs) is None:
+                raise AssertionError(f"{base}: the .ecc sidecar was not written")
+        log(f"batch encode of {volumes} volumes on {card}: {dat_bytes / wall / 1e9:.3f} "
+            f"GB/s of .dat, wall {wall:.4f} s, launches {launches}, ring "
+            f"{enc['ring_bytes']} bytes, pinned {enc['ring_pinned']}, mesh {enc['mesh']}, "
+            f"stages " + _stage_line(enc, ("read_s", "device_s", "writeback_s",
+                                            "compute_s", "write_s", "flush_s", "loop_s",
+                                            "overlap_s", "host_crc_rows")))
+        runs["batch_encode"] = {"wall_s": wall, "launches": launches, "stats": enc}
+        if card_only:
+            _must_launch("batch encode", launches, ("gf_apply_batch", "crc32c_rows"))
+            # once more under the profiler, into copies of the first chunk
+            prof_dir = os.path.join(workdir, "profiled")
+            os.mkdir(prof_dir)
+            copies = []
+            for base in bases[:BATCH]:
+                copies.append(os.path.join(prof_dir, os.path.basename(base)))
+                shutil.copyfile(base + ".dat", copies[-1] + ".dat")
+            runs["profiled_batch_encode"] = profile_encode(
+                lambda: ec_files.write_ec_files_batch(copies, want_crcs=True),
+                workdir, card, f"batch encode of {len(copies)} volumes (one chunk)")
+            shutil.rmtree(prof_dir)
+
+        host = [[_file_crc(b + ec_files.to_ext(i)) for i in range(14)] for b in bases]
+        if host != enc["shard_crcs"]:
+            bad = [v for v in range(volumes) if host[v] != enc["shard_crcs"][v]]
+            raise AssertionError(f"batch shard CRCs differ from the host shim's: {bad[:8]}")
+        log(f"batch shard CRCs: all {volumes * 14} fused device CRCs equal the host shim's")
+
+        rng = np.random.default_rng(seed + 7)
+        cpu = new_encoder(backend="cpu")
+        for v in rng.choice(volumes, 8, replace=False):
+            off, span = int(rng.integers(0, shard_bytes - 65536)), 65536
+            rows = []
+            for i in range(14):
+                with open(bases[v] + ec_files.to_ext(i), "rb") as f:
+                    f.seek(off)
+                    rows.append(np.frombuffer(f.read(span), dtype=np.uint8))
+            want = cpu.encode(rows[:10] + [None] * 4)[10:]
+            if not all(np.array_equal(a, b) for a, b in zip(want, rows[10:])):
+                raise AssertionError(f"volume {v + 1}: parity differs from the numpy codec")
+        log("batch parity: 8 volumes' sampled 64 KiB spans equal the numpy codec's")
+
+        for _ in range(16):
+            v = int(rng.integers(volumes))
+            nid, off, nsize = entries[v][int(rng.integers(len(entries[v])))]
+            rec_len = 16 + nsize + 4 + 8
+            size = os.path.getsize(bases[v] + ".dat")
+            blob = ec_files.read_shard_intervals(bases[v], off, rec_len, size)
+            n = Needle.from_bytes(blob, VERSION3, nsize)  # verifies the CRC
+            with open(bases[v] + ".dat", "rb") as dat:
+                dat.seek(off)
+                if n.id != nid or blob != dat.read(rec_len):
+                    raise AssertionError(f"volume {v + 1} needle {nid} read back wrong")
+        log("batch needles: 16 read back through the striping, CRCs ok")
+
+        # the simple alternative to the batch arm: write_ec_files (K1) in a
+        # loop over the same volumes, with the same options, timed call by
+        # call; its CRCs must equal the batch's, and 4 volumes' shard
+        # files are compared byte for byte
+        single_dir = os.path.join(workdir, "single")
+        os.mkdir(single_dir)
+        rs = new_encoder(backend="cuda", device=None if card_only else "cpu")
+        compare = {int(v) for v in rng.choice(volumes, 4, replace=False)}
+        loop_s, loop_stats = 0.0, {}
+        for v in range(volumes):
+            one = os.path.join(single_dir, str(v + 1))
+            os.symlink(bases[v] + ".dat", one + ".dat")
+            st1: dict = {}
+            t0 = time.perf_counter()
+            ec_files.write_ec_files(one, rs=rs, want_crcs=True, durable=True, stats=st1)
+            loop_s += time.perf_counter() - t0
+            for k in ("read_s", "device_s", "writeback_s", "write_s", "loop_s"):
+                loop_stats[k] = loop_stats.get(k, 0.0) + st1[k]
+            if st1["shard_crcs"] != enc["shard_crcs"][v]:
+                raise AssertionError(f"volume {v + 1}: single-volume CRCs != batch CRCs")
+            for i in range(14):
+                ext = ec_files.to_ext(i)
+                if v in compare and not filecmp.cmp(one + ext, bases[v] + ext,
+                                                    shallow=False):
+                    raise AssertionError(f"volume {v + 1} shard {i}: batch != single-volume")
+                os.remove(one + ext)
+            os.remove(one + ".dat")
+        shutil.rmtree(single_dir)
+        log(f"write_ec_files loop over the same {volumes} volumes on {card}: "
+            f"{dat_bytes / loop_s / 1e9:.3f} GB/s of .dat, {loop_s:.4f} s in the calls "
+            f"(batch encode wall {wall:.4f} s, {loop_s / wall:.3f}x of it), summed stages "
+            + json.dumps({k: round(t, 4) for k, t in loop_stats.items()})
+            + f"; every volume's 14 CRCs equal the batch's, 4 volumes' shard files "
+            f"byte-identical (K2 against K1)")
+        runs["batch_encode"]["loop_s"] = loop_s
+
+        # --- rebuild: two signature groups in one call ---
+        originals = os.path.join(workdir, "orig")
+        os.mkdir(originals)
+        lost = [odd if v % 2 else even for v in range(volumes)]
+        for base, ls in zip(bases, lost):
+            for i in ls:
+                p = base + ec_files.to_ext(i)
+                os.replace(p, os.path.join(originals, os.path.basename(p)))
+        st: dict = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = ec_files.rebuild_ec_files_batch(bases, codec=codec, want_crcs=True,
+                                              durable=True, stats=st)
+        if card_only:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        if got != [list(ls) for ls in lost] or st["batch_groups"] != 2:
+            raise AssertionError(f"batch rebuild returned {got[:4]}..., groups "
+                                 f"{st['batch_groups']}")
+        rebuilt = 0
+        for v, (base, ls) in enumerate(zip(bases, lost)):
+            for i in ls:
+                p = base + ec_files.to_ext(i)
+                if not filecmp.cmp(p, os.path.join(originals, os.path.basename(p)),
+                                   shallow=False):
+                    raise AssertionError(f"volume {v + 1} shard {i} is not byte-identical")
+                if st["shard_crcs"][v][i] != enc["shard_crcs"][v][i]:
+                    raise AssertionError(f"volume {v + 1} shard {i}: rebuilt CRC differs")
+                rebuilt += os.path.getsize(p)
+        shutil.rmtree(originals)
+        log(f"batch rebuild (two groups: {odd} x {volumes - volumes // 2}, {even} x "
+            f"{volumes // 2}) on {card}: byte-identical, CRCs equal the encode's, "
+            f"{rebuilt / wall / 1e9:.3f} GB/s rebuilt, wall {wall:.4f} s, launches "
+            f"{launches}, stages " + _stage_line(st, ("read_s", "device_s", "writeback_s",
+                                                      "compute_s", "write_s", "loop_s",
+                                                      "host_crc_rows")))
+        runs["batch_rebuild"] = {"wall_s": wall, "launches": launches, "stats": st}
+        if card_only:
+            _must_launch("batch rebuild", launches, ("gf_apply_batch",))
+    finally:
+        if old_limit is None:
+            os.environ.pop("WEED_EC_PIPELINE_BATCH", None)
+        else:
+            os.environ["WEED_EC_PIPELINE_BATCH"] = old_limit
+
+    # --- verify: 16 volumes, clean and with planted faults ---
+    nv = min(BATCH, volumes)
+    data = np.empty((nv, 10, shard_bytes), dtype=np.uint8)
+    parity = np.empty((nv, 4, shard_bytes), dtype=np.uint8)
+    for v in range(nv):
+        for i in range(14):
+            with open(bases[v] + ec_files.to_ext(i), "rb") as f:
+                (data[v, i] if i < 10 else parity[v, i - 10])[:] = np.frombuffer(
+                    f.read(), dtype=np.uint8)
+    vcodec = codec or MeshCodec(make_mesh())
+    _reset_counts()
+    t0 = time.perf_counter()
+    counts = [np.asarray(vcodec.verify_batch_u32(
+        vcodec.shard_volumes(data.view(np.uint32)),
+        vcodec.shard_volumes(parity.view(np.uint32)))).tolist()]
+    wall = time.perf_counter() - t0
+    parity[5, 2, 12345] ^= 0x20  # parity shard 12 of volume 5
+    counts.append(np.asarray(vcodec.verify_batch_u32(
+        vcodec.shard_volumes(data.view(np.uint32)),
+        vcodec.shard_volumes(parity.view(np.uint32)))).tolist())
+    data[9, 4, 777] ^= 0x01  # one data byte of volume 9
+    counts.append(np.asarray(vcodec.verify_batch_u32(
+        vcodec.shard_volumes(data.view(np.uint32)),
+        vcodec.shard_volumes(parity.view(np.uint32)))).tolist())
+    launches = _read_counts()
+    dev = vcodec.devices[0]
+    plain = codec_cuda.gf_verify_batch_plain(
+        vcodec.matrix[10:], torch.from_numpy(data.view(np.int32)).to(dev),
+        torch.from_numpy(parity.view(np.int32)).to(dev)).tolist()
+    want = [[0] * nv, [int(v == 5) for v in range(nv)]]
+    if counts[:2] != want or counts[2] != plain or counts[2][9] == 0:
+        raise AssertionError(f"verify counts {counts}, plain {plain}")
+    log(f"batch verify of {nv} volumes on {card}: clean {counts[0]}, parity byte "
+        f"flipped in volume 5 {counts[1]}, data byte flipped in volume 9 {counts[2]} "
+        f"(= the plain version's); first call wall {wall:.4f} s, launches {launches}")
+    runs["batch_verify"] = {"wall_s": wall, "launches": launches, "counts": counts}
+    if card_only:
+        _must_launch("batch verify", launches, ("gf_verify_batch",))
     return runs
 
 
@@ -432,6 +784,10 @@ def main() -> int:
     k1_dec = check_gf("decode4", gf256.decode_rows(matrix, survivors, lost),
                       args.seed + 1, card)
     k4 = check_crc(args.seed + 2, card)
+    k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
+    k2_dec = check_gf_batch("decode4", gf256.decode_rows(matrix, survivors, lost),
+                            args.seed + 4, card)
+    k3 = check_verify(matrix[10:], args.seed + 5, card)
 
     root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
@@ -439,26 +795,35 @@ def main() -> int:
         runs = run_main_path(workdir, args.volume_mib << 20, args.seed, None, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
+    try:
+        runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
+                                    None, card))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
-    total = {
-        kn: sum(runs[r]["launches"][kn] for r in ("encode", "rebuild1", "rebuild4"))
-        for kn in ("gf_apply", "crc32c_rows")
-    }
-    log(f"launches on the main path (encode + both rebuilds) on {card}: {total}; "
-        f"K1 decode4 timing above: {k1_dec['ms']:.4f} ms")
+    paths = ("encode", "rebuild1", "rebuild4", "batch_encode", "batch_rebuild",
+             "batch_verify")
+    total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
+    log(f"launches over every path (single-volume encode and rebuilds, batch encode, "
+        f"rebuild and verify) on {card}: {total}; K1 decode4 {k1_dec['ms']:.4f} ms, "
+        f"K2 decode4 {k2_dec['ms']:.4f} ms")
     log(smi)
+
+    def row(name, source, replaces, *checks):
+        first = checks[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": total[name],
+                "max_abs_err": max(c["max_abs_err"] for c in checks),
+                "ms": first["ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": None}
+
     kernels = [
-        {"name": "gf_apply", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": total["gf_apply"],
-         "max_abs_err": max(k1_enc["max_abs_err"], k1_dec["max_abs_err"]),
-         "ms": k1_enc["ms"], "plain_ms": k1_enc["plain_ms"],
-         "bound_ms": k1_enc["bound_ms"], "bound_by": k1_enc["bound_by"],
-         "library_ms": None},
-        {"name": "crc32c_rows", "route": "cuda", "source": K4_SOURCE,
-         "replaces": K4_REPLACES, "launches": total["crc32c_rows"],
-         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
-         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-         "bound_by": k4["bound_by"], "library_ms": None},
+        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec),
+        row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
+        row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
+        row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

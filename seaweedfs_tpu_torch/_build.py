@@ -9,10 +9,11 @@ Every source under ``csrc/`` is compiled into ``_build/`` (listed in
   *.c   the host shims, with the system C compiler.
 
 Libraries are loaded with ctypes. An artifact's name carries a digest
-of its source and flags, so an edited source is never served stale
-code, and it is published by rename, so concurrent test workers that
-build the same source race harmlessly. A failed build raises: there is
-no fallback to a plain version behind the caller's back.
+of its source (with the shared ``*.cuh`` headers) and flags, so an
+edited source is never served stale code, and it is published by
+rename, so concurrent test workers that build the same source race
+harmlessly. A failed build raises: there is no fallback to a plain
+version behind the caller's back.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ NVCC_FLAGS = (
 )
 CC_FLAGS = ("-O2", "-shared", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
-CUDA_SOURCES = ("gf_apply.cu", "crc32c_rows.cu")
+CUDA_SOURCES = ("gf_apply.cu", "gf_verify.cu", "crc32c_rows.cu")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -68,6 +69,11 @@ def _command(src: str) -> tuple[list[str], str]:
         body = f.read()
     if src.endswith(".cu"):
         tool, flags = _nvcc(), NVCC_FLAGS
+        # the shared headers are part of every CUDA source's digest
+        for name in sorted(os.listdir(CSRC)):
+            if name.endswith(".cuh"):
+                with open(os.path.join(CSRC, name), "rb") as f:
+                    body += f.read()
     else:
         tool, flags = _cc(), CC_FLAGS
     digest = hashlib.sha256(body + " ".join(flags).encode()).hexdigest()[:16]

@@ -1,126 +1,90 @@
-// K1: GF(2^8) matrix apply over u32 lanes, for NVIDIA Hopper (sm_90a).
+// K1 and K2: GF(2^8) matrix apply over u32 lanes, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces seaweedfs_tpu/ec/codec_tpu.py swar_apply_u32 (the Pallas
-// SWAR Horner kernel built by _make_swar_kernel/_swar_row).
+// K1 replaces seaweedfs_tpu/ec/codec_tpu.py swar_apply_u32 (the Pallas
+// SWAR Horner kernel built by _make_swar_kernel/_swar_row); K2 replaces
+// swar_apply_u32_batch, the same kernel over a batch of volumes (grid =
+// volumes x stream tiles), the per-device program of the batch arm.
 //
-// Computes out[p] = XOR_c M[p,c] * x[c] in GF(2^8) with polynomial
-// 0x11D, where x is [k, n32] uint32 (each word = 4 stream bytes,
-// little-endian) and out is [rows, n32]. For output row p and bit j,
-// mask[p][j] is the set of input columns whose coefficient has bit j
-// set; then y[p] = Horner over j of the XOR of those columns, each step
-// a branchless SWAR doubling of four packed bytes:
-//   y' = ((y << 1) & 0xFEFEFEFE) ^ (((y & 0x80808080) >> 7) * 0x1D).
+// Computes out[b][p] = XOR_c M[p,c] * x[b][c] in GF(2^8), x [B, k, n32]
+// and out [B, rows, n32] uint32, with the SWAR Horner chain of
+// gf_swar.cuh. K1 is the B = 1 case of the same kernel.
 //
 // Bound: memory. Per word of stream the kernel reads k words and writes
-// `rows`: (k + rows) * 4 * n32 bytes at 3.35 TB/s. The Horner chains are
-// integer shifts, masks, XORs (three-input LOP3s) and one multiply per
-// doubling, which the compiler spreads over the integer and FMA pipes.
-// Design: the matrix is a per-launch argument struct (no program per
-// matrix), each thread loads one 16-byte vector per input row with
-// coalesced loads, keeps all k vectors in registers, runs every output
-// row's Horner chain on them and stores 16 bytes per output row. The
-// loops over columns and bits are unrolled; the branches on the mask
-// bits are uniform across the warp. A scalar variant serves rows whose
-// length or base address does not allow 16-byte vectors.
+// `rows`: B * (k + rows) * 4 * n32 bytes at 3.35 TB/s. The Horner chains
+// are integer shifts, masks, XORs (three-input LOP3s) and one multiply
+// per doubling, which the compiler spreads over the integer and FMA
+// pipes.
+// Design: one launch covers the whole batch (blockIdx.y is the volume),
+// so a round of the batch arm costs one launch per device, not one per
+// volume. Rows of a volume are n32 lanes apart; volumes are
+// `in_vstride` / `out_vstride` lanes apart, so K2 can read the data rows
+// of a [B, k + p, n32] tile and write its parity rows in place. Each
+// thread loads one 16-byte vector per input row with coalesced loads,
+// keeps all k vectors in registers, runs every output row's chain and
+// stores 16 bytes per output row. A scalar variant serves rows whose
+// length, stride or base address does not allow 16-byte vectors.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define GF_MAX_K 16
-#define GF_MAX_ROWS 16
-
-struct GfMatrix {
-    uint32_t mask[GF_MAX_ROWS][8];  // bit c of mask[p][j]: column c in set (p, j)
-    int32_t maxj[GF_MAX_ROWS];      // highest j with a nonempty set (Horner start)
-    int32_t rows;
-    int32_t k;
-};
-
-__device__ __forceinline__ uint32_t gf_double4(uint32_t y) {
-    uint32_t hb = y & 0x80808080u;
-    return ((y << 1) & 0xFEFEFEFEu) ^ ((hb >> 7) * 0x1Du);
-}
+#include "gf_swar.cuh"
 
 template <bool VEC>
-__global__ void __launch_bounds__(256) gf_apply_kernel(
+__global__ void __launch_bounds__(GF_THREADS) gf_apply_kernel(
     const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-    long long n32, const GfMatrix m) {
+    long long n32, long long batch, long long in_vstride,
+    long long out_vstride, const GfMatrix m) {
     const long long base =
         4LL * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (base >= n32) return;
-    uint32_t x[GF_MAX_K][4];
-#pragma unroll
-    for (int c = 0; c < GF_MAX_K; c++) {
-        if (c < m.k) {
-            const uint32_t* row = in + (long long)c * n32 + base;
-            if (VEC) {
-                uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
-                x[c][0] = v.x; x[c][1] = v.y; x[c][2] = v.z; x[c][3] = v.w;
-            } else {
-#pragma unroll
-                for (int e = 0; e < 4; e++)
-                    x[c][e] = (base + e < n32) ? __ldg(row + e) : 0u;
-            }
-        }
-    }
-    for (int p = 0; p < m.rows; p++) {
-        uint32_t y[4] = {0u, 0u, 0u, 0u};
-        const int top = m.maxj[p];
-#pragma unroll
-        for (int j = 7; j >= 0; j--) {
-            if (j > top) continue;
-            const uint32_t sel = m.mask[p][j];
-#pragma unroll
-            for (int e = 0; e < 4; e++) y[e] = gf_double4(y[e]);
-#pragma unroll
-            for (int c = 0; c < GF_MAX_K; c++) {
-                if (c < m.k && ((sel >> c) & 1u)) {
-#pragma unroll
-                    for (int e = 0; e < 4; e++) y[e] ^= x[c][e];
-                }
-            }
-        }
-        uint32_t* orow = out + (long long)p * n32 + base;
-        if (VEC) {
-            *reinterpret_cast<uint4*>(orow) = make_uint4(y[0], y[1], y[2], y[3]);
-        } else {
-#pragma unroll
-            for (int e = 0; e < 4; e++)
-                if (base + e < n32) orow[e] = y[e];
+    for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
+        uint32_t x[GF_MAX_K][4];
+        gf_load_cols<VEC>(in + b * in_vstride, base, n32, m, x);
+        uint32_t* ovol = out + b * out_vstride;
+        for (int p = 0; p < m.rows; p++) {
+            uint32_t y[4];
+            gf_row4(x, m, p, y);
+            gf_store4<VEC>(ovol + (long long)p * n32, base, n32, y);
         }
     }
 }
 
-// in: [k, n32] uint32, out: [rows, n32] uint32, both device pointers,
-// rows contiguous. masks: host [rows * 8] uint32, maxj: host [rows]
-// int32. Launches on `stream`; returns cudaGetLastError().
+static int gf_launch(const void* in, void* out, long long batch, long long k,
+                     long long rows, long long n32, long long in_vstride,
+                     long long out_vstride, const void* masks,
+                     const void* maxj, void* stream) {
+    GfMatrix m;
+    if (batch < 1 || n32 < 1 || !gf_matrix_from(masks, maxj, k, rows, &m))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid = gf_grid(n32, batch);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const uint32_t* src = static_cast<const uint32_t*>(in);
+    uint32_t* dst = static_cast<uint32_t*>(out);
+    if (gf_vec_ok(n32, in, in_vstride, out, out_vstride))
+        gf_apply_kernel<true><<<grid, GF_THREADS, 0, s>>>(
+            src, dst, n32, batch, in_vstride, out_vstride, m);
+    else
+        gf_apply_kernel<false><<<grid, GF_THREADS, 0, s>>>(
+            src, dst, n32, batch, in_vstride, out_vstride, m);
+    return (int)cudaGetLastError();
+}
+
+// K1. in: [k, n32] uint32, out: [rows, n32] uint32, both device
+// pointers, rows contiguous. masks: host [rows * 8] uint32, maxj: host
+// [rows] int32. Launches on `stream`; returns cudaGetLastError().
 extern "C" int gf_apply_u32(const void* in, void* out, long long k,
                             long long rows, long long n32,
                             const void* masks, const void* maxj,
                             void* stream) {
-    if (k < 1 || k > GF_MAX_K || rows < 1 || rows > GF_MAX_ROWS || n32 < 1)
-        return (int)cudaErrorInvalidValue;
-    GfMatrix m;
-    const uint32_t* mk = static_cast<const uint32_t*>(masks);
-    const int32_t* mj = static_cast<const int32_t*>(maxj);
-    for (int p = 0; p < GF_MAX_ROWS; p++) {
-        for (int j = 0; j < 8; j++) m.mask[p][j] = p < rows ? mk[p * 8 + j] : 0u;
-        m.maxj[p] = p < rows ? mj[p] : 0;
-    }
-    m.rows = (int32_t)rows;
-    m.k = (int32_t)k;
-    const int threads = 256;
-    const long long groups = (n32 + 3) / 4;
-    const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-    const bool vec = (n32 % 4 == 0) &&
-                     ((reinterpret_cast<uintptr_t>(in) & 15u) == 0) &&
-                     ((reinterpret_cast<uintptr_t>(out) & 15u) == 0);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (vec)
-        gf_apply_kernel<true><<<blocks, threads, 0, s>>>(
-            static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n32, m);
-    else
-        gf_apply_kernel<false><<<blocks, threads, 0, s>>>(
-            static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), n32, m);
-    return (int)cudaGetLastError();
+    return gf_launch(in, out, 1, k, rows, n32, 0, 0, masks, maxj, stream);
+}
+
+// K2. in: [batch, k, n32] and out: [batch, rows, n32] uint32 device
+// pointers; rows of a volume n32 lanes apart, volumes in_vstride /
+// out_vstride lanes apart. Matrix arguments and return as K1's.
+extern "C" int gf_apply_u32_batch(const void* in, void* out, long long batch,
+                                  long long k, long long rows, long long n32,
+                                  long long in_vstride, long long out_vstride,
+                                  const void* masks, const void* maxj,
+                                  void* stream) {
+    return gf_launch(in, out, batch, k, rows, n32, in_vstride, out_vstride,
+                     masks, maxj, stream);
 }

@@ -1,14 +1,16 @@
-"""CUDA backend of the RS codec: K1, the GF(2^8) matrix apply.
+"""CUDA backend of the RS codec: the GF(2^8) matrix apply (K1), its
+batched form (K2) and the fused parity verify (K3).
 
 The counterpart of seaweedfs_tpu/ec/codec_tpu.py. Streams are u32
 lanes (4 stream bytes per lane, little-endian: numpy
 ``.view(np.uint32)``) carried in int32 tensors. On a CUDA tensor
-`gf_apply_u32` launches csrc/gf_apply.cu (see its header for the
-design and bound: the coefficient matrix is a per-launch argument of
-per-(row, bit) column masks, so one compiled kernel serves encode and
-every decode matrix, at any lane count). On a CPU tensor it runs the
-plain version below: a byte-level MUL-table gather, independent of the
-SWAR arithmetic the kernel uses.
+`gf_apply_u32` and `gf_apply_u32_batch` launch csrc/gf_apply.cu, and
+`gf_verify_u32_batch` launches csrc/gf_verify.cu (see their headers for
+the design and bound: the coefficient matrix is a per-launch argument
+of per-(row, bit) column masks, so one compiled kernel serves encode
+and every decode matrix, at any lane count). On a CPU tensor each runs
+its plain version below: a byte-level MUL-table gather, independent of
+the SWAR arithmetic the kernels use.
 
 Encode uses the parity rows of the code matrix; reconstruct uses rows
 from gf256.decode_rows (the survivor-matrix inversion stays on the
@@ -30,6 +32,8 @@ from seaweedfs_tpu_torch.ec import crc_kernel, gf256
 from seaweedfs_tpu_torch.ec.codec import register_backend
 
 LAUNCHES = _build.LaunchCounter("gf_apply")
+BATCH_LAUNCHES = _build.LaunchCounter("gf_apply_batch")
+VERIFY_LAUNCHES = _build.LaunchCounter("gf_verify_batch")
 _MAX_K = 16  # csrc/gf_apply.cu GF_MAX_K / GF_MAX_ROWS
 _MAX_ROWS = 16
 _STATE_ROW_LANES = 262144  # K4 tables kept in CodecState: 1 MiB rows
@@ -82,25 +86,56 @@ def gf_apply_plain(rows: np.ndarray, x_u32: torch.Tensor) -> torch.Tensor:
     return out.view(torch.int32)
 
 
-# --- kernel wrapper ---------------------------------------------------------
+def gf_apply_batch_plain(rows: np.ndarray, x_u32: torch.Tensor) -> torch.Tensor:
+    """[B, k, n32] int32 lanes -> [B, r, n32]: gf_apply_plain over the
+    volumes laid side by side (GF math is positionwise)."""
+    b, k, n32 = x_u32.shape
+    r = np.asarray(rows).shape[0]
+    flat = x_u32.transpose(0, 1).reshape(k, b * n32)
+    return gf_apply_plain(rows, flat).reshape(r, b, n32).transpose(0, 1).contiguous()
+
+
+def gf_verify_batch_plain(
+    rows: np.ndarray, x_u32: torch.Tensor, parity_u32: torch.Tensor
+) -> torch.Tensor:
+    """[B] int32: per volume, the (parity row, u32 lane) pairs where the
+    parity recomputed from x differs from the given one."""
+    diff = gf_apply_batch_plain(rows, x_u32) != parity_u32
+    return diff.sum(dim=(1, 2)).to(torch.int32)
+
+
+# --- kernel wrappers --------------------------------------------------------
 
 _lib_lock = threading.Lock()
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
+_I64, _PTR = ctypes.c_longlong, ctypes.c_void_p
+_ARGTYPES = {
+    "gf_apply.cu": {
+        "gf_apply_u32": (_PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR),
+        "gf_apply_u32_batch": (
+            _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR, _PTR,
+        ),
+    },
+    "gf_verify.cu": {
+        "gf_verify_u32_batch": (
+            _PTR, _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR,
+            _PTR,
+        ),
+    },
+}
 
 
-def _kernel():
-    global _lib
+def _kernel(src: str = "gf_apply.cu"):
     with _lib_lock:
-        if _lib is None:
-            lib = _build.load("gf_apply.cu")
-            lib.gf_apply_u32.restype = ctypes.c_int
-            lib.gf_apply_u32.argtypes = (
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-            )
-            _lib = lib
-        return _lib
+        lib = _libs.get(src)
+        if lib is None:
+            lib = _build.load(src)
+            for name, argtypes in _ARGTYPES[src].items():
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+            _libs[src] = lib
+        return lib
 
 
 def gf_apply_u32(
@@ -153,6 +188,108 @@ def gf_apply_u32(
     _build.check(err, "gf_apply launch")
     LAUNCHES.inc()
     return out
+
+
+def _check_batch(x: torch.Tensor, rows: int, n32: int | None, what: str) -> None:
+    """A [B, rows, n32] int32 lane batch the batch kernels take: lanes
+    contiguous, rows of a volume n32 lanes apart, any volume stride."""
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != rows:
+        raise ValueError(
+            f"{what} takes [B, {rows}, n32] int32 lanes, got "
+            f"{tuple(x.shape)} {x.dtype}"
+        )
+    if n32 is not None and x.shape[2] != n32:
+        raise ValueError(f"{what}: {x.shape[2]} lanes, expected {n32}")
+    if x.shape[2] < 1 or x.stride(2) != 1 or x.stride(1) != x.shape[2]:
+        raise ValueError(
+            f"{what}: lanes must be contiguous and rows n32 lanes apart"
+        )
+
+
+def gf_apply_u32_batch(
+    rows: np.ndarray,
+    x_u32: torch.Tensor,
+    masks: tuple[np.ndarray, np.ndarray] | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[B, k, n32] int32 lanes -> [B, r, n32]: gf_apply_u32 over a batch
+    of volumes. Launches K2 once for the whole batch on a CUDA tensor
+    (current stream; `out` may be a view such as the parity rows of a
+    [B, k + r, n32] tile, written in place); runs the plain version on a
+    CPU tensor."""
+    rows = np.asarray(rows, dtype=np.uint8)
+    r, k = rows.shape
+    _check_batch(x_u32, k, None, "gf_apply_u32_batch")
+    b, _, n32 = x_u32.shape
+    if out is not None:
+        _check_batch(out, r, n32, "gf_apply_u32_batch out")
+        if out.shape[0] != b or out.device != x_u32.device:
+            raise ValueError("gf_apply_u32_batch: out must match the batch")
+    if not x_u32.is_cuda:
+        if x_u32.device.type != "cpu":
+            raise ValueError(f"gf_apply_u32_batch: unsupported device {x_u32.device}")
+        got = gf_apply_batch_plain(rows, x_u32)
+        if out is not None:
+            out.copy_(got)
+            return out
+        return got
+    if not 1 <= k <= _MAX_K or not 1 <= r <= _MAX_ROWS:
+        raise ValueError(f"gf_apply_u32_batch takes at most {_MAX_K}x{_MAX_ROWS} matrices")
+    if out is None:
+        out = torch.empty((b, r, n32), dtype=torch.int32, device=x_u32.device)
+    if b == 0:
+        return out
+    m, mj = masks if masks is not None else gf_masks(rows)
+    lib = _kernel()
+    stream = torch.cuda.current_stream(x_u32.device).cuda_stream
+    err = lib.gf_apply_u32_batch(
+        x_u32.data_ptr(), out.data_ptr(), b, k, r, n32, x_u32.stride(0),
+        out.stride(0), m.ctypes.data, mj.ctypes.data, stream,
+    )
+    _build.check(err, "gf_apply_batch launch")
+    BATCH_LAUNCHES.inc()
+    return out
+
+
+def gf_verify_u32_batch(
+    rows: np.ndarray,
+    x_u32: torch.Tensor,
+    parity_u32: torch.Tensor,
+    masks: tuple[np.ndarray, np.ndarray] | None = None,
+) -> torch.Tensor:
+    """Data [B, k, n32] + parity [B, r, n32] int32 lanes -> [B] int32
+    counts of mismatched (parity row, u32 lane) pairs, 0 = verified,
+    without materialising the recomputed parity. Launches K3 on CUDA
+    tensors (current stream); runs the plain version on CPU tensors."""
+    rows = np.asarray(rows, dtype=np.uint8)
+    r, k = rows.shape
+    _check_batch(x_u32, k, None, "gf_verify_u32_batch")
+    b, _, n32 = x_u32.shape
+    _check_batch(parity_u32, r, n32, "gf_verify_u32_batch parity")
+    if parity_u32.shape[0] != b or parity_u32.device != x_u32.device:
+        raise ValueError("gf_verify_u32_batch: parity must match the batch")
+    if not x_u32.is_cuda:
+        if x_u32.device.type != "cpu":
+            raise ValueError(f"gf_verify_u32_batch: unsupported device {x_u32.device}")
+        return gf_verify_batch_plain(rows, x_u32, parity_u32)
+    if not 1 <= k <= _MAX_K or not 1 <= r <= _MAX_ROWS:
+        raise ValueError(f"gf_verify_u32_batch takes at most {_MAX_K}x{_MAX_ROWS} matrices")
+    if r * n32 >= 2**31:
+        raise ValueError("gf_verify_u32_batch: a volume's count would overflow int32")
+    counts = torch.empty(b, dtype=torch.int32, device=x_u32.device)
+    if b == 0:
+        return counts
+    m, mj = masks if masks is not None else gf_masks(rows)
+    lib = _kernel("gf_verify.cu")
+    stream = torch.cuda.current_stream(x_u32.device).cuda_stream
+    err = lib.gf_verify_u32_batch(
+        x_u32.data_ptr(), parity_u32.data_ptr(), counts.data_ptr(), b, k, r,
+        n32, x_u32.stride(0), parity_u32.stride(0), m.ctypes.data,
+        mj.ctypes.data, stream,
+    )
+    _build.check(err, "gf_verify_batch launch")
+    VERIFY_LAUNCHES.inc()
+    return counts
 
 
 # --- host interop backend ---------------------------------------------------
@@ -321,3 +458,60 @@ class CudaCodecKernels:
         """(rebuilt [len(targets), n32], crcs [len(targets)] int32)."""
         rebuilt = self.reconstruct_u32(survivors, targets, shard_data_u32)
         return rebuilt, crc_kernel.crc32c_rows(rebuilt)
+
+    # --- batches of volumes: [B, rows, n32] lanes (K2, K3, K4) ---
+
+    def encode_batch_u32(self, data_u32: torch.Tensor) -> torch.Tensor:
+        """[B, k, n32] lanes -> parity [B, p, n32] lanes, one K2 launch."""
+        return gf_apply_u32_batch(
+            self.matrix[self.data_shards :], data_u32, self.state.parity_masks
+        )
+
+    def batch_tile_parts(self, tile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A batch tile is a contiguous [B*(k+p), n32] lane tensor: the
+        data [B, k, n32] followed by the parity [B, p, n32], both
+        contiguous views (so the H2D of the data and the D2H of the
+        parity are plain copies). Returns (data, parity)."""
+        k, n = self.data_shards, self.total_shards
+        rows, n32 = tile.shape
+        if rows % n or not tile.is_contiguous():
+            raise ValueError(f"a batch tile is a contiguous [B*{n}, n32] tensor")
+        b = rows // n
+        return tile[: b * k].view(b, k, n32), tile[b * k :].view(b, n - k, n32)
+
+    def encode_batch_tile_crc(
+        self, tile: torch.Tensor, raw: bool = False
+    ) -> torch.Tensor:
+        """In place on a batch tile (batch_tile_parts) whose data part
+        holds the volumes: one K2 launch writes the parity part, then one
+        K4 launch checksums all B*(k+p) rows. Returns the [B, k+p] int32
+        CRCs in shard order (raw=True: the raw CRCs, zero init and no
+        final xor, which compose across stream segments)."""
+        data, parity = self.batch_tile_parts(tile)
+        gf_apply_u32_batch(
+            self.matrix[self.data_shards :], data, self.state.parity_masks, out=parity
+        )
+        crcs = crc_kernel.crc_lin_rows(tile) if raw else crc_kernel.crc32c_rows(tile)
+        b, k = data.shape[:2]
+        return torch.cat((crcs[: b * k].view(b, k), crcs[b * k :].view(b, -1)), dim=1)
+
+    def reconstruct_batch_u32(
+        self,
+        survivors: tuple[int, ...],
+        targets: tuple[int, ...],
+        shard_data_u32: torch.Tensor,
+    ) -> torch.Tensor:
+        """Survivor batch [B, k, n32] (in `survivors` order) -> rebuilt
+        [B, len(targets), n32] lanes, one K2 launch."""
+        rows, masks = self._decode(survivors, targets)
+        return gf_apply_u32_batch(rows, shard_data_u32, masks)
+
+    def verify_batch_u32(
+        self, data_u32: torch.Tensor, parity_u32: torch.Tensor
+    ) -> torch.Tensor:
+        """[B] int32 mismatched-lane counts of the given parity against
+        the data's, one K3 launch."""
+        return gf_verify_u32_batch(
+            self.matrix[self.data_shards :], data_u32, parity_u32,
+            self.state.parity_masks,
+        )

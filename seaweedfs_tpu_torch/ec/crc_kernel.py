@@ -234,3 +234,17 @@ def finalize_rows(lin: torch.Tensor, nbytes: int) -> torch.Tensor:
     """Raw row CRCs (int32 bit patterns) -> standard crc32c values."""
     c = _final_const(nbytes)
     return lin ^ (c - (1 << 32) if c >= 1 << 31 else c)
+
+
+def combine_segments(lins: list[torch.Tensor], seg_bytes: int) -> torch.Tensor:
+    """Raw CRCs of consecutive stream segments of `seg_bytes` each (int32
+    bit patterns, any equal shapes, on any devices) -> the standard
+    CRC-32C of the whole stream, on the first segment's device:
+    crc(A||B) = Z_|B|(crc(A)) ^ crc(B), then the whole length's final
+    constant. Plain torch ops: the fold touches a few words per row."""
+    dev = lins[0].device
+    zcols = _crc._zero_shift_cols(seg_bytes)
+    acc = lins[0].to(torch.int64) & 0xFFFFFFFF
+    for lin in lins[1:]:
+        acc = _apply_cols(acc, zcols) ^ (lin.to(dev).to(torch.int64) & 0xFFFFFFFF)
+    return finalize_rows(_as_i32(acc), seg_bytes * len(lins))

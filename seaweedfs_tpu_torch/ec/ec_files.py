@@ -17,6 +17,8 @@ The byte math goes through a codec.ReedSolomon. With the cuda backend
 (the default) the pipelined ec_stream drivers run K1/K4 on the rs's
 device; WEED_EC_PIPELINE=0 and the numpy "cpu" backend take the serial
 classic loops below. Output bytes are identical on every arm.
+write_ec_files_batch / rebuild_ec_files_batch run many volumes per
+round through a parallel.MeshCodec (K2, K4).
 """
 
 from __future__ import annotations
@@ -64,6 +66,16 @@ def shard_row_counts(
         n_small += 1
         remaining -= small * DATA_SHARDS
     return n_large, n_small
+
+
+def shard_file_size(
+    dat_size: int,
+    large: int = LARGE_BLOCK_SIZE,
+    small: int = SMALL_BLOCK_SIZE,
+) -> int:
+    """Bytes in each .ecNN file a .dat of `dat_size` encodes to."""
+    n_large, n_small = shard_row_counts(dat_size, large, small)
+    return n_large * large + n_small * small
 
 
 def shard_presence(base_file_name: str) -> tuple[list[bool], list[int]]:
@@ -359,6 +371,192 @@ def rebuild_ec_files(
         for f in outputs.values():
             f.close()
     return missing
+
+
+def write_ec_files_batch(
+    base_file_names: list[str],
+    codec=None,
+    tile_bytes: int | None = None,
+    large_block_size: int = LARGE_BLOCK_SIZE,
+    small_block_size: int = SMALL_BLOCK_SIZE,
+    stats: dict | None = None,
+    durable: bool = False,
+    want_crcs: bool = False,
+) -> None:
+    """Encode N sealed volumes' .dat files through one MeshCodec round
+    per tile: each round stacks one [10, W] tile per volume into a
+    [B, 10, W/4]-lane batch (parallel/mesh_codec.py; K2 per device).
+    Output bytes are identical to write_ec_files per volume — the
+    reference's goroutine-per-volume encode fan-out
+    (command_ec_encode.go:153), batched.
+
+    The production arm is the pipelined driver
+    (ec_stream.stream_write_ec_files_batch, fused shard CRCs when
+    want_crcs). WEED_EC_PIPELINE=0 takes this serial per-round loop
+    instead: byte-identical, no overlap, the same durable contract.
+    codec=None provisions a mesh over every card and raises without
+    one; shapes stay fixed across rounds (finished volumes contribute
+    zero tiles that are discarded)."""
+    from seaweedfs_tpu_torch.ec import ec_stream
+
+    if not base_file_names:
+        return
+    if ec_stream.pipeline_enabled():
+        ec_stream.stream_write_ec_files_batch(
+            base_file_names,
+            codec=codec,
+            tile_bytes=tile_bytes,
+            large_block_size=large_block_size,
+            small_block_size=small_block_size,
+            stats=stats,
+            durable=durable,
+            want_crcs=want_crcs,
+        )
+        return
+    if codec is None:
+        codec = ec_stream._default_mesh_codec(len(base_file_names))
+    tile_bytes = tile_bytes or DEFAULT_BUFFER_SIZE
+    for block in (large_block_size, small_block_size):
+        if block % tile_bytes != 0 and tile_bytes % block != 0:
+            raise ValueError("tile size must tile the block sizes")
+
+    b = len(base_file_names)
+    vol_axis, stripe = codec.mesh.devices.shape
+    if b % vol_axis:
+        raise ValueError(
+            f"batch of {b} volumes does not shard over the mesh's "
+            f"{vol_axis}-way 'vol' axis"
+        )
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    tiles: list[list] = []
+    dats, sizes, outs = [], [], []
+    try:
+        for base in base_file_names:
+            size = os.path.getsize(base + ".dat")
+            sizes.append(size)
+            dats.append(open(base + ".dat", "rb"))
+            outs.append([open(base + to_ext(i), "wb") for i in range(TOTAL_SHARDS)])
+            tiles.append(
+                list(iter_ec_tiles(size, tile_bytes, large_block_size, small_block_size))
+            )
+        crcs = [[0] * TOTAL_SHARDS for _ in range(b)]
+        if any(tiles):
+            # one tile width for every round, rounded so the lane count
+            # splits over the stripe axis in whole 1024-lane chunks
+            max_step = max(step for ts in tiles for _, _, _, step in ts)
+            gran = 4 * 1024 * stripe
+            width = -(-max_step // gran) * gran
+            batch = np.zeros((b, DATA_SHARDS, width), dtype=np.uint8)
+            for r in range(max(len(ts) for ts in tiles)):
+                batch[:] = 0
+                steps = [0] * b
+                for v in range(b):
+                    if r >= len(tiles[v]):
+                        continue  # volume done: zero tile, output discarded
+                    row_off, block, batch_off, step = tiles[v][r]
+                    batch[v, :, :step] = read_dat_tile(
+                        dats[v], sizes[v], row_off, block, batch_off, step
+                    )
+                    steps[v] = step
+                parity = np.asarray(
+                    codec.encode_batch_u32(codec.shard_volumes(batch.view(np.uint32)))
+                ).view(np.uint8)
+                for v in range(b):
+                    step = steps[v]
+                    if not step:
+                        continue
+                    rows = [batch[v, i, :step] for i in range(DATA_SHARDS)]
+                    rows += [parity[v, p, :step] for p in range(PARITY_SHARDS)]
+                    for i, row in enumerate(rows):
+                        outs[v][i].write(row)
+                        if want_crcs:
+                            crcs[v][i] = crc32c(row, crcs[v][i])
+        if stats is not None and want_crcs:
+            stats["shard_crcs"] = crcs
+        if durable:
+            # success path only: a failed fsync fails the encode
+            for fs in outs:
+                for f in fs:
+                    f.flush()
+                    os.fsync(f.fileno())
+    except BaseException:
+        # no partial (or written-but-unsynced) shard set may survive for
+        # ANY volume: shard_presence counts any .ecNN as a valid shard
+        for fs in outs:
+            for f in fs:
+                try:
+                    f.close()
+                except OSError:
+                    pass
+        for base in base_file_names:
+            for i in range(TOTAL_SHARDS):
+                try:
+                    os.remove(base + to_ext(i))
+                except OSError:
+                    pass
+        raise
+    finally:
+        for f in dats:
+            f.close()
+        for fs in outs:
+            for f in fs:
+                if not f.closed:
+                    try:
+                        f.close()
+                    except OSError:
+                        pass
+
+
+def rebuild_ec_files_batch(
+    base_file_names: list[str],
+    codec=None,
+    tile_bytes: int | None = None,
+    stats: dict | None = None,
+    durable: bool = False,
+    want_crcs: bool = False,
+) -> list[list[int]]:
+    """Regenerate missing .ec files for N volumes, batched: volumes
+    sharing a (survivors, targets) signature ride one MeshCodec decode
+    round per tile (ec_stream.stream_rebuild_ec_files_batch; K2 per
+    device) — the BatchRebuild verb's driver. Every survivor must be
+    local.
+
+    WEED_EC_PIPELINE=0 takes a serial per-volume rebuild_ec_files loop
+    instead (the cuda backend on the codec's first device; the card
+    when codec is None): byte-identical, same durable contract. Returns
+    the rebuilt id lists in input order; want_crcs lands `shard_crcs`
+    in stats as one {rebuilt id: whole-file CRC-32C} dict per volume on
+    both arms."""
+    from seaweedfs_tpu_torch.ec import ec_stream
+
+    if not base_file_names:
+        return []
+    if ec_stream.pipeline_enabled():
+        return ec_stream.stream_rebuild_ec_files_batch(
+            base_file_names,
+            codec=codec,
+            tile_bytes=tile_bytes,
+            stats=stats,
+            durable=durable,
+            want_crcs=want_crcs,
+        )
+    rs = new_encoder(backend="cuda", device=None if codec is None else codec.devices[0])
+    results, all_crcs = [], []
+    for base in base_file_names:
+        s: dict = {}
+        results.append(
+            rebuild_ec_files(
+                base, rs=rs, buffer_size=tile_bytes, durable=durable, stats=s,
+                want_crcs=want_crcs,
+            )
+        )
+        all_crcs.append(s.get("shard_crcs") or {})
+    if stats is not None:
+        stats["batch_volumes"] = len(base_file_names)
+        if want_crcs:
+            stats["shard_crcs"] = all_crcs
+    return results
 
 
 # --- .ecx sorted index ------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Pipelined host↔device streaming drivers for single-volume EC encode
-and rebuild (the counterpart of seaweedfs_tpu/ec/ec_stream.py's
-single-volume drivers).
+"""Pipelined host↔device streaming drivers for EC encode and rebuild
+(the counterpart of seaweedfs_tpu/ec/ec_stream.py): one volume at a
+time through the CUDA stage pairs (K1, K4), or a batch of volumes per
+round through a parallel.MeshCodec (K2, K4; see the batch section).
 
 Output bytes match the classic loops in ec_files.py exactly, while
 the stages overlap:
@@ -58,7 +59,7 @@ SMALL_BLOCK_SIZE = locate.SMALL_BLOCK_SIZE
 # tier rows fold into super-tiles of up to this many bytes per shard).
 DEFAULT_TILE_BYTES = 1024 * 1024
 # Dispatched-but-unfetched tiles queued toward the writer pool.
-_DEPTH = 3
+_INFLIGHT = 3
 
 
 def pipeline_enabled() -> bool:
@@ -67,20 +68,42 @@ def pipeline_enabled() -> bool:
     return os.environ.get("WEED_EC_PIPELINE", "1") != "0"
 
 
+def pipeline_depth() -> int:
+    """Dispatched-but-unfetched window: WEED_EC_PIPELINE_DEPTH, minimum
+    2 (one tile on the device while the next stages), default 3."""
+    try:
+        d = int(os.environ.get("WEED_EC_PIPELINE_DEPTH", "0"))
+    except ValueError:
+        d = 0
+    return max(2, d) if d > 0 else _INFLIGHT
+
+
+def pipeline_batch_limit() -> int:
+    """Max volumes per dispatch round on the batched drivers
+    (WEED_EC_PIPELINE_BATCH, 0 = the whole batch in one round). Caps
+    staging-ring memory: one ring slot is batch x 10 x tile bytes."""
+    try:
+        return max(0, int(os.environ.get("WEED_EC_PIPELINE_BATCH", "0")))
+    except ValueError:
+        return 0
+
+
 class _StagingRing:
-    """N preallocated host staging buffers cycled reader → dispatcher →
-    writer → free, so pipeline memory is bounded and the allocator stays
-    out of the hot loop. pinned=True allocates page-locked memory (the
-    torch tensors are kept alive here; the pool threads see numpy
-    views of them)."""
+    """N host staging buffers cycled reader → dispatcher → writer →
+    free, so pipeline memory is bounded and the allocator stays out of
+    the hot loop. pinned=True allocates page-locked memory (the torch
+    tensors are kept alive here; the pool threads see numpy views of
+    them). A slot is allocated at its first acquire, so a run that
+    needs fewer slots than the ring holds (a batch chunk of one round)
+    never pays for the rest — the counterpart of the reference's
+    np.empty, which the OS maps in only when touched."""
 
     def __init__(self, slots: int, slot_bytes: int, pinned: bool = False):
         self.slots = max(2, slots)
-        self._tensors = [
-            torch.empty(slot_bytes, dtype=torch.uint8, pin_memory=pinned)
-            for _ in range(self.slots)
-        ]
-        self._bufs = [t.numpy() for t in self._tensors]
+        self.slot_bytes = slot_bytes
+        self.pinned = pinned
+        self._tensors: list = [None] * self.slots
+        self._bufs: list = [None] * self.slots
         self._free: queue.Queue = queue.Queue()
         for i in range(self.slots):
             self._free.put(i)
@@ -91,10 +114,23 @@ class _StagingRing:
         i = _q_get(self._free, stop)
         if i is _STOPPED:
             return None
+        if self._bufs[i] is None:  # only the holder of slot i gets here
+            t = torch.empty(self.slot_bytes, dtype=torch.uint8, pin_memory=self.pinned)
+            self._tensors[i] = t
+            self._bufs[i] = t.numpy()
         return i, self._bufs[i]
 
     def release(self, slot_id: int) -> None:
         self._free.put(slot_id)
+
+    def stats(self) -> dict:
+        """ring_slots, ring_bytes (allocated so far) and ring_pinned."""
+        used = sum(b is not None for b in self._bufs)
+        return {
+            "ring_slots": self.slots,
+            "ring_bytes": used * self.slot_bytes,
+            "ring_pinned": self.pinned,
+        }
 
 
 # Pool widths: the threads wait in GIL-released syscalls or device
@@ -209,6 +245,32 @@ def _pread_into(fd: int, view, offset: int) -> int:
     return got
 
 
+def _close_and_sync(fds, durable: bool, ok: bool, pipe: _Pipeline) -> OSError | None:
+    """Close every fd (fsyncing first on a durable success); return the
+    first fsync error, raised by the caller only after all are closed."""
+    fsync_err: OSError | None = None
+    for fd in fds:
+        try:
+            if durable and ok and not pipe.errors:
+                try:
+                    os.fsync(fd)
+                except OSError as e:
+                    if fsync_err is None:
+                        fsync_err = e
+            os.close(fd)
+        except OSError:
+            pass
+    return fsync_err
+
+
+def _remove_all(paths) -> None:
+    for p in paths:
+        try:
+            os.remove(p)
+        except OSError:
+            pass
+
+
 def _charge(busy: dict, lock: threading.Lock, key: str, dt) -> None:
     """Accumulate per-stage busy thread-seconds (or counts) across pool
     threads."""
@@ -312,7 +374,7 @@ def stream_write_ec_files(
     tile_bytes = tile_bytes or DEFAULT_TILE_BYTES
     writer_threads = DEFAULT_WRITER_THREADS
     reader_threads = DEFAULT_READER_THREADS
-    depth = _DEPTH
+    depth = pipeline_depth()
 
     dat_path = base_file_name + ".dat"
     dat_size = os.path.getsize(dat_path)
@@ -517,26 +579,10 @@ def stream_write_ec_files(
             tc0 = time.perf_counter()
             fsync_err: OSError | None = None
             try:
-                for fd in out_fds:
-                    try:
-                        if durable and ok and not pipe.errors:
-                            # a failed durability fsync fails the encode,
-                            # but only after every fd is closed
-                            try:
-                                os.fsync(fd)
-                            except OSError as e:
-                                if fsync_err is None:
-                                    fsync_err = e
-                        os.close(fd)
-                    except OSError:
-                        pass
+                fsync_err = _close_and_sync(out_fds, durable, ok, pipe)
                 if not ok or pipe.errors or fsync_err is not None:
                     # a partial shard set must not survive the abort
-                    for i in range(TOTAL_SHARDS):
-                        try:
-                            os.remove(base_file_name + to_ext(i))
-                        except OSError:
-                            pass
+                    _remove_all(base_file_name + to_ext(i) for i in range(TOTAL_SHARDS))
                 if fsync_err is not None:
                     raise fsync_err
             finally:
@@ -546,7 +592,7 @@ def stream_write_ec_files(
                         stats, busy, wall0, reader_threads, writer_threads
                     )
                     stats["pipeline_depth"] = depth
-                    stats["ring_slots"] = ring.slots
+                    stats.update(ring.stats())
                     if want_crcs and ok and not pipe.errors and fsync_err is None:
                         stats["shard_crcs"] = _fold_encode_crcs(tiles, tile_crcs)
                 _trace_stages(_sp, busy)
@@ -600,7 +646,7 @@ def stream_rebuild_ec_files(
     tile_bytes = tile_bytes or DEFAULT_TILE_BYTES // 2
     writer_threads = DEFAULT_WRITER_THREADS
     reader_threads = DEFAULT_READER_THREADS
-    depth = _DEPTH
+    depth = pipeline_depth()
 
     from seaweedfs_tpu_torch.ec.ec_files import shard_presence, to_ext
 
@@ -737,25 +783,11 @@ def stream_rebuild_ec_files(
             tc0 = time.perf_counter()
             fsync_err: OSError | None = None
             try:
-                for fd in out_fds.values():
-                    try:
-                        if durable and ok and not pipe.errors:
-                            try:
-                                os.fsync(fd)
-                            except OSError as e:
-                                if fsync_err is None:
-                                    fsync_err = e
-                        os.close(fd)
-                    except OSError:
-                        pass
+                fsync_err = _close_and_sync(out_fds.values(), durable, ok, pipe)
                 if not ok or pipe.errors or fsync_err is not None:
                     # half-written targets must not survive: a later
                     # shard_presence would count them as valid shards
-                    for i in targets:
-                        try:
-                            os.remove(base_file_name + to_ext(i))
-                        except OSError:
-                            pass
+                    _remove_all(base_file_name + to_ext(i) for i in targets)
                 if fsync_err is not None:
                     raise fsync_err
             finally:
@@ -765,7 +797,7 @@ def stream_rebuild_ec_files(
                         stats, busy, wall0, reader_threads, writer_threads
                     )
                     stats["pipeline_depth"] = depth
-                    stats["ring_slots"] = ring.slots
+                    stats.update(ring.stats())
                     if want_crcs and ok and not pipe.errors and fsync_err is None:
                         stats["shard_crcs"] = _fold_rebuild_crcs(targets, crc_ranges)
                 _trace_stages(_sp, busy)
@@ -954,3 +986,690 @@ def _cuda_rebuild_fns(want_crcs: bool = False, device=None):
 
     rebuild_fn.pinned = stage.cuda
     return rebuild_fn, _fetch
+
+
+# --- batch drivers: N volumes per round through a MeshCodec ----------------
+
+
+def _read_tile_into(
+    fd: int, dat_size: int, row_off: int, block: int, batch_off: int,
+    step: int, dest: np.ndarray,
+) -> None:
+    """Fill dest [10, step] (ring-slot views) with one volume's tile of
+    the .dat, zero-padded past EOF — the batch reader's striping math
+    (the layout the single-volume reader inlines). Per-row reads even
+    for full rows: dest rows are strided views of the batch slot."""
+    for i in range(DATA_SHARDS):
+        row = dest[i]
+        off = row_off + i * block + batch_off
+        n = max(0, min(step, dat_size - off))
+        if n < step:
+            row[n:] = 0
+        if n:
+            got = _pread_into(fd, row[:n], off)
+            if got < n:
+                row[got:n] = 0
+
+
+def _default_mesh_codec(batch: int, devices=None, matrix=None):
+    """MeshCodec over `devices` (default: every card; raises without
+    one) with the 'vol' axis sized to gcd(batch, devices), so any batch
+    shards cleanly."""
+    import math
+
+    from seaweedfs_tpu_torch.parallel import MeshCodec, make_mesh
+    from seaweedfs_tpu_torch.parallel.mesh_codec import cuda_devices
+
+    devices = list(devices) if devices is not None else cuda_devices()
+    vol_axis = math.gcd(batch, len(devices))
+    return MeshCodec(make_mesh(devices, stripe=len(devices) // vol_axis), matrix=matrix)
+
+
+def _resized_codec(codec, batch: int):
+    """A mesh sized to a chunk of `batch` volumes, over `codec`'s
+    devices and code matrix (every card when codec is None) — where the
+    reference provisions one over all of its devices."""
+    if codec is None:
+        return _default_mesh_codec(batch)
+    return _default_mesh_codec(batch, list(codec.mesh.devices.flat), codec.matrix)
+
+
+def _merge_chunk_stats(stats: dict, chunk_stats: dict) -> None:
+    """Fold one chunk's stats into the whole run's: stage seconds and
+    host CRC rows add up, ring_bytes keeps the largest (chunks run one
+    after another), other structural fields keep the last chunk's."""
+    for k, v in chunk_stats.items():
+        if k == "shard_crcs":
+            continue
+        if isinstance(v, float) or k == "host_crc_rows":
+            stats[k] = round(stats.get(k, 0) + v, 4)
+        elif k == "ring_bytes":
+            stats[k] = max(stats.get(k, 0), v)
+        else:
+            stats[k] = v
+
+
+class _MeshStage:
+    """The batch drivers' device side around a MeshCodec. On the card
+    each round's H2D copies, kernels and D2H copies are enqueued on one
+    side stream per device and the dispatcher returns at once with
+    HostFetch handles; the writer pool's wait() blocks on the round's
+    events. On CPU devices the plain versions run synchronously."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.streams = [
+            torch.cuda.Stream(d) for d in codec.devices if d.type == "cuda"
+        ]
+        self.pinned = bool(self.streams)
+
+    def _enqueue(self, fn):
+        with contextlib.ExitStack() as stack:
+            for s in self.streams:
+                stack.enter_context(torch.cuda.stream(s))
+            return fn()
+
+    def encode(self, buf3: np.ndarray, fused_crc: bool):
+        """Dispatch one [B, 10, W] uint8 round: (parity fetch, CRC fetch
+        or None). With the fused CRC the data lands in a batch tile with
+        room for the parity, so K2 writes the parity beside it, one K4
+        launch per device checksums all 14 rows, and the parity comes
+        home with one contiguous copy."""
+        host = torch.from_numpy(buf3.view(np.int32))
+        codec = self.codec
+
+        def run():
+            vols = codec.shard_volumes(host, parity_room=fused_crc, non_blocking=True)
+            if fused_crc:
+                parity, crcs = codec.encode_batch_u32_crc(vols)
+                return parity.fetch(), crcs.fetch()
+            return codec.encode_batch_u32(vols).fetch(), None
+
+        return self._enqueue(run)
+
+    def rebuild(self, buf3: np.ndarray, survivors, targets):
+        """Dispatch one [B, 10, W] uint8 survivor round: rebuilt fetch."""
+        host = torch.from_numpy(buf3.view(np.int32))
+        codec = self.codec
+        return self._enqueue(
+            lambda: codec.reconstruct_batch_u32(
+                survivors, targets, codec.shard_volumes(host, non_blocking=True)
+            ).fetch()
+        )
+
+
+def stream_write_ec_files_batch(
+    base_file_names: list[str],
+    codec=None,
+    tile_bytes: int | None = None,
+    large_block_size: int = LARGE_BLOCK_SIZE,
+    small_block_size: int = SMALL_BLOCK_SIZE,
+    stats: dict | None = None,
+    durable: bool = False,
+    want_crcs: bool = False,
+    reader_threads: int | None = None,
+    writer_threads: int | None = None,
+) -> None:
+    """Pipelined encode of N sealed .dat files into N shard sets through
+    a MeshCodec, byte-identical per volume to write_ec_files. Each tile
+    round stacks one [10, W] tile per volume into a [B, 10, W/4]-lane
+    batch: one K2 launch (plus one K4 launch with the fused CRCs) per
+    device per round, where the single-volume driver pays a launch per
+    volume. Disk reads, staging, the kernels, the D2H copies and the
+    shard pwritevs overlap as in stream_write_ec_files.
+
+    codec=None provisions a MeshCodec over every card, its 'vol' axis
+    gcd(batch, cards); it raises without a card (a mesh of CPU devices,
+    passed explicitly, runs the kernels' plain versions).
+    WEED_EC_PIPELINE_BATCH caps the volumes per round (ring memory =
+    slots x batch x 10 x tile bytes); each chunk gets a mesh sized to
+    it over the same devices.
+
+    want_crcs=True lands `shard_crcs` in stats: one 14-entry CRC-32C
+    list per volume (fused on the device for full-width rounds, host
+    CRCs for the tail rounds, counted in host_crc_rows). A failed run
+    removes every volume's shard files."""
+    if not base_file_names:
+        return
+    limit = pipeline_batch_limit()
+    if limit and len(base_file_names) > limit:
+        all_crcs: list = []
+        for i in range(0, len(base_file_names), limit):
+            chunk = base_file_names[i : i + limit]
+            chunk_stats: dict = {}
+            # each chunk gets a mesh that fits ITS size: a codec built
+            # for the whole batch need not divide a chunk
+            _stream_batch_chunk(
+                chunk, _resized_codec(codec, len(chunk)), tile_bytes,
+                large_block_size, small_block_size, chunk_stats, durable,
+                want_crcs, reader_threads, writer_threads,
+            )
+            if want_crcs:
+                all_crcs.extend(chunk_stats.get("shard_crcs", []))
+            if stats is not None:
+                _merge_chunk_stats(stats, chunk_stats)
+        if stats is not None:
+            stats["batch_volumes"] = len(base_file_names)
+            if want_crcs:
+                stats["shard_crcs"] = all_crcs
+        return
+    if codec is None:
+        codec = _default_mesh_codec(len(base_file_names))
+    _stream_batch_chunk(
+        base_file_names, codec, tile_bytes, large_block_size,
+        small_block_size, stats, durable, want_crcs, reader_threads,
+        writer_threads,
+    )
+
+
+def _run_batch_rounds(
+    bases: list[str],
+    codec,
+    rounds: int,
+    width: int,
+    inputs: list[list[str]],
+    outputs: list[list[tuple[str, int]]],
+    fill: Callable,
+    dispatch: Callable,
+    write: Callable,
+    span: str,
+    nbytes: int,
+    stats: dict | None,
+    durable: bool,
+    reader_threads: int,
+    writer_threads: int,
+) -> None:
+    """The pipeline of one batch chunk around the caller's three bodies.
+
+    A reader pool takes rounds in order, each thread with its own fds of
+    every volume's `inputs`, and runs fill(fds, r, buf3) into a
+    [B, 10, width] ring slot; the dispatcher hands the slot to
+    dispatch(stage, buf3) -> handle (a _MeshStage round, returning once
+    enqueued); a writer pool runs write(r, buf3, handle, out_fds, charge)
+    and frees the slot. out_fds[v] holds volume v's `outputs` (path,
+    preallocated size) in order; charge(key, seconds) books stage time.
+
+    It owns the queues, the ring and the pools, and the epilogue: close
+    (fsync first when durable), and on any failure remove every
+    volume's outputs, so no partial set survives. Fills `stats` with the
+    stage seconds and the run's structure."""
+    depth = pipeline_depth()
+    b = len(bases)
+    vol_axis, stripe = codec.mesh.devices.shape
+    stage = _MeshStage(codec)
+    pipe = _Pipeline()
+    read_q: queue.Queue = queue.Queue(maxsize=max(2, reader_threads))
+    write_q: queue.Queue = queue.Queue(maxsize=depth)
+    ring = _StagingRing(
+        depth + writer_threads + 1, b * DATA_SHARDS * width, pinned=stage.pinned
+    )
+    busy = _new_busy()
+    busy_lock = threading.Lock()
+    wall0 = time.perf_counter()
+    _sp = trace.span(span, nbytes=nbytes)
+    _sp.__enter__()
+
+    idx_lock = threading.Lock()
+    idx_iter = iter(range(rounds))
+    out_fds: list[list[int]] = []
+
+    def charge(key: str, dt) -> None:
+        _charge(busy, busy_lock, key, dt)
+
+    def reader():
+        fds: list[list[int]] = []
+        try:
+            for paths in inputs:
+                fds.append([])
+                for p in paths:
+                    fds[-1].append(os.open(p, os.O_RDONLY))
+            while True:
+                with idx_lock:
+                    r = next(idx_iter, None)
+                if r is None:
+                    return
+                got_slot = ring.acquire(pipe.stop)
+                if got_slot is None:
+                    return
+                slot_id, buf = got_slot
+                t0 = time.perf_counter()
+                buf3 = buf[: b * DATA_SHARDS * width].reshape(b, DATA_SHARDS, width)
+                fill(fds, r, buf3)
+                charge("read_s", time.perf_counter() - t0)
+                if not _q_put(read_q, (r, slot_id, buf3), pipe.stop):
+                    ring.release(slot_id)
+                    return
+        finally:
+            for vol_fds in fds:
+                for fd in vol_fds:
+                    os.close(fd)
+
+    def writer():
+        while True:
+            item = _q_get(write_q, pipe.stop)
+            if item is _EOF or item is _STOPPED:
+                return
+            r, slot_id, buf3, handle = item
+            write(r, buf3, handle, out_fds, charge)
+            ring.release(slot_id)
+
+    ok = False
+    try:
+        for files in outputs:
+            fds: list[int] = []
+            out_fds.append(fds)
+            for path, _ in files:
+                fds.append(os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644))
+            for fd, (_, size) in zip(fds, files):
+                _preallocate(fd, size)
+        for _ in range(min(reader_threads, rounds)):
+            pipe.spawn(reader)
+        for _ in range(writer_threads):
+            pipe.spawn(writer)
+        for _ in range(rounds):
+            item = _q_get(read_q, pipe.stop)
+            if item is _STOPPED:
+                break
+            r, slot_id, buf3 = item
+            t0 = time.perf_counter()
+            handle = dispatch(stage, buf3)
+            charge("device_s", time.perf_counter() - t0)
+            if not _q_put(write_q, (r, slot_id, buf3, handle), pipe.stop):
+                break
+        for _ in range(writer_threads):
+            if not _q_put(write_q, _EOF, pipe.stop):
+                break
+        ok = True
+    finally:
+        try:
+            pipe.finish(caller_error=not ok)
+        finally:
+            tc0 = time.perf_counter()
+            try:
+                fsync_err = _close_and_sync(
+                    [fd for fds in out_fds for fd in fds], durable, ok, pipe
+                )
+                if not ok or pipe.errors or fsync_err is not None:
+                    # no partial output set may survive for ANY volume
+                    _remove_all(path for files in outputs for path, _ in files)
+                if fsync_err is not None:
+                    raise fsync_err
+            finally:
+                busy["flush_s"] = time.perf_counter() - tc0
+                if stats is not None:
+                    _finish_stats(stats, busy, wall0, reader_threads, writer_threads)
+                    stats["pipeline_depth"] = depth
+                    stats.update(ring.stats())
+                    stats["batch_volumes"] = b
+                    stats["mesh"] = {"vol": vol_axis, "stripe": stripe}
+                _trace_stages(_sp, busy)
+                _sp.__exit__(*sys.exc_info())
+
+
+def _check_vol_axis(b: int, codec) -> None:
+    vol_axis = codec.mesh.devices.shape[0]
+    if b % vol_axis:
+        raise ValueError(
+            f"batch of {b} volumes does not shard over the mesh's "
+            f"{vol_axis}-way 'vol' axis"
+        )
+
+
+def _stream_batch_chunk(
+    bases: list[str], codec, tile_bytes, large_block_size, small_block_size,
+    stats, durable, want_crcs, reader_threads, writer_threads,
+) -> None:
+    from seaweedfs_tpu_torch.ec.ec_files import iter_ec_tiles, shard_file_size, to_ext
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    tile_bytes = tile_bytes or DEFAULT_TILE_BYTES
+    b = len(bases)
+    _check_vol_axis(b, codec)
+    stripe = codec.mesh.devices.shape[1]
+
+    sizes = [os.path.getsize(base + ".dat") for base in bases]
+    tiles = [
+        list(iter_ec_tiles(size, tile_bytes, large_block_size, small_block_size))
+        for size in sizes
+    ]
+    rounds = max((len(ts) for ts in tiles), default=0)
+    if not rounds:
+        # all .dat files empty: 14 empty shard files each, fsynced when
+        # durable so a later .ecx publish never outlives them
+        from seaweedfs_tpu_torch.util import durable as _durable
+
+        for base in bases:
+            for i in range(TOTAL_SHARDS):
+                open(base + to_ext(i), "wb").close()
+                if durable:
+                    _durable.fsync_path(base + to_ext(i))
+        if stats is not None and want_crcs:
+            stats["shard_crcs"] = [[0] * TOTAL_SHARDS for _ in bases]
+        return
+    # one tile width for every round (finished volumes ride as zero-step
+    # entries whose output is discarded), rounded so the lane count
+    # splits over the stripe axis in whole 1024-lane chunks
+    max_step = max(step for ts in tiles for _, _, _, step in ts)
+    gran = 4 * 1024 * stripe
+    width = -(-max_step // gran) * gran
+    # the fused CRC needs power-of-two lanes per device (crc_kernel);
+    # tail rounds (step < width) are host-checksummed regardless
+    fused_crc = want_crcs and codec.crc_supported(width)
+    step_of = [[(ts[r][3] if r < len(ts) else 0) for ts in tiles] for r in range(rounds)]
+    out_offs = []  # [rounds][volume] output offset
+    acc = [0] * b
+    for r in range(rounds):
+        out_offs.append(list(acc))
+        for v in range(b):
+            acc[v] += step_of[r][v]
+    round_crcs: list = [None] * rounds
+
+    def fill(fds, r, buf3):
+        for v in range(b):
+            if r >= len(tiles[v]):
+                continue  # volume done: zero-step, output discarded
+            row_off, block, batch_off, step = tiles[v][r]
+            _read_tile_into(
+                fds[v][0], sizes[v], row_off, block, batch_off, step, buf3[v, :, :step]
+            )
+
+    def write(r, buf3, handle, out_fds, charge):
+        parity_f, crcs_f = handle
+        t0 = time.perf_counter()
+        parity = parity_f.wait().numpy().view(np.uint8)  # [b, 4, width]
+        crcs = None if crcs_f is None else crcs_f.wait().numpy().view(np.uint32)
+        t1 = time.perf_counter()
+        vol_crcs: list = [None] * b
+        host_rows = 0
+        if want_crcs:
+            for v in range(b):
+                step = step_of[r][v]
+                if not step:
+                    continue
+                if crcs is not None and step == width:
+                    vol_crcs[v] = [int(c) for c in crcs[v]]
+                else:
+                    # tail round: the fused CRC would cover the padded
+                    # width; checksum the written bytes
+                    vol_crcs[v] = [
+                        crc32c(buf3[v, i, :step]) for i in range(DATA_SHARDS)
+                    ] + [crc32c(parity[v, p, :step]) for p in range(PARITY_SHARDS)]
+                    host_rows += TOTAL_SHARDS
+        t2 = time.perf_counter()
+        for v in range(b):
+            step = step_of[r][v]
+            if not step:
+                continue
+            off = out_offs[r][v]
+            for i in range(DATA_SHARDS):
+                _pwrite_full(out_fds[v][i], buf3[v, i, :step], off)
+            for p in range(PARITY_SHARDS):
+                _pwrite_full(out_fds[v][DATA_SHARDS + p], parity[v, p, :step], off)
+        t3 = time.perf_counter()
+        if want_crcs:
+            round_crcs[r] = vol_crcs
+        charge("writeback_s", t1 - t0)
+        charge("compute_s", t2 - t1)
+        charge("write_s", t3 - t2)
+        charge("host_crc_rows", host_rows)
+
+    _run_batch_rounds(
+        bases, codec, rounds, width,
+        inputs=[[base + ".dat"] for base in bases],
+        outputs=[
+            [(base + to_ext(i), shard_file_size(size, large_block_size, small_block_size))
+             for i in range(TOTAL_SHARDS)]
+            for base, size in zip(bases, sizes)
+        ],
+        fill=fill,
+        dispatch=lambda stage, buf3: stage.encode(buf3, fused_crc),
+        write=write,
+        span="ec_stream.encode_batch",
+        nbytes=sum(sizes),
+        stats=stats,
+        durable=durable,
+        reader_threads=reader_threads or DEFAULT_READER_THREADS,
+        writer_threads=writer_threads or DEFAULT_WRITER_THREADS,
+    )
+    if stats is not None and want_crcs:
+        stats["shard_crcs"] = _fold_batch_crcs(b, step_of, round_crcs)
+
+
+def _fold_batch_crcs(b: int, step_of: list[list[int]], round_crcs: list) -> list[list[int]]:
+    """Per-volume 14-entry whole-file CRCs from the per-round writer
+    records, folded in round order."""
+    from seaweedfs_tpu_torch.util.crc import crc32c_combine
+
+    out = []
+    for v in range(b):
+        acc = [0] * TOTAL_SHARDS
+        for r, vol_crcs in enumerate(round_crcs):
+            step = step_of[r][v]
+            if not step or vol_crcs is None or vol_crcs[v] is None:
+                continue
+            for i in range(TOTAL_SHARDS):
+                acc[i] = crc32c_combine(acc[i], vol_crcs[v][i], step)
+        out.append(acc)
+    return out
+
+
+def stream_rebuild_ec_files_batch(
+    base_file_names: list[str],
+    codec=None,
+    tile_bytes: int | None = None,
+    stats: dict | None = None,
+    durable: bool = False,
+    want_crcs: bool = False,
+    reader_threads: int | None = None,
+    writer_threads: int | None = None,
+) -> list[list[int]]:
+    """Rebuild N volumes' missing shard files through a MeshCodec, one K2
+    launch per device per tile round — the rebuild-side sibling of
+    stream_write_ec_files_batch, for the RepairScheduler's common case
+    of a node loss leaving many small volumes missing the same shards.
+
+    Volumes are grouped by their (survivors, targets) signature; each
+    group runs its own rounds (chunked by WEED_EC_PIPELINE_BATCH), one
+    decode matrix each. Every survivor must be local. Output bytes per
+    volume equal rebuild_ec_files' (the same ascending survivor choice).
+    codec=None provisions a mesh over every card and raises without one.
+
+    want_crcs=True lands `shard_crcs` in stats: one {rebuilt shard id:
+    whole-file CRC-32C} dict per volume, in base_file_names order (host
+    CRCs of the rebuilt rows, as the reference takes them). Returns the
+    per-volume rebuilt id lists; volumes with nothing missing get [].
+    durable=True fsyncs every rebuilt shard; a failed chunk removes all
+    its volumes' target files."""
+    from seaweedfs_tpu_torch.ec.ec_files import shard_presence
+
+    results: list[list[int]] = [[] for _ in base_file_names]
+    if not base_file_names:
+        return results
+    groups: dict[tuple, list[int]] = {}
+    for i, base in enumerate(base_file_names):
+        present, missing = shard_presence(base)
+        targets = tuple(missing)
+        if not targets:
+            continue
+        local_ids = [s for s, p in enumerate(present) if p]
+        if len(local_ids) < DATA_SHARDS:
+            raise ValueError(
+                f"too few local shard files to batch-rebuild {base}: "
+                f"{len(local_ids)} of {DATA_SHARDS}"
+            )
+        # the single-volume driver's ascending first-k survivor choice
+        groups.setdefault((tuple(local_ids[:DATA_SHARDS]), targets), []).append(i)
+
+    if not groups:
+        if stats is not None:
+            stats["batch_volumes"] = len(base_file_names)
+            stats["batch_groups"] = 0
+            if want_crcs:
+                stats["shard_crcs"] = [{} for _ in base_file_names]
+        return results
+    if codec is None:
+        codec = _default_mesh_codec(max(len(idxs) for idxs in groups.values()))
+
+    limit = pipeline_batch_limit()
+    crcs_by_vol: dict[int, dict] = {}
+    merged: dict = {}
+    for (survivors, targets), idxs in groups.items():
+        chunks = (
+            [idxs[i : i + limit] for i in range(0, len(idxs), limit)] if limit else [idxs]
+        )
+        for chunk in chunks:
+            chunk_stats: dict = {}
+            # the caller's codec is honoured when the chunk shards over
+            # its vol axis; otherwise a mesh sized to the chunk
+            chunk_codec = codec
+            if len(chunk) % codec.mesh.devices.shape[0]:
+                chunk_codec = _resized_codec(codec, len(chunk))
+            _rebuild_batch_chunk(
+                [base_file_names[i] for i in chunk], chunk_codec, survivors,
+                targets, tile_bytes, chunk_stats, durable, want_crcs,
+                reader_threads, writer_threads,
+            )
+            for i in chunk:
+                results[i] = list(targets)
+            if want_crcs:
+                for i, crcs in zip(chunk, chunk_stats.get("shard_crcs") or []):
+                    crcs_by_vol[i] = crcs
+            _merge_chunk_stats(merged, chunk_stats)
+    if stats is not None:
+        stats.update(merged)
+        stats["batch_volumes"] = len(base_file_names)
+        stats["batch_groups"] = len(groups)
+        if want_crcs:
+            stats["shard_crcs"] = [crcs_by_vol.get(i, {}) for i in range(len(base_file_names))]
+    return results
+
+
+def _rebuild_batch_chunk(
+    bases: list[str], codec, survivors: tuple[int, ...],
+    targets: tuple[int, ...], tile_bytes, stats, durable, want_crcs,
+    reader_threads, writer_threads,
+) -> None:
+    """One (survivors, targets)-homogeneous chunk: [k, step] survivor
+    tiles per volume into a [B, k, W] ring slot, one reconstruct round
+    through the mesh, the rebuilt rows pwritten. Any failure removes
+    every volume's target files."""
+    from seaweedfs_tpu_torch.ec.ec_files import to_ext
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    # local rebuilds take the fine tile, as the single-volume driver
+    tile_bytes = tile_bytes or DEFAULT_TILE_BYTES // 2
+    b = len(bases)
+    _check_vol_axis(b, codec)
+    stripe = codec.mesh.devices.shape[1]
+
+    sizes = [os.path.getsize(base + to_ext(survivors[0])) for base in bases]
+    rounds = max(-(-size // tile_bytes) for size in sizes)
+    if not rounds:
+        # all-empty shard sets: the rebuilt targets are empty files too
+        from seaweedfs_tpu_torch.util import durable as _durable
+
+        for base in bases:
+            for t in targets:
+                open(base + to_ext(t), "wb").close()
+                if durable:
+                    _durable.fsync_path(base + to_ext(t))
+        if stats is not None:
+            stats["batch_volumes"] = b
+            if want_crcs:
+                stats["shard_crcs"] = [{t: 0 for t in targets} for _ in bases]
+        return
+    step_of = [
+        [max(0, min(tile_bytes, sizes[v] - r * tile_bytes)) for v in range(b)]
+        for r in range(rounds)
+    ]
+    # one tile width for every round, rounded so the lane count splits
+    # over the stripe axis in whole 1024-lane chunks
+    max_step = max(step for row in step_of for step in row)
+    gran = 4 * 1024 * stripe
+    width = -(-max_step // gran) * gran
+    nt = len(targets)
+    round_crcs: list = [None] * rounds
+    read_local = EC_REPAIR_BYTES_READ.labels("local")
+
+    def fill(fds, r, buf3):
+        off = r * tile_bytes
+        for v in range(b):
+            step = step_of[r][v]
+            if not step:
+                continue  # volume done: output discarded
+            for j in range(DATA_SHARDS):
+                got = _pread_into(fds[v][j], buf3[v, j, :step], off)
+                read_local.inc(got)
+                if got != step:
+                    raise ValueError(
+                        f"ec shard {survivors[j]} truncated: expected "
+                        f"{step} at {off} ({bases[v] + to_ext(survivors[j])})"
+                    )
+
+    def write(r, buf3, fetch, out_fds, charge):
+        t0 = time.perf_counter()
+        rebuilt = fetch.wait().numpy().view(np.uint8)  # [b, nt, width]
+        t1 = time.perf_counter()
+        vol_crcs: list = [None] * b
+        host_rows = 0
+        if want_crcs:
+            for v in range(b):
+                step = step_of[r][v]
+                if step:
+                    vol_crcs[v] = [crc32c(rebuilt[v, t, :step]) for t in range(nt)]
+                    host_rows += nt
+        t2 = time.perf_counter()
+        off = r * tile_bytes
+        for v in range(b):
+            step = step_of[r][v]
+            if not step:
+                continue
+            for t in range(nt):
+                _pwrite_full(out_fds[v][t], rebuilt[v, t, :step], off)
+                EC_REPAIR_BYTES_WRITTEN.inc(step)
+        t3 = time.perf_counter()
+        if want_crcs:
+            round_crcs[r] = vol_crcs
+        charge("writeback_s", t1 - t0)
+        charge("compute_s", t2 - t1)
+        charge("write_s", t3 - t2)
+        charge("host_crc_rows", host_rows)
+
+    _run_batch_rounds(
+        bases, codec, rounds, width,
+        inputs=[[base + to_ext(s) for s in survivors] for base in bases],
+        outputs=[
+            [(base + to_ext(t), size) for t in targets] for base, size in zip(bases, sizes)
+        ],
+        fill=fill,
+        dispatch=lambda stage, buf3: stage.rebuild(buf3, survivors, targets),
+        write=write,
+        span="ec_stream.rebuild_batch",
+        nbytes=sum(sizes) * max(1, nt),
+        stats=stats,
+        durable=durable,
+        reader_threads=reader_threads or DEFAULT_READER_THREADS,
+        writer_threads=writer_threads or DEFAULT_WRITER_THREADS,
+    )
+    if stats is not None and want_crcs:
+        stats["shard_crcs"] = _fold_rebuild_batch_crcs(b, targets, step_of, round_crcs)
+
+
+def _fold_rebuild_batch_crcs(
+    b: int, targets: tuple[int, ...], step_of: list[list[int]], round_crcs: list
+) -> list[dict[int, int]]:
+    """Per-volume {rebuilt shard id: whole-file CRC} from the writer
+    pool's per-round records, folded in round order."""
+    from seaweedfs_tpu_torch.util.crc import crc32c_combine
+
+    out = []
+    for v in range(b):
+        acc = {tid: 0 for tid in targets}
+        for r, vol_crcs in enumerate(round_crcs):
+            step = step_of[r][v]
+            if not step or vol_crcs is None or vol_crcs[v] is None:
+                continue
+            for t, tid in enumerate(targets):
+                acc[tid] = crc32c_combine(acc[tid], vol_crcs[v][t], step)
+        out.append(acc)
+    return out

@@ -283,3 +283,92 @@ def test_plain_versions_do_not_count_as_launches():
     codec_cuda.gf_apply_u32(MATRICES["parity"], x)
     crc_kernel.crc32c_rows(x)
     assert (codec_cuda.LAUNCHES.value, crc_kernel.LAUNCHES.value) == before
+
+
+def _batch(b: int, n32: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 2**32, (b, 10, n32), dtype=np.uint32)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("b", [1, 3])
+def test_plain_k2_equals_pallas_interpret(name, b):
+    rows = MATRICES[name]
+    x = _batch(b, 512, b + len(name))
+    got = codec_cuda.gf_apply_u32_batch(rows, _u32(x)).numpy().view(np.uint32)
+    want = ref_codec_tpu.swar_apply_matrix_u32_batch(rows, x, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    for v in range(b):
+        np.testing.assert_array_equal(
+            got[v].view(np.uint8), ref_codec.cpu_apply_matrix(rows, x[v].view(np.uint8))
+        )
+
+
+def test_plain_k3_equals_pallas_interpret():
+    rows = MATRICES["parity"]
+    x = _batch(4, 512, 7)
+    parity = np.stack([ref_codec.cpu_apply_matrix(rows, v.view(np.uint8)) for v in x])
+    parity = parity.view(np.uint32).copy()
+    parity[1, 0, 5] ^= 1  # one lane
+    parity[3, 2, 100] ^= 0x00FF00FF  # two bytes of one lane: still one lane
+    parity[3, 3, 511] ^= 1 << 31
+    got = codec_cuda.gf_verify_u32_batch(rows, _u32(x), _u32(parity))
+    want = ref_codec_tpu.swar_verify_matrix_u32_batch(rows, x, parity, interpret=True)
+    assert got.dtype == torch.int32
+    assert got.tolist() == np.asarray(want).tolist() == [0, 1, 0, 2]
+
+
+def test_k2_k3_wrappers_validate_and_write_in_place():
+    rows = MATRICES["parity"]
+    x = _batch(2, 256, 8)
+    tile = torch.zeros((2, 14, 256), dtype=torch.int32)
+    tile[:, :10] = _u32(x)
+    out = codec_cuda.gf_apply_u32_batch(rows, tile[:, :10], out=tile[:, 10:])
+    assert out.data_ptr() == tile[:, 10:].data_ptr()
+    want = codec_cuda.gf_apply_batch_plain(rows, _u32(x))
+    assert torch.equal(tile[:, 10:], want)
+    assert codec_cuda.gf_verify_u32_batch(rows, tile[:, :10], tile[:, 10:]).tolist() == [0, 0]
+    with pytest.raises(ValueError):  # k mismatch
+        codec_cuda.gf_apply_u32_batch(rows, tile[:, :9])
+    with pytest.raises(ValueError):  # lanes not contiguous
+        codec_cuda.gf_apply_u32_batch(rows, tile[:, :10, ::2])
+    with pytest.raises(ValueError):  # 2-D tile
+        codec_cuda.gf_apply_u32_batch(rows, tile[0, :10])
+    with pytest.raises(ValueError):  # parity of another width
+        codec_cuda.gf_verify_u32_batch(rows, tile[:, :10], tile[:, 10:, :128])
+
+
+def test_batch_kernels_methods_match_reference_interpret():
+    """CudaCodecKernels' batch methods (K2, K3, K4 over [B, rows, n32])
+    against TpuCodecKernels' per-volume fused programs under the Pallas
+    interpreter."""
+    ref = ref_codec_tpu.TpuCodecKernels()
+    port = codec_cuda.CudaCodecKernels(device="cpu", matrix=ref.matrix)
+    x = _batch(3, 256, 9)
+    tile = torch.zeros((3 * 14, 256), dtype=torch.int32)
+    data, parity = port.batch_tile_parts(tile)
+    assert data.shape == (3, 10, 256) and parity.shape == (3, 4, 256)
+    assert data.is_contiguous() and parity.is_contiguous()
+    data.copy_(_u32(x))
+    crcs = port.encode_batch_tile_crc(tile).numpy().view(np.uint32)
+    raw = port.encode_batch_tile_crc(tile.clone(), raw=True)
+    np.testing.assert_array_equal(
+        crc_kernel.finalize_rows(raw, 1024).numpy().view(np.uint32), crcs
+    )
+    for v in range(3):
+        rpar, rcrcs = ref.encode_u32_crc(x[v], interpret=True)
+        np.testing.assert_array_equal(parity[v].numpy().view(np.uint32), np.asarray(rpar))
+        np.testing.assert_array_equal(crcs[v], np.asarray(rcrcs))
+    shards = torch.cat((data, parity), dim=1).numpy().view(np.uint32)
+    got = port.reconstruct_batch_u32(SURV4, LOST4, _u32(shards[:, list(SURV4)]))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), shards[:, list(LOST4)])
+    assert port.verify_batch_u32(data, parity).tolist() == [0, 0, 0]
+    np.testing.assert_array_equal(port.encode_batch_u32(data), parity)
+    with pytest.raises(ValueError):  # not a whole number of volumes
+        port.batch_tile_parts(tile[:13])
+
+
+def test_crc_segments_combine_to_the_whole_row():
+    x = np.random.default_rng(10).integers(0, 2**32, (5, 4096), dtype=np.uint32)
+    segs = [crc_kernel.crc_lin_rows(_u32(x[:, i : i + 1024])) for i in range(0, 4096, 1024)]
+    got = crc_kernel.combine_segments(segs, 4096).numpy().view(np.uint32)
+    assert got.tolist() == [ref_crc.crc32c(x[r].tobytes()) for r in range(5)]

@@ -123,3 +123,124 @@ def test_stage_pairs_on_the_card(card, tmp_path):
         ext = ec_files.to_ext(i)
         assert open(gpu + ext, "rb").read() == open(ref + ext, "rb").read()
         assert st["shard_crcs"][i] == cs["shard_crcs"][i]
+
+
+# --- K2 and K3: the batch kernels -------------------------------------------
+
+DECODE4 = gf256.decode_rows(MATRIX, SURV4, LOST4)
+
+
+@pytest.mark.parametrize("rows", [MATRIX[10:], DECODE4], ids=["encode", "decode4"])
+@pytest.mark.parametrize("b", [1, 5])
+def test_k2_equals_plain(card, rows, b):
+    x = _lanes((b, 10, 65536), 3 + b, card)
+    before = codec_cuda.BATCH_LAUNCHES.value
+    got = codec_cuda.gf_apply_u32_batch(rows, x)
+    torch.cuda.synchronize()
+    assert codec_cuda.BATCH_LAUNCHES.value == before + 1  # one launch a batch
+    assert torch.equal(got, codec_cuda.gf_apply_batch_plain(rows, x))
+    assert torch.equal(got[b - 1], codec_cuda.gf_apply_u32(rows, x[b - 1]))
+
+
+@pytest.mark.parametrize("n32", [1, 3, 1001, 4097])
+def test_k2_k3_ragged_and_unaligned(card, n32):
+    base = _lanes((3 * 10 * n32 + 1,), n32, card)
+    x = base[1:].view(3, 10, n32)  # 4-byte aligned only: the scalar variant
+    got = codec_cuda.gf_apply_u32_batch(DECODE4, x)
+    assert torch.equal(got, codec_cuda.gf_apply_batch_plain(DECODE4, x))
+    pbase = _lanes((3 * 4 * n32 + 1,), n32 + 1, card)
+    parity = pbase[1:].view(3, 4, n32)
+    parity.copy_(codec_cuda.gf_apply_batch_plain(MATRIX[10:], x))
+    parity[1, 2, n32 - 1] ^= 5
+    got = codec_cuda.gf_verify_u32_batch(MATRIX[10:], x, parity)
+    assert got.tolist() == [0, 1, 0]
+    assert torch.equal(got, codec_cuda.gf_verify_batch_plain(MATRIX[10:], x, parity))
+
+
+def test_k2_writes_parity_rows_of_a_tile_in_place(card):
+    tile = _lanes((6, 14, 8192), 11, card)
+    data = tile[:, :10].clone()
+    codec_cuda.gf_apply_u32_batch(MATRIX[10:], tile[:, :10], out=tile[:, 10:])
+    assert torch.equal(tile[:, :10], data)
+    assert torch.equal(tile[:, 10:], codec_cuda.gf_apply_batch_plain(MATRIX[10:], data))
+
+
+def test_batch_tile_crc_equals_plain(card):
+    """The fused batch encode on a batch tile (data part, then parity
+    part): one K2 and one K4 launch, equal to the plain versions on the
+    host."""
+    kern = codec_cuda.CudaCodecKernels(device=card)
+    tile = _lanes((5 * 14, 16384), 13, card)
+    host = tile.cpu()
+    counts = (codec_cuda.BATCH_LAUNCHES.value, crc_kernel.LAUNCHES.value)
+    crcs = kern.encode_batch_tile_crc(tile)
+    torch.cuda.synchronize()
+    assert (codec_cuda.BATCH_LAUNCHES.value, crc_kernel.LAUNCHES.value) == (
+        counts[0] + 1, counts[1] + 1)
+    want = codec_cuda.CudaCodecKernels(device="cpu").encode_batch_tile_crc(host)
+    assert torch.equal(tile.cpu(), host) and torch.equal(crcs.cpu(), want)
+
+
+def test_k3_planted_mismatches(card):
+    b = 70  # more volumes than blocks of a row: atomics from many blocks
+    x = _lanes((b, 10, 16384), 12, card)
+    parity = codec_cuda.gf_apply_batch_plain(MATRIX[10:], x)
+    before = codec_cuda.VERIFY_LAUNCHES.value
+    assert codec_cuda.gf_verify_u32_batch(MATRIX[10:], x, parity).tolist() == [0] * b
+    want = [0] * b
+    g = np.random.default_rng(0)
+    for v in (0, 3, 64, 69):
+        for _ in range(int(g.integers(1, 40))):
+            p, lane = int(g.integers(0, 4)), int(g.integers(0, 16384))
+            old = int(parity[v, p, lane])
+            parity[v, p, lane] = old ^ int(g.integers(1, 2**31))
+        want[v] = int((codec_cuda.gf_apply_batch_plain(MATRIX[10:], x[v : v + 1]) != parity[v : v + 1]).sum())
+    got = codec_cuda.gf_verify_u32_batch(MATRIX[10:], x, parity)
+    torch.cuda.synchronize()
+    assert codec_cuda.VERIFY_LAUNCHES.value == before + 2
+    assert got.tolist() == want
+    assert torch.equal(got, codec_cuda.gf_verify_batch_plain(MATRIX[10:], x, parity))
+
+
+def test_batch_drivers_on_the_card(card, tmp_path):
+    from seaweedfs_tpu_torch.ec import ec_stream
+
+    rng = np.random.default_rng(1)
+    bases, refs = [], []
+    for v in range(6):
+        data = rng.integers(0, 256, 3 * 10 * 65536 + 977 * v, dtype=np.uint8).tobytes()
+        for d, out in ((tmp_path / "g", bases), (tmp_path / "c", refs)):
+            d.mkdir(exist_ok=True)
+            out.append(str(d / f"{v + 1}"))
+            with open(out[-1] + ".dat", "wb") as f:
+                f.write(data)
+    blocks = dict(large_block_size=1 << 20, small_block_size=65536)
+    counts = (codec_cuda.BATCH_LAUNCHES.value, crc_kernel.LAUNCHES.value)
+    gs = {}
+    ec_files.write_ec_files_batch(bases, stats=gs, want_crcs=True, durable=True, **blocks)
+    assert codec_cuda.BATCH_LAUNCHES.value > counts[0]
+    assert crc_kernel.LAUNCHES.value > counts[1]
+    assert gs["mesh"]["vol"] * gs["mesh"]["stripe"] == torch.cuda.device_count()
+    assert gs["ring_pinned"] is True
+    cpu = new_encoder(backend="cpu")
+    for base, ref, crcs in zip(bases, refs, gs["shard_crcs"]):
+        ec_files.write_ec_files(ref, rs=cpu, buffer_size=65536, **blocks)
+        for i in range(14):
+            ext = ec_files.to_ext(i)
+            blob = open(base + ext, "rb").read()
+            assert blob == open(ref + ext, "rb").read()
+            assert crcs[i] == crc32c(blob)
+    lost = [(3,) if v % 2 else LOST4 for v in range(6)]
+    for base, ls in zip(bases, lost):
+        for i in ls:
+            os.remove(base + ec_files.to_ext(i))
+    before = codec_cuda.BATCH_LAUNCHES.value
+    st = {}
+    got = ec_stream.stream_rebuild_ec_files_batch(bases, stats=st, want_crcs=True)
+    assert got == [list(ls) for ls in lost] and st["batch_groups"] == 2
+    assert codec_cuda.BATCH_LAUNCHES.value > before
+    for base, ref, ls, crcs in zip(bases, refs, lost, st["shard_crcs"]):
+        for i in ls:
+            blob = open(base + ec_files.to_ext(i), "rb").read()
+            assert blob == open(ref + ec_files.to_ext(i), "rb").read()
+            assert crcs[i] == crc32c(blob)
