@@ -5,10 +5,13 @@
 
 Phases, each of which raises on a fault (the script then exits nonzero):
   1. the device: torch's name and count, nvidia-smi's name and power limit;
-  2. the kernels: build every CUDA source (all nvcc processes at once),
-     run each kernel at the main path's shapes, hold it byte-exact
-     against its plain PyTorch version on the card, time both with CUDA
-     events, and compute its bound on this card;
+  2. the kernels: build every CUDA source (all nvcc processes at once)
+     and log each GF kernel instantiation's registers and spills, run
+     each kernel at the main path's shapes (K1 with the encode, 4-shard
+     and 1-shard decode matrices), hold it byte-exact against its plain
+     PyTorch version on the card, time both with CUDA events, and
+     compute its bound on this card; then, untimed, hold K1, K2 and K3
+     against their plain versions over random (k, rows) matrices;
   3. the single-volume path: write one sealed volume (default 1 GiB)
      with the port's storage code, EC-encode it through
      ec_files.write_ec_files on the cuda backend (fused shard CRCs,
@@ -40,6 +43,7 @@ import argparse
 import filecmp
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -140,15 +144,15 @@ def check_gf(name: str, rows, seed: int, card: str) -> dict:
         for _ in range(8)
     ]
     outs = [torch.empty((r, LANES), dtype=torch.int32, device="cuda") for _ in xs]
-    masks = codec_cuda.gf_masks(rows)
-    got = codec_cuda.gf_apply_u32(rows, xs[0], masks)
+    terms = codec_cuda.gf_terms(rows)
+    got = codec_cuda.gf_apply_u32(rows, xs[0], terms)
     want = codec_cuda.gf_apply_plain(rows, xs[0])
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     if err or not torch.equal(got, want):
         raise AssertionError(f"K1 {name}: kernel disagrees with its plain version")
-    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], masks, outs[i % 8]))
-    eager_ms = _time_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], masks, outs[i % 8]), 200)
+    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], terms, outs[i % 8]))
+    eager_ms = _time_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], terms, outs[i % 8]), 200)
     plain_ms = _time_ms(lambda i: codec_cuda.gf_apply_plain(rows, xs[i % 8]), 5, warm=1)
     nbytes = (k + r) * 4 * LANES
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -163,6 +167,74 @@ def check_gf(name: str, rows, seed: int, card: str) -> dict:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
         "max_abs_err": err,
     }
+
+
+def sweep_gf(seed: int, draws: int = 48) -> int:
+    """Untimed exactness sweep of K1, K2 and K3 against their plain
+    versions over random matrices: k runs through 1..16 three times,
+    rows are drawn from 1..16, lane counts are ragged, and every draw
+    takes the vector variant (aligned rows) or the scalar one (rows one
+    lane off), K2 and K3 with a volume stride. Returns the calls checked."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def lanes(n):
+        return torch.randint(-(2**31), 2**31 - 1, (n,), dtype=torch.int32,
+                             device="cuda", generator=g)
+
+    checked = 0
+    for i in range(draws):
+        k, r = i % 16 + 1, int(rng.integers(1, 17))
+        rows = rng.integers(0, 256, (r, k), dtype=np.uint8)
+        rows[rng.random((r, k)) < 0.25] = 0
+        rows[0] &= (1 << int(rng.integers(1, 9))) - 1  # Horner starts below bit 7
+        vec = i % 2 == 0
+        n32 = int(rng.integers(1, 3000)) * (4 if vec else 1)
+        off = 0 if vec else 1
+        x = lanes(k * n32 + off)[off:].view(k, n32)
+        if not torch.equal(codec_cuda.gf_apply_u32(rows, x), codec_cuda.gf_apply_plain(rows, x)):
+            raise AssertionError(f"K1 disagrees with its plain version at k {k}, rows {r}, "
+                                 f"n32 {n32}, {'vector' if vec else 'scalar'}")
+        pad = 4 if vec else 1
+        xb = lanes(3 * (k * n32 + pad)).view(3, k * n32 + pad)[:, :k * n32].view(3, k, n32)
+        want = codec_cuda.gf_apply_batch_plain(rows, xb)
+        if not torch.equal(codec_cuda.gf_apply_u32_batch(rows, xb), want):
+            raise AssertionError(f"K2 disagrees with its plain version at k {k}, rows {r}, "
+                                 f"n32 {n32}, {'vector' if vec else 'scalar'}")
+        par = lanes(3 * (r * n32 + pad)).view(3, r * n32 + pad)[:, :r * n32].view(3, r, n32)
+        par.copy_(want)
+        par[1, r - 1, n32 - 1] ^= 0x10
+        counts = codec_cuda.gf_verify_u32_batch(rows, xb, par)
+        if counts.tolist() != [0, 1, 0] or not torch.equal(
+                counts, codec_cuda.gf_verify_batch_plain(rows, xb, par)):
+            raise AssertionError(f"K3 counts {counts.tolist()} at k {k}, rows {r}, n32 {n32}")
+        checked += 3
+    torch.cuda.synchronize()
+    return checked
+
+
+def ptxas_summary(logs: dict) -> list[str]:
+    """One line per kernel template and variant: registers for K = 1..16
+    and the largest spill, from the build's ptxas output."""
+    from seaweedfs_tpu_torch.sass_report import ptxas_regs
+
+    lines = []
+    for src, log in sorted(logs.items()):
+        by: dict = {}
+        for name, (regs, st, ld) in ptxas_regs(log).items():
+            m = re.search(r"(gf_\w+?_kernel)ILi(\d+)ELb([01])E", name)
+            key = (m.group(1), "vector" if m.group(3) == "1" else "scalar") if m else (name, "")
+            by.setdefault(key, []).append((int(m.group(2)) if m else 0, regs, max(st, ld)))
+        for (kern, variant), rows in sorted(by.items()):
+            rows.sort()
+            regs = " ".join(f"{k}:{n}" for k, n, _ in rows)
+            lines.append(f"{src} {kern} {variant}: registers by K {regs}; "
+                         f"largest spill {max(s for _, _, s in rows)} B")
+    return lines
 
 
 def check_crc(seed: int, card: str) -> dict:
@@ -217,15 +289,15 @@ def check_gf_batch(name: str, rows, seed: int, card: str) -> dict:
     x = torch.randint(-(2**31), 2**31 - 1, (BATCH, k, LANES), dtype=torch.int32,
                       device="cuda", generator=g)
     out = torch.empty((BATCH, r, LANES), dtype=torch.int32, device="cuda")
-    masks = codec_cuda.gf_masks(rows)
-    got = codec_cuda.gf_apply_u32_batch(rows, x, masks)
+    terms = codec_cuda.gf_terms(rows)
+    got = codec_cuda.gf_apply_u32_batch(rows, x, terms)
     want = codec_cuda.gf_apply_batch_plain(rows, x)
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     if err or not torch.equal(got, want):
         raise AssertionError(f"K2 {name}: kernel disagrees with its plain version")
     del got, want
-    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32_batch(rows, x, masks, out), iters=16)
+    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32_batch(rows, x, terms, out), iters=16)
     plain_ms = _time_ms(lambda i: codec_cuda.gf_apply_batch_plain(rows, x), 2, warm=1)
     nbytes = BATCH * (k + r) * 4 * LANES
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -253,21 +325,21 @@ def check_verify(rows, seed: int, card: str) -> dict:
     x = torch.randint(-(2**31), 2**31 - 1, (BATCH, k, LANES), dtype=torch.int32,
                       device="cuda", generator=g)
     parity = codec_cuda.gf_apply_batch_plain(rows, x)
-    masks = codec_cuda.gf_masks(rows)
-    clean = codec_cuda.gf_verify_u32_batch(rows, x, parity, masks)
+    terms = codec_cuda.gf_terms(rows)
+    clean = codec_cuda.gf_verify_u32_batch(rows, x, parity, terms)
     if clean.tolist() != [0] * BATCH:
         raise AssertionError(f"K3 flags clean parity: {clean.tolist()}")
     for v, n in ((1, 1), (6, 3), (15, 1000)):
         lanes = torch.randperm(LANES, device="cuda", generator=g)[:n]
         parity[v, v % r, lanes] ^= 0x01000100
-    got = codec_cuda.gf_verify_u32_batch(rows, x, parity, masks)
+    got = codec_cuda.gf_verify_u32_batch(rows, x, parity, terms)
     want = codec_cuda.gf_verify_batch_plain(rows, x, parity)
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     if err or got.tolist() != [1000 if v == 15 else 3 if v == 6 else int(v == 1)
                                for v in range(BATCH)]:
         raise AssertionError(f"K3: counts {got.tolist()}, plain {want.tolist()}")
-    ms = _kernel_ms(lambda i: codec_cuda.gf_verify_u32_batch(rows, x, parity, masks),
+    ms = _kernel_ms(lambda i: codec_cuda.gf_verify_u32_batch(rows, x, parity, terms),
                     iters=16)
     plain_ms = _time_ms(lambda i: codec_cuda.gf_verify_batch_plain(rows, x, parity), 2,
                         warm=1)
@@ -770,10 +842,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(_build.CUDA_SOURCES + ("crc32c.c",))
     log(f"built {_build.CUDA_SOURCES} and the host CRC shim in {time.perf_counter() - t0:.2f} s")
-    for src, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+    for line in ptxas_summary(_build.build_logs) or ["none: every library was already built"]:
+        log(f"  ptxas {line}")
 
     from seaweedfs_tpu_torch.ec import gf256
 
@@ -783,11 +853,18 @@ def main() -> int:
     survivors = tuple(i for i in range(14) if i not in lost)
     k1_dec = check_gf("decode4", gf256.decode_rows(matrix, survivors, lost),
                       args.seed + 1, card)
+    # the single-shard rebuild's matrix: shard 3 from the first 10 survivors
+    k1_dec1 = check_gf("decode1", gf256.decode_rows(
+        matrix, tuple(i for i in range(14) if i != 3)[:10], (3,)), args.seed + 6, card)
     k4 = check_crc(args.seed + 2, card)
     k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
     k2_dec = check_gf_batch("decode4", gf256.decode_rows(matrix, survivors, lost),
                             args.seed + 4, card)
     k3 = check_verify(matrix[10:], args.seed + 5, card)
+    t0 = time.perf_counter()
+    swept = sweep_gf(args.seed + 7)
+    log(f"K1/K2/K3 sweep over random (k, rows), k 1..16, rows 1..16, vector and scalar "
+        f"variants: {swept} calls byte-exact vs plain ({time.perf_counter() - t0:.2f} s)")
 
     root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
@@ -807,7 +884,7 @@ def main() -> int:
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, batch encode, "
         f"rebuild and verify) on {card}: {total}; K1 decode4 {k1_dec['ms']:.4f} ms, "
-        f"K2 decode4 {k2_dec['ms']:.4f} ms")
+        f"K1 decode1 {k1_dec1['ms']:.4f} ms, K2 decode4 {k2_dec['ms']:.4f} ms")
     log(smi)
 
     def row(name, source, replaces, *checks):
@@ -820,7 +897,7 @@ def main() -> int:
                 "library_ms": None}
 
     kernels = [
-        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec),
+        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1),
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
         row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4),

@@ -10,71 +10,80 @@
 // and out [B, rows, n32] uint32, with the SWAR Horner chain of
 // gf_swar.cuh. K1 is the B = 1 case of the same kernel.
 //
-// Bound: memory. Per word of stream the kernel reads k words and writes
-// `rows`: B * (k + rows) * 4 * n32 bytes at 3.35 TB/s. The Horner chains
-// are integer shifts, masks, XORs (three-input LOP3s) and one multiply
-// per doubling, which the compiler spreads over the integer and FMA
-// pipes.
+// Bound: memory, B * (k + rows) * 4 * n32 bytes at 3.35 TB/s. A matrix
+// given at launch still costs, per lane and output row, k LOP3s a Horner
+// step and a doubling (3 ALU-pipe, 2 FMA-pipe instructions) between
+// steps: ~100 ALU-pipe instructions a lane and row for RS(10,4), which
+// holds K2 near 57% of the byte bound on the integer ALU pipe (PERF.md).
+// gf_swar.cuh keeps that count at its floor (exact width, branch-free
+// terms, Horner start at maxj).
 // Design: one launch covers the whole batch (blockIdx.y is the volume),
 // so a round of the batch arm costs one launch per device, not one per
 // volume. Rows of a volume are n32 lanes apart; volumes are
 // `in_vstride` / `out_vstride` lanes apart, so K2 can read the data rows
 // of a [B, k + p, n32] tile and write its parity rows in place. Each
-// thread loads one 16-byte vector per input row with coalesced loads,
-// keeps all k vectors in registers, runs every output row's chain and
-// stores 16 bytes per output row. A scalar variant serves rows whose
-// length, stride or base address does not allow 16-byte vectors.
+// thread loads one vector of GF_LANES lanes per input row with coalesced
+// loads, keeps all k vectors in registers, runs every output row's chain
+// and stores one vector per output row. A scalar variant serves rows
+// whose length, stride or base address does not allow vectors.
 
 #include "gf_swar.cuh"
 
-template <bool VEC>
+template <int K, bool VEC>
 __global__ void __launch_bounds__(GF_THREADS) gf_apply_kernel(
     const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     long long n32, long long batch, long long in_vstride,
-    long long out_vstride, const GfMatrix m) {
+    long long out_vstride, const __grid_constant__ GfTerms<K> m) {
     const long long base =
-        4LL * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+        (long long)GF_LANES * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
     if (base >= n32) return;
     for (long long b = blockIdx.y; b < batch; b += gridDim.y) {
-        uint32_t x[GF_MAX_K][4];
-        gf_load_cols<VEC>(in + b * in_vstride, base, n32, m, x);
+        uint32_t x[K][GF_LANES];
+        gf_load_cols<K, VEC>(in + b * in_vstride, base, n32, x);
         uint32_t* ovol = out + b * out_vstride;
+#pragma unroll 1
         for (int p = 0; p < m.rows; p++) {
-            uint32_t y[4];
-            gf_row4(x, m, p, y);
-            gf_store4<VEC>(ovol + (long long)p * n32, base, n32, y);
+            uint32_t y[GF_LANES];
+            gf_row<K>(x, m.w[p], m.maxj[p], y);
+            gf_store<VEC>(ovol + (long long)p * n32, base, n32, y);
         }
     }
 }
 
 static int gf_launch(const void* in, void* out, long long batch, long long k,
                      long long rows, long long n32, long long in_vstride,
-                     long long out_vstride, const void* masks,
+                     long long out_vstride, const void* words,
                      const void* maxj, void* stream) {
-    GfMatrix m;
-    if (batch < 1 || n32 < 1 || !gf_matrix_from(masks, maxj, k, rows, &m))
+    if (batch < 1 || n32 < 1 || rows < 1 || rows > GF_MAX_ROWS)
         return (int)cudaErrorInvalidValue;
     const dim3 grid = gf_grid(n32, batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const uint32_t* src = static_cast<const uint32_t*>(in);
     uint32_t* dst = static_cast<uint32_t*>(out);
-    if (gf_vec_ok(n32, in, in_vstride, out, out_vstride))
-        gf_apply_kernel<true><<<grid, GF_THREADS, 0, s>>>(
-            src, dst, n32, batch, in_vstride, out_vstride, m);
-    else
-        gf_apply_kernel<false><<<grid, GF_THREADS, 0, s>>>(
-            src, dst, n32, batch, in_vstride, out_vstride, m);
-    return (int)cudaGetLastError();
+    const bool vec = gf_vec_ok(n32, in, in_vstride, out, out_vstride);
+    return gf_with_k(k, [&](auto kc) {
+        constexpr int K = decltype(kc)::value;
+        GfTerms<K> m;
+        gf_terms_from<K>(words, maxj, rows, &m);
+        if (vec)
+            gf_apply_kernel<K, true><<<grid, GF_THREADS, 0, s>>>(
+                src, dst, n32, batch, in_vstride, out_vstride, m);
+        else
+            gf_apply_kernel<K, false><<<grid, GF_THREADS, 0, s>>>(
+                src, dst, n32, batch, in_vstride, out_vstride, m);
+        return (int)cudaGetLastError();
+    });
 }
 
 // K1. in: [k, n32] uint32, out: [rows, n32] uint32, both device
-// pointers, rows contiguous. masks: host [rows * 8] uint32, maxj: host
-// [rows] int32. Launches on `stream`; returns cudaGetLastError().
+// pointers, rows contiguous. words: host [rows, 8, k] uint32 (0 or ~0),
+// maxj: host [rows] int32 (codec_cuda.gf_terms). Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int gf_apply_u32(const void* in, void* out, long long k,
                             long long rows, long long n32,
-                            const void* masks, const void* maxj,
+                            const void* words, const void* maxj,
                             void* stream) {
-    return gf_launch(in, out, 1, k, rows, n32, 0, 0, masks, maxj, stream);
+    return gf_launch(in, out, 1, k, rows, n32, 0, 0, words, maxj, stream);
 }
 
 // K2. in: [batch, k, n32] and out: [batch, rows, n32] uint32 device
@@ -83,8 +92,8 @@ extern "C" int gf_apply_u32(const void* in, void* out, long long k,
 extern "C" int gf_apply_u32_batch(const void* in, void* out, long long batch,
                                   long long k, long long rows, long long n32,
                                   long long in_vstride, long long out_vstride,
-                                  const void* masks, const void* maxj,
+                                  const void* words, const void* maxj,
                                   void* stream) {
     return gf_launch(in, out, batch, k, rows, n32, in_vstride, out_vstride,
-                     masks, maxj, stream);
+                     words, maxj, stream);
 }

@@ -5,12 +5,13 @@ The counterpart of seaweedfs_tpu/ec/codec_tpu.py. Streams are u32
 lanes (4 stream bytes per lane, little-endian: numpy
 ``.view(np.uint32)``) carried in int32 tensors. On a CUDA tensor
 `gf_apply_u32` and `gf_apply_u32_batch` launch csrc/gf_apply.cu, and
-`gf_verify_u32_batch` launches csrc/gf_verify.cu (see their headers for
-the design and bound: the coefficient matrix is a per-launch argument
-of per-(row, bit) column masks, so one compiled kernel serves encode
-and every decode matrix, at any lane count). On a CPU tensor each runs
-its plain version below: a byte-level MUL-table gather, independent of
-the SWAR arithmetic the kernels use.
+`gf_verify_u32_batch` launches csrc/gf_verify.cu (see their headers and
+csrc/gf_swar.cuh for the design and bound: the coefficient matrix is a
+per-launch argument of one 0-or-all-ones word per (row, bit, column),
+gf_terms, so one compiled kernel per column count serves encode and
+every decode matrix, at any lane count). On a CPU tensor each runs its
+plain version below: a byte-level MUL-table gather, independent of the
+SWAR arithmetic the kernels use.
 
 Encode uses the parity rows of the code matrix; reconstruct uses rows
 from gf256.decode_rows (the survivor-matrix inversion stays on the
@@ -34,26 +35,24 @@ from seaweedfs_tpu_torch.ec.codec import register_backend
 LAUNCHES = _build.LaunchCounter("gf_apply")
 BATCH_LAUNCHES = _build.LaunchCounter("gf_apply_batch")
 VERIFY_LAUNCHES = _build.LaunchCounter("gf_verify_batch")
-_MAX_K = 16  # csrc/gf_apply.cu GF_MAX_K / GF_MAX_ROWS
+_MAX_K = 16  # csrc/gf_swar.cuh GF_MAX_K / GF_MAX_ROWS
 _MAX_ROWS = 16
 _STATE_ROW_LANES = 262144  # K4 tables kept in CodecState: 1 MiB rows
 
 
-def gf_masks(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """K1's matrix argument for GF coefficient rows [r, k]:
-    masks [r, 8] uint32 (bit c of masks[p, j] set when rows[p, c] has
-    bit j) and maxj [r] int32 (highest j with a nonempty set)."""
+def gf_terms(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The kernels' matrix argument for GF coefficient rows [r, k]:
+    words [r, 8, k] uint32, 0xFFFFFFFF where rows[p, c] has bit j and 0
+    elsewhere (a Horner term is then `y ^= x[c] & words[p, j, c]`), and
+    maxj [r] int32, the highest j with a nonzero word (Horner start)."""
     rows = np.asarray(rows, dtype=np.uint8)
-    r, k = rows.shape
-    bits = (rows[:, None, :] >> np.arange(8)[None, :, None]) & 1  # [r, 8, k]
-    masks = (bits.astype(np.uint32) << np.arange(k, dtype=np.uint32)).sum(
-        axis=2, dtype=np.uint32
-    )
-    nonempty = masks != 0
+    bits = (rows[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]) & 1
+    words = bits.astype(np.uint32) * np.uint32(0xFFFFFFFF)  # [r, 8, k]
+    nonempty = bits.any(axis=2)  # [r, 8]
     maxj = np.where(
         nonempty.any(axis=1), 7 - np.argmax(nonempty[:, ::-1], axis=1), 0
     ).astype(np.int32)
-    return np.ascontiguousarray(masks), np.ascontiguousarray(maxj)
+    return np.ascontiguousarray(words), np.ascontiguousarray(maxj)
 
 
 # --- plain version ----------------------------------------------------------
@@ -141,12 +140,12 @@ def _kernel(src: str = "gf_apply.cu"):
 def gf_apply_u32(
     rows: np.ndarray,
     x_u32: torch.Tensor,
-    masks: tuple[np.ndarray, np.ndarray] | None = None,
+    terms: tuple[np.ndarray, np.ndarray] | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[k, n32] int32 lanes -> [r, n32] int32 lanes of GF(2^8) products
     with coefficient rows [r, k]. Launches K1 on a CUDA tensor (current
-    stream; `masks` is gf_masks(rows), precomputed by callers that
+    stream; `terms` is gf_terms(rows), precomputed by callers that
     reuse a matrix; `out` an optional preallocated [r, n32] result);
     runs the plain version on a CPU tensor."""
     rows = np.asarray(rows, dtype=np.uint8)
@@ -178,12 +177,12 @@ def gf_apply_u32(
         or not out.is_contiguous()
     ):
         raise ValueError("gf_apply_u32: out must be a contiguous [r, n32] int32 tensor")
-    m, mj = masks if masks is not None else gf_masks(rows)
+    w, mj = terms if terms is not None else gf_terms(rows)
     lib = _kernel()
     stream = torch.cuda.current_stream(x_u32.device).cuda_stream
     err = lib.gf_apply_u32(
         x_u32.data_ptr(), out.data_ptr(), k, r, n32,
-        m.ctypes.data, mj.ctypes.data, stream,
+        w.ctypes.data, mj.ctypes.data, stream,
     )
     _build.check(err, "gf_apply launch")
     LAUNCHES.inc()
@@ -209,7 +208,7 @@ def _check_batch(x: torch.Tensor, rows: int, n32: int | None, what: str) -> None
 def gf_apply_u32_batch(
     rows: np.ndarray,
     x_u32: torch.Tensor,
-    masks: tuple[np.ndarray, np.ndarray] | None = None,
+    terms: tuple[np.ndarray, np.ndarray] | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[B, k, n32] int32 lanes -> [B, r, n32]: gf_apply_u32 over a batch
@@ -239,12 +238,12 @@ def gf_apply_u32_batch(
         out = torch.empty((b, r, n32), dtype=torch.int32, device=x_u32.device)
     if b == 0:
         return out
-    m, mj = masks if masks is not None else gf_masks(rows)
+    w, mj = terms if terms is not None else gf_terms(rows)
     lib = _kernel()
     stream = torch.cuda.current_stream(x_u32.device).cuda_stream
     err = lib.gf_apply_u32_batch(
         x_u32.data_ptr(), out.data_ptr(), b, k, r, n32, x_u32.stride(0),
-        out.stride(0), m.ctypes.data, mj.ctypes.data, stream,
+        out.stride(0), w.ctypes.data, mj.ctypes.data, stream,
     )
     _build.check(err, "gf_apply_batch launch")
     BATCH_LAUNCHES.inc()
@@ -255,7 +254,7 @@ def gf_verify_u32_batch(
     rows: np.ndarray,
     x_u32: torch.Tensor,
     parity_u32: torch.Tensor,
-    masks: tuple[np.ndarray, np.ndarray] | None = None,
+    terms: tuple[np.ndarray, np.ndarray] | None = None,
 ) -> torch.Tensor:
     """Data [B, k, n32] + parity [B, r, n32] int32 lanes -> [B] int32
     counts of mismatched (parity row, u32 lane) pairs, 0 = verified,
@@ -279,12 +278,12 @@ def gf_verify_u32_batch(
     counts = torch.empty(b, dtype=torch.int32, device=x_u32.device)
     if b == 0:
         return counts
-    m, mj = masks if masks is not None else gf_masks(rows)
+    w, mj = terms if terms is not None else gf_terms(rows)
     lib = _kernel("gf_verify.cu")
     stream = torch.cuda.current_stream(x_u32.device).cuda_stream
     err = lib.gf_verify_u32_batch(
         x_u32.data_ptr(), parity_u32.data_ptr(), counts.data_ptr(), b, k, r,
-        n32, x_u32.stride(0), parity_u32.stride(0), m.ctypes.data,
+        n32, x_u32.stride(0), parity_u32.stride(0), w.ctypes.data,
         mj.ctypes.data, stream,
     )
     _build.check(err, "gf_verify_batch launch")
@@ -341,12 +340,12 @@ register_backend("cuda", cuda_apply_matrix)
 @dataclass
 class CodecState:
     """What the kernels need for one code matrix: the [n, k] matrix,
-    K1's masks for the parity rows, a decode-row cache keyed by
-    (survivors, targets), and K4's lane and Z-shift column tables (the
-    latter for 1 MiB rows, the pipeline's tile)."""
+    the term words (gf_terms) of the parity rows, a decode-row cache
+    keyed by (survivors, targets), and K4's lane and Z-shift column
+    tables (the latter for 1 MiB rows, the pipeline's tile)."""
 
     matrix: np.ndarray
-    parity_masks: tuple[np.ndarray, np.ndarray]
+    parity_terms: tuple[np.ndarray, np.ndarray]
     lane_cols: tuple[int, ...]
     zcols: np.ndarray
     decode_cache: dict = field(default_factory=dict)
@@ -361,7 +360,7 @@ def codec_state_from_numpy(matrix: np.ndarray) -> CodecState:
         raise ValueError("expected a systematic [n, k] code matrix")
     return CodecState(
         matrix=matrix,
-        parity_masks=gf_masks(matrix[k:]),
+        parity_terms=gf_terms(matrix[k:]),
         lane_cols=crc_kernel._lane_cols(),
         zcols=crc_kernel.kernel_zcols(_STATE_ROW_LANES),
     )
@@ -392,7 +391,7 @@ class CudaCodecKernels:
     def encode_u32(self, data_u32: torch.Tensor) -> torch.Tensor:
         """[k, n32] lanes -> parity [p, n32] lanes."""
         return gf_apply_u32(
-            self.matrix[self.data_shards :], data_u32, self.state.parity_masks
+            self.matrix[self.data_shards :], data_u32, self.state.parity_terms
         )
 
     def encode_u32_crc(
@@ -414,7 +413,7 @@ class CudaCodecKernels:
         checksums all k+p rows. Returns the [k+p] int32 CRCs."""
         k = self.data_shards
         gf_apply_u32(
-            self.matrix[k:], tile[:k], self.state.parity_masks, out=tile[k:]
+            self.matrix[k:], tile[:k], self.state.parity_terms, out=tile[k:]
         )
         return crc_kernel.crc32c_rows(tile)
 
@@ -422,7 +421,7 @@ class CudaCodecKernels:
         self, survivors: tuple[int, ...], targets: tuple[int, ...]
     ) -> np.ndarray:
         """GF rows mapping the k survivor shards (ascending) to
-        `targets`, cached with their K1 masks."""
+        `targets`, cached with their term words."""
         return self._decode(survivors, targets)[0]
 
     def _decode(self, survivors, targets):
@@ -431,7 +430,7 @@ class CudaCodecKernels:
             got = self.state.decode_cache.get(key)
         if got is None:
             rows = gf256.decode_rows(self.matrix, key[0], key[1])
-            got = (rows, gf_masks(rows))
+            got = (rows, gf_terms(rows))
             with self._lock:
                 if len(self.state.decode_cache) > 512:
                     self.state.decode_cache.clear()  # bound, rarely hit
@@ -446,8 +445,8 @@ class CudaCodecKernels:
     ) -> torch.Tensor:
         """Survivor tile [k, n32] (in `survivors` order) -> rebuilt
         [len(targets), n32] lanes."""
-        rows, masks = self._decode(survivors, targets)
-        return gf_apply_u32(rows, shard_data_u32, masks)
+        rows, terms = self._decode(survivors, targets)
+        return gf_apply_u32(rows, shard_data_u32, terms)
 
     def reconstruct_u32_crc(
         self,
@@ -464,7 +463,7 @@ class CudaCodecKernels:
     def encode_batch_u32(self, data_u32: torch.Tensor) -> torch.Tensor:
         """[B, k, n32] lanes -> parity [B, p, n32] lanes, one K2 launch."""
         return gf_apply_u32_batch(
-            self.matrix[self.data_shards :], data_u32, self.state.parity_masks
+            self.matrix[self.data_shards :], data_u32, self.state.parity_terms
         )
 
     def batch_tile_parts(self, tile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -489,7 +488,7 @@ class CudaCodecKernels:
         final xor, which compose across stream segments)."""
         data, parity = self.batch_tile_parts(tile)
         gf_apply_u32_batch(
-            self.matrix[self.data_shards :], data, self.state.parity_masks, out=parity
+            self.matrix[self.data_shards :], data, self.state.parity_terms, out=parity
         )
         crcs = crc_kernel.crc_lin_rows(tile) if raw else crc_kernel.crc32c_rows(tile)
         b, k = data.shape[:2]
@@ -503,8 +502,8 @@ class CudaCodecKernels:
     ) -> torch.Tensor:
         """Survivor batch [B, k, n32] (in `survivors` order) -> rebuilt
         [B, len(targets), n32] lanes, one K2 launch."""
-        rows, masks = self._decode(survivors, targets)
-        return gf_apply_u32_batch(rows, shard_data_u32, masks)
+        rows, terms = self._decode(survivors, targets)
+        return gf_apply_u32_batch(rows, shard_data_u32, terms)
 
     def verify_batch_u32(
         self, data_u32: torch.Tensor, parity_u32: torch.Tensor
@@ -513,5 +512,5 @@ class CudaCodecKernels:
         the data's, one K3 launch."""
         return gf_verify_u32_batch(
             self.matrix[self.data_shards :], data_u32, parity_u32,
-            self.state.parity_masks,
+            self.state.parity_terms,
         )

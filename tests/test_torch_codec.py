@@ -57,16 +57,20 @@ def test_plain_k1_ragged_lane_counts(n32):
 
 
 def test_gf_masks_match_reference_schedule():
+    """The kernels' term words select exactly the reference schedule's
+    (row, bit) column sets, and maxj is its Horner start."""
     for rows in MATRICES.values():
         r, k = rows.shape
         sel, maxj, _ = ref_codec_tpu._swar_schedule(
             tuple(int(v) for v in rows.reshape(-1)), r, k
         )
-        masks, got_maxj = codec_cuda.gf_masks(rows)
+        words, got_maxj = codec_cuda.gf_terms(rows)
+        assert words.shape == (r, 8, k) and words.dtype == np.uint32
+        assert set(np.unique(words).tolist()) <= {0, 0xFFFFFFFF}
         assert got_maxj.tolist() == maxj
         for p in range(r):
             for j in range(8):
-                assert [c for c in range(k) if (int(masks[p, j]) >> c) & 1] == sel[p][j]
+                assert [c for c in range(k) if words[p, j, c]] == sel[p][j]
 
 
 def test_gf_apply_out_and_validation():
@@ -248,9 +252,9 @@ def test_default_backend(monkeypatch):
 def test_codec_state_from_reference_matrix():
     state = codec_cuda.codec_state_from_numpy(ref_codec_tpu.TpuCodecKernels().matrix)
     np.testing.assert_array_equal(state.matrix, codec.new_encoder(backend="cpu").matrix)
-    masks, maxj = codec_cuda.gf_masks(REF_MATRIX[10:])
-    np.testing.assert_array_equal(state.parity_masks[0], masks)
-    np.testing.assert_array_equal(state.parity_masks[1], maxj)
+    words, maxj = codec_cuda.gf_terms(REF_MATRIX[10:])
+    np.testing.assert_array_equal(state.parity_terms[0], words)
+    np.testing.assert_array_equal(state.parity_terms[1], maxj)
     with pytest.raises(ValueError):
         codec_cuda.codec_state_from_numpy(REF_MATRIX[4:])
 

@@ -69,6 +69,34 @@ def test_k1_ragged_and_unaligned(card, n32):
     assert torch.equal(got, codec_cuda.gf_apply_plain(MATRIX[10:], x))
 
 
+def _random_rows(r, k, seed):
+    """Random GF rows with zero coefficients and a first row whose top
+    bit is below 7 (the Horner chain then starts lower)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    rows[rng.random((r, k)) < 0.25] = 0
+    rows[0] &= 0x3F
+    return rows
+
+
+@pytest.mark.parametrize("r", [1, 4, 16])
+@pytest.mark.parametrize("k", range(1, 17))
+def test_k1_k2_every_width(card, k, r):
+    """K1 and K2 at every column count (one kernel instantiation each)
+    against the plain versions: vector rows, scalar rows one lane off
+    with a ragged lane count, and a batch with a volume stride."""
+    rows = _random_rows(r, k, 100 * k + r)
+    x = _lanes((k, 4096), k, card)
+    assert torch.equal(codec_cuda.gf_apply_u32(rows, x), codec_cuda.gf_apply_plain(rows, x))
+    n32 = 1001
+    xs = _lanes((k * n32 + 1,), k + 1, card)[1:].view(k, n32)
+    assert torch.equal(codec_cuda.gf_apply_u32(rows, xs), codec_cuda.gf_apply_plain(rows, xs))
+    for pad, n in ((4, 2048), (1, n32)):  # vector and scalar batch rows
+        xb = _lanes((3, k * n + pad), k + pad, card)[:, : k * n].view(3, k, n)
+        got = codec_cuda.gf_apply_u32_batch(rows, xb)
+        assert torch.equal(got, codec_cuda.gf_apply_batch_plain(rows, xb))
+
+
 def test_k4_equals_plain_at_tile_width(card):
     x = _lanes((14, LANES), 2, card)
     before = crc_kernel.LAUNCHES.value
