@@ -8,10 +8,12 @@ Phases, each of which raises on a fault (the script then exits nonzero):
   2. the kernels: build every CUDA source (all nvcc processes at once)
      and log each GF kernel instantiation's registers and spills, run
      each kernel at the main path's shapes (K1 with the encode, 4-shard
-     and 1-shard decode matrices), hold it byte-exact against its plain
-     PyTorch version on the card, time both with CUDA events, and
+     and 1-shard decode matrices; K4 at every row count the paths give
+     it: 1, 4, 14 and 224 rows of 1 MiB), hold it byte-exact against its
+     plain PyTorch version on the card, time both with CUDA events, and
      compute its bound on this card; then, untimed, hold K1, K2 and K3
-     against their plain versions over random (k, rows) matrices;
+     against their plain versions over random (k, rows) matrices, and K4
+     over random row counts and ragged, unaligned rows;
   3. the single-volume path: write one sealed volume (default 1 GiB)
      with the port's storage code, EC-encode it through
      ec_files.write_ec_files on the cuda backend (fused shard CRCs,
@@ -32,7 +34,8 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      one rebuild_ec_files_batch call (two signature groups); verify 16
      volumes with MeshCodec.verify_batch_u32, clean and with planted
      faults; the batch kernels' counters must grow in each run;
-  5. the report: a `kernels` JSON line, then the final status line.
+  5. the report: K4's time, bound and launches at each of its shapes,
+     a `kernels` JSON line, then the final status line.
 
 Without a CUDA device it prints the reason and exits 1 before any result.
 """
@@ -70,6 +73,11 @@ BATCH = 16  # volumes per round of the batch phase (WEED_EC_PIPELINE_BATCH)
 # BASELINE.json config 3: 256 sealed volumes, here of ~4 MiB of .dat each
 BATCH_VOLUMES = 256
 BATCH_VOLUME_BYTES = 4 << 20
+# K4's shapes on the paths: (path, rows of LANES lanes) — the 1- and
+# 4-shard rebuilds, the single-volume encode's [14, n] tile and the
+# batch encode's [224, n] round tile
+CRC_SHAPES = (("rebuild1", 1), ("rebuild4", 4), ("encode", 14), ("batch_encode", 224))
+CRC_POOL_WORDS = 64 << 20  # 256 MiB of lanes K4's timed inputs are sliced from
 
 
 def log(msg: str) -> None:
@@ -106,13 +114,18 @@ def _time_ms(fn, iters: int, warm: int = 3) -> float:
 def _kernel_ms(fn, iters: int = 64, replays: int = 5) -> float:
     """Mean device ms per kernel call: `iters` calls of fn(i) captured
     in one CUDA graph and replayed, so the host's per-launch cost
-    (Python checks, ctypes) stays out of the kernel's time."""
+    (Python checks, ctypes) stays out of the kernel's time. The warm-up
+    call runs on the capture stream: a stream's first K4 call makes its
+    ticket buffer, which no capture may do."""
     import torch
 
-    fn(0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(0)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fn(i)
     graph.replay()
@@ -238,43 +251,114 @@ def ptxas_summary(logs: dict) -> list[str]:
 
 
 def check_crc(seed: int, card: str) -> dict:
+    """K4 at every shape the paths launch it with (CRC_SHAPES): at each,
+    byte-exact against its plain version and the host shim (final and
+    raw forms), then timed over distinct inputs sliced from one 256 MiB
+    tensor (every timed run of launches reads at least 128 MiB, beyond
+    the 50 MB L2). The returned ms, plain_ms and bound_ms are [14, n]'s,
+    the single-volume encode's tile; `shapes` holds every shape's."""
     import torch
 
     from seaweedfs_tpu_torch.ec import crc_kernel
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    xs = [
-        torch.randint(-(2**31), 2**31 - 1, (14, LANES), dtype=torch.int32,
-                      device="cuda", generator=g)
-        for _ in range(4)
-    ]
-    got = crc_kernel.crc32c_rows(xs[0])
-    want = crc_kernel.crc32c_rows_plain(xs[0])
-    torch.cuda.synchronize()
-    err = _max_abs_err(got, want)
-    if err or not torch.equal(got, want):
-        raise AssertionError("K4 crc32c_rows: kernel disagrees with its plain version")
-    # and both with the host shim on the same bytes
     from seaweedfs_tpu_torch.util.crc import crc32c
 
-    host = xs[0].cpu().numpy()
-    if [crc32c(host[i]) for i in range(14)] != [int(v) for v in got.cpu().numpy().view(np.uint32)]:
-        raise AssertionError("K4 crc32c_rows disagrees with the host CRC-32C")
-    ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % 4]))
-    eager_ms = _time_ms(lambda i: crc_kernel.crc32c_rows(xs[i % 4]), 200)
-    plain_ms = _time_ms(lambda i: crc_kernel.crc32c_rows_plain(xs[i % 4]), 2, warm=1)
-    nbytes = 14 * 4 * LANES + 14 * 4
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(
-        f"K4 crc32c_rows [14,{LANES}] on {card}: byte-exact vs plain and host "
-        f"shim (max_abs_err 0); kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
-        f"{eager_ms:.4f} ms a call launched eagerly from Python), "
-        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.3f} of it)"
-    )
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.randint(-(2**31), 2**31 - 1, (CRC_POOL_WORDS,), dtype=torch.int32,
+                         device="cuda", generator=g)
+    shapes, err = {}, 0
+    for path, rows in CRC_SHAPES:
+        per = rows * LANES
+        xs = [pool[i * per:(i + 1) * per].view(rows, LANES)
+              for i in range(CRC_POOL_WORDS // per)]
+        got = crc_kernel.crc32c_rows(xs[0])
+        want = crc_kernel.crc32c_rows_plain(xs[0])
+        raw = crc_kernel.crc_lin_rows(xs[0])
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(got, want))
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}]: kernel disagrees "
+                                 f"with its plain version")
+        if not torch.equal(crc_kernel.finalize_rows(raw, 4 * LANES), got):
+            raise AssertionError(f"K4 crc_lin_rows [{rows},{LANES}]: raw form disagrees")
+        host = xs[0].cpu().numpy()
+        if [crc32c(host[i]) for i in range(rows)] != [
+                int(v) for v in got.cpu().numpy().view(np.uint32)]:
+            raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}] disagrees with the "
+                                 f"host CRC-32C")
+        iters = min(256, max(16, len(xs)))
+        ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]), iters=iters)
+        nbytes = rows * 4 * LANES + rows * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes[rows] = {"path": path, "ms": ms, "bound_ms": bound}
+        log(f"K4 crc32c_rows [{rows},{LANES}] on {card}: byte-exact vs plain, host shim "
+            f"and raw form (max_abs_err 0); kernel {ms:.4f} ms over {min(iters, len(xs))} "
+            f"distinct inputs of {per >> 18} MiB ({nbytes / ms / 1e6:.1f} GB/s), bound "
+            f"{bound:.4f} ms (bytes; {bound / ms:.3f} of it)")
+    x14 = [pool[i * 14 * LANES:(i + 1) * 14 * LANES].view(14, LANES) for i in range(4)]
+    eager_ms = _time_ms(lambda i: crc_kernel.crc32c_rows(x14[i % 4]), 200)
+    plain_ms = _time_ms(lambda i: crc_kernel.crc32c_rows_plain(x14[i % 4]), 2, warm=1)
+    log(f"K4 crc32c_rows [14,{LANES}] on {card}: {eager_ms:.4f} ms a call launched "
+        f"eagerly from Python, plain {plain_ms:.3f} ms")
+    del pool, xs, x14
     return {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "max_abs_err": err,
+        "ms": shapes[14]["ms"], "plain_ms": plain_ms, "bound_ms": shapes[14]["bound_ms"],
+        "bound_by": "bytes", "max_abs_err": err, "shapes": shapes,
     }
+
+
+def crc_shape_lines(k4: dict, runs: dict, card: str) -> list[str]:
+    """One line per K4 shape with the launches the paths made at it, and
+    the sum of launches x (ms - bound) over the shapes."""
+    lines, loss = [], 0.0
+    for rows, s in sorted(k4["shapes"].items()):
+        n = runs[s["path"]]["launches"]["crc32c_rows"]
+        loss += n * (s["ms"] - s["bound_ms"])
+        lines.append(f"K4 [{rows},{LANES}] on {card}: {s['ms']:.4f} ms, bound "
+                     f"{s['bound_ms']:.5f} ms, share {s['bound_ms'] / s['ms']:.3f}, launches "
+                     f"{n} ({s['path']}), launches x (ms - bound) "
+                     f"{n * (s['ms'] - s['bound_ms']):.3f} ms")
+    lines.append(f"K4 launches x (ms - bound) over the four shapes on {card}: {loss:.3f} ms")
+    return lines
+
+
+def sweep_crc(seed: int, draws: int = 40) -> int:
+    """Untimed exactness sweep of K4 against its plain version and the
+    host shim, final and raw forms: rows drawn from 1..300, ragged lane
+    counts (1, 5, 4095, 4097 and 2^21 + 3, whose row fold takes runs of
+    several chunks, then random ones), aligned rows (the vector variant)
+    and rows one lane off (the scalar one). Returns the calls checked."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import crc_kernel
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [(n, False) for n in (1, 5, 4095, 4097, (1 << 21) + 3)]
+    cases += [(4096, True), ((1 << 21) + 4, True)]
+    for i in range(draws):
+        vec = i % 2 == 0
+        cases.append((int(rng.integers(1, 20000)) * (4 if vec else 1), vec))
+    checked = 0
+    for n32, vec in cases:
+        # at most 16 MiB a draw: the plain version works in int64 columns
+        rows = min(int(rng.integers(1, 301)), max(1, (4 << 20) // n32))
+        off = 0 if vec else 1
+        x = torch.randint(-(2**31), 2**31 - 1, (rows * n32 + off,), dtype=torch.int32,
+                          device="cuda", generator=g)[off:].view(rows, n32)
+        got, raw = crc_kernel.crc32c_rows(x), crc_kernel.crc_lin_rows(x)
+        host = x.cpu().numpy()
+        what = f"rows {rows}, n32 {n32}, {'vector' if vec else 'scalar'}"
+        if not torch.equal(got, crc_kernel.crc32c_rows_plain(x)):
+            raise AssertionError(f"K4 disagrees with its plain version at {what}")
+        if not torch.equal(crc_kernel.finalize_rows(raw, 4 * n32), got):
+            raise AssertionError(f"K4 raw form disagrees with the final one at {what}")
+        if [crc32c(host[i]) for i in range(rows)] != [
+                int(v) for v in got.cpu().numpy().view(np.uint32)]:
+            raise AssertionError(f"K4 disagrees with the host CRC-32C at {what}")
+        checked += 2
+    torch.cuda.synchronize()
+    return checked
 
 
 def check_gf_batch(name: str, rows, seed: int, card: str) -> dict:
@@ -865,6 +949,11 @@ def main() -> int:
     swept = sweep_gf(args.seed + 7)
     log(f"K1/K2/K3 sweep over random (k, rows), k 1..16, rows 1..16, vector and scalar "
         f"variants: {swept} calls byte-exact vs plain ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    swept = sweep_crc(args.seed + 8)
+    log(f"K4 sweep over rows 1..300, ragged lane counts, vector and scalar variants, "
+        f"final and raw forms: {swept} calls byte-exact vs plain and the host shim "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
@@ -885,6 +974,8 @@ def main() -> int:
     log(f"launches over every path (single-volume encode and rebuilds, batch encode, "
         f"rebuild and verify) on {card}: {total}; K1 decode4 {k1_dec['ms']:.4f} ms, "
         f"K1 decode1 {k1_dec1['ms']:.4f} ms, K2 decode4 {k2_dec['ms']:.4f} ms")
+    for line in crc_shape_lines(k4, runs, card):
+        log(line)
     log(smi)
 
     def row(name, source, replaces, *checks):

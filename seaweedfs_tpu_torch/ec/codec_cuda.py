@@ -37,7 +37,6 @@ BATCH_LAUNCHES = _build.LaunchCounter("gf_apply_batch")
 VERIFY_LAUNCHES = _build.LaunchCounter("gf_verify_batch")
 _MAX_K = 16  # csrc/gf_swar.cuh GF_MAX_K / GF_MAX_ROWS
 _MAX_ROWS = 16
-_STATE_ROW_LANES = 262144  # K4 tables kept in CodecState: 1 MiB rows
 
 
 def gf_terms(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -340,14 +339,12 @@ register_backend("cuda", cuda_apply_matrix)
 @dataclass
 class CodecState:
     """What the kernels need for one code matrix: the [n, k] matrix,
-    the term words (gf_terms) of the parity rows, a decode-row cache
-    keyed by (survivors, targets), and K4's lane and Z-shift column
-    tables (the latter for 1 MiB rows, the pipeline's tile)."""
+    the term words (gf_terms) of the parity rows, and a decode-row cache
+    keyed by (survivors, targets). K4 keeps its own tables, per device
+    (crc_kernel)."""
 
     matrix: np.ndarray
     parity_terms: tuple[np.ndarray, np.ndarray]
-    lane_cols: tuple[int, ...]
-    zcols: np.ndarray
     decode_cache: dict = field(default_factory=dict)
 
 
@@ -361,8 +358,6 @@ def codec_state_from_numpy(matrix: np.ndarray) -> CodecState:
     return CodecState(
         matrix=matrix,
         parity_terms=gf_terms(matrix[k:]),
-        lane_cols=crc_kernel._lane_cols(),
-        zcols=crc_kernel.kernel_zcols(_STATE_ROW_LANES),
     )
 
 

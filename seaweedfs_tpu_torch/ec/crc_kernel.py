@@ -31,10 +31,14 @@ from seaweedfs_tpu_torch.util import crc as _crc
 
 LAUNCHES = _build.LaunchCounter("crc32c_rows")
 
-# geometry of csrc/crc32c_rows.cu: 256 threads x 64 bytes per block
+# geometry of csrc/crc32c_rows.cu: blocks of 256 threads, 6 resident a
+# SM; a thread takes a span of one of SPANS bytes, a chunk 256 spans
 _THREADS = 256
-_THREAD_BYTES = 64
-_CHUNK_BYTES = _THREADS * _THREAD_BYTES
+_BLOCKS_PER_SM = 6
+SPANS = (16, 32, 64)
+# a block's fixed cost (table copy, combine, ticket) in byte steps
+_BLOCK_STEPS = 64
+H100_SMS = 132
 
 
 def crc_supported(nbytes: int) -> bool:
@@ -70,23 +74,38 @@ def _final_const(nbytes: int) -> int:
     ) ^ 0xFFFFFFFF if nbytes else 0
 
 
-def fold_run(n32: int) -> int:
-    """Chunk CRCs each thread of a row's last block folds serially in
-    csrc/crc32c_rows.cu: the least power of two with 256 runs covering
-    the row's 16 KiB chunks."""
-    nchunks = -(-n32 * 4 // _CHUNK_BYTES)
+def geometry(rows: int, n32: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(span bytes a thread, chunks a row, fold run) of csrc/crc32c_rows.cu
+    for a [rows, n32] tile on a card of `sms` SMs: one block for each of
+    the rows x chunks, in waves of 6 x sms resident blocks.
+
+    A span counts only if it gives fewer blocks than the next smaller one
+    (a longer span over the same chunks would only look up more padding).
+    Of the spans whose grid reaches every SM (all of them when none
+    does), the one with the least waves x (span + 64): a wave costs its
+    span's byte steps plus a block's fixed cost (table copy, combine,
+    ticket), which is about 64 byte steps; a tie goes to the longer span.
+    The fold run is the least power of two with 256 runs covering the
+    chunks."""
+    slots = sms * _BLOCKS_PER_SM
+
+    def blocks(span: int) -> int:
+        return rows * -(-4 * n32 // (_THREADS * span))
+
+    spans = [s for i, s in enumerate(SPANS) if i == 0 or blocks(s) < blocks(SPANS[i - 1])]
+    reach = [s for s in spans if blocks(s) >= sms] or spans[:1]
+    span = min(reach, key=lambda s: (-(-blocks(s) // slots) * (s + _BLOCK_STEPS), -s))
+    nchunks = blocks(span) // rows
     run = 1
     while _THREADS * run < nchunks:
         run *= 2
-    return run
+    return span, nchunks, run
 
 
-def kernel_zcols(n32: int) -> np.ndarray:
-    """The Z operators csrc/crc32c_rows.cu combines a row of n32 lanes
-    with, as uint32 columns in the layout its header gives: per-lane and
-    per-warp shifts within a chunk, one chunk's shift, then per-lane and
-    per-warp shifts of the row fold's runs."""
-    return _zcols_for_run(fold_run(n32))
+def byte_table() -> tuple[int, ...]:
+    """Sarwate's CRC-32C byte table (util/crc's): entry b is the raw CRC
+    of byte b."""
+    return tuple(_crc._TABLE)
 
 
 def _family(shifts) -> list[int]:
@@ -96,15 +115,20 @@ def _family(shifts) -> list[int]:
     return [c[b] for b in range(32) for c in cols]
 
 
-@functools.lru_cache(maxsize=16)
-def _zcols_for_run(run: int) -> np.ndarray:
+@functools.lru_cache(maxsize=32)
+def kernel_zcols(span: int, run: int) -> np.ndarray:
+    """The Z operators csrc/crc32c_rows.cu combines with, for a span of
+    `span` bytes a thread and a row fold of `run` chunks a thread, as
+    uint32 columns in the layout its header gives: per-lane and per-warp
+    shifts within a chunk, one chunk's shift, then per-lane and per-warp
+    shifts of the row fold's runs."""
     warps = _THREADS // 32
-    warp_bytes = 32 * _THREAD_BYTES
-    run_bytes = _CHUNK_BYTES * run
+    chunk = _THREADS * span
+    run_bytes = chunk * run
     return np.array(
-        _family([_THREAD_BYTES * (31 - l) for l in range(32)])
-        + _family([warp_bytes * (warps - 1 - w) for w in range(warps)])
-        + _crc._zero_shift_cols(_CHUNK_BYTES)
+        _family([span * (31 - l) for l in range(32)])
+        + _family([32 * span * (warps - 1 - w) for w in range(warps)])
+        + _crc._zero_shift_cols(chunk)
         + _family([run_bytes * (31 - l) for l in range(32)])
         + _family([run_bytes * 32 * (warps - 1 - w) for w in range(warps)]),
         dtype=np.uint32,
@@ -157,7 +181,12 @@ def _as_i32(v: torch.Tensor) -> torch.Tensor:
 
 _lib_lock = threading.Lock()
 _lib = None
-_zcols_dev: dict[tuple[torch.device, int], torch.Tensor] = {}
+_TICKETS = 65535  # ticket counters a stream keeps: a grid's most rows
+# per device: byte table; per (device, span, run): Z columns; per
+# (device, stream): ticket counters, zero between launches
+_tables: dict[torch.device, torch.Tensor] = {}
+_zcols_dev: dict[tuple[torch.device, int, int], torch.Tensor] = {}
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _kernel():
@@ -167,23 +196,43 @@ def _kernel():
             lib = _build.load("crc32c_rows.cu")
             lib.crc32c_rows_u32.restype = ctypes.c_int
             lib.crc32c_rows_u32.argtypes = (
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_uint, ctypes.c_void_p,
             )
             _lib = lib
         return _lib
 
 
-def _device_zcols(device: torch.device, n32: int) -> torch.Tensor:
-    key = (device, fold_run(n32))
+def _u32_tensor(words, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(words, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def _device_state(device: torch.device, rows: int, n32: int, stream: int):
+    """(geometry, byte table, Z columns, ticket counters) for a launch,
+    each made once and kept: the tables per device, the Z columns per
+    (device, span, run), the counters per (device, stream). Counters are
+    zeroed on their stream at its first call, which therefore must not
+    be inside a CUDA graph capture."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    span, nchunks, run = geometry(rows, n32, sms)
     with _lib_lock:
-        z = _zcols_dev.get(key)
-        if z is None:
-            z = _zcols_dev[key] = torch.from_numpy(
-                kernel_zcols(n32).view(np.int32)
-            ).to(device)
-        return z
+        table = _tables.get(device)
+        if table is None:  # each entry four times: one 16-byte load a slot
+            table = _tables[device] = _u32_tensor(np.repeat(byte_table(), 4), device)
+        zc = _zcols_dev.get((device, span, run))
+        if zc is None:
+            zc = _zcols_dev[(device, span, run)] = _u32_tensor(kernel_zcols(span, run), device)
+        tickets = _tickets.get((device, stream))
+        if tickets is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "crc32c_rows: a stream's first call makes its ticket counters "
+                    "and cannot be captured; call it once on the stream first")
+            tickets = _tickets[(device, stream)] = torch.zeros(
+                _TICKETS, dtype=torch.int32, device=device)
+    return (span, nchunks, run), table, zc, tickets
 
 
 def _launch(x_u32: torch.Tensor, final_const: int) -> torch.Tensor:
@@ -192,16 +241,18 @@ def _launch(x_u32: torch.Tensor, final_const: int) -> torch.Tensor:
     if x_u32.dim() != 2 or not x_u32.is_contiguous() or x_u32.shape[1] < 1:
         raise ValueError("crc32c_rows takes a contiguous [rows, n32] tile")
     rows, n32 = x_u32.shape
+    if rows > _TICKETS:
+        raise ValueError(f"crc32c_rows takes at most {_TICKETS} rows, got {rows}")
     lib = _kernel()
-    out = torch.empty(rows, dtype=torch.int32, device=x_u32.device)
-    nchunks = -(-n32 * 4 // _CHUNK_BYTES)
-    # chunk CRCs, then one ticket counter per row (zeroed by the entry)
-    scratch = torch.empty(rows * (nchunks + 1), dtype=torch.int32, device=x_u32.device)
-    zc = _device_zcols(x_u32.device, n32)
-    stream = torch.cuda.current_stream(x_u32.device).cuda_stream
+    dev = x_u32.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    (span, nchunks, run), table, zc, tickets = _device_state(dev, rows, n32, stream)
+    out = torch.empty(rows, dtype=torch.int32, device=dev)
+    partial = torch.empty(rows * nchunks, dtype=torch.int32, device=dev)
     err = lib.crc32c_rows_u32(
-        x_u32.data_ptr(), out.data_ptr(), scratch.data_ptr(), zc.data_ptr(),
-        rows, n32, final_const & 0xFFFFFFFF, stream,
+        x_u32.data_ptr(), out.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
+        table.data_ptr(), zc.data_ptr(), rows, n32, span // 4, run,
+        final_const & 0xFFFFFFFF, stream,
     )
     _build.check(err, "crc32c_rows launch")
     LAUNCHES.inc()

@@ -121,19 +121,44 @@ def _op(z: np.ndarray, base: int, m: int, j: int) -> list[int]:
     return [int(z[base + b * m + j]) for b in range(32)]
 
 
-@pytest.mark.parametrize("n32,run", [(1, 1), (262144, 1), (1 << 20, 1), ((1 << 20) + 1, 2)])
-def test_kernel_zcols_are_zero_shift_operators(n32, run):
-    assert crc_kernel.fold_run(n32) == run
-    z = crc_kernel.kernel_zcols(n32)
+def _run(nchunks: int) -> int:
+    run = 1
+    while 256 * run < nchunks:
+        run *= 2
+    return run
+
+
+@pytest.mark.parametrize(
+    "span,run", [(16, 1), (32, 1), (64, 1), (16, 2), (32, 8), (64, 4), (64, 16)]
+)
+def test_kernel_zcols_are_zero_shift_operators(span, run):
+    z = crc_kernel.kernel_zcols(span, run)
     assert z.shape == (2592,)
+    chunk = 256 * span
     for lane in range(32):
-        assert _op(z, 0, 32, lane) == ref_crc._zero_shift_cols(64 * (31 - lane))
-        assert _op(z, 1312, 32, lane) == ref_crc._zero_shift_cols(16384 * run * (31 - lane))
+        assert _op(z, 0, 32, lane) == ref_crc._zero_shift_cols(span * (31 - lane))
+        assert _op(z, 1312, 32, lane) == ref_crc._zero_shift_cols(chunk * run * (31 - lane))
     for w in range(8):
-        assert _op(z, 1024, 8, w) == ref_crc._zero_shift_cols(2048 * (7 - w))
-        assert _op(z, 2336, 8, w) == ref_crc._zero_shift_cols(16384 * run * 32 * (7 - w))
-    assert _op(z, 1280, 1, 0) == ref_crc._zero_shift_cols(16384)
+        assert _op(z, 1024, 8, w) == ref_crc._zero_shift_cols(32 * span * (7 - w))
+        assert _op(z, 2336, 8, w) == ref_crc._zero_shift_cols(chunk * run * 32 * (7 - w))
+    assert _op(z, 1280, 1, 0) == ref_crc._zero_shift_cols(chunk)
     assert crc_kernel._lane_cols() == ref_crc_kernel._lane_cols()
+
+
+def test_k4_byte_table_is_the_crc32c_table():
+    table = crc_kernel.byte_table()
+    assert [crc_kernel._raw_transit(bytes([b]), 0) for b in range(256)] == list(table)
+
+
+def _thread_crc(table, words: np.ndarray) -> int:
+    """A thread's span in csrc/crc32c_rows.cu: per word, XOR it in, then
+    four Sarwate steps through the byte table."""
+    c = 0
+    for w in words.tolist():
+        c ^= w
+        for _ in range(4):
+            c = table[c & 0xFF] ^ (c >> 8)
+    return c
 
 
 def _combine(z, lane_base, warp_base, pieces):
@@ -151,37 +176,95 @@ def _combine(z, lane_base, warp_base, pieces):
     return c
 
 
-@pytest.mark.parametrize("nchunks", [1, 3, 256, 257, 700])
-def test_k4_row_fold_order(nchunks):
-    """The combines of csrc/crc32c_rows.cu, step for step on the host
-    (thread pieces -> chunk CRCs; front zero chunks, serial runs, then
-    runs -> row) over the kernel's Z columns, equal the row's CRC."""
-    chunk_words = 4096
+@pytest.mark.parametrize(
+    "span,nchunks", [(16, 1), (16, 300), (32, 3), (32, 1025), (64, 1), (64, 257)]
+)
+def test_k4_row_fold_order(span, nchunks):
+    """The steps of csrc/crc32c_rows.cu on the host for a span the host
+    can choose: thread spans through the byte table, thread pieces ->
+    chunk CRCs, then (more than one chunk) front zero chunks, serial
+    runs and runs -> row, over the kernel's Z columns, equal the row's
+    CRC."""
+    span_words = span // 4
+    chunk_words = 256 * span_words
     n32 = nchunks * chunk_words - 5  # a ragged row: front-padded by 5 lanes
-    row = np.random.default_rng(nchunks).integers(0, 2**32, n32, dtype=np.uint32)
+    row = np.random.default_rng(nchunks + span).integers(0, 2**32, n32, dtype=np.uint32)
     padded = np.concatenate([np.zeros(5, dtype=np.uint32), row])
-    z = crc_kernel.kernel_zcols(n32)
+    run = _run(nchunks)
+    z = crc_kernel.kernel_zcols(span, run)
+    table = crc_kernel.byte_table()
     parts = []
     for i in range(nchunks):
         chunk = padded[i * chunk_words : (i + 1) * chunk_words]
-        if i < 2:  # the in-chunk combine, on the first chunks (slow in Python)
-            pieces = [crc_kernel._raw_transit(chunk[16 * t : 16 * t + 16].tobytes(), 0)
+        if i < 2:  # the in-chunk steps, on the first chunks (slow in Python)
+            pieces = [_thread_crc(table, chunk[t * span_words : (t + 1) * span_words])
                       for t in range(256)]
+            assert pieces[255] == crc_kernel._raw_transit(chunk[-span_words:].tobytes(), 0)
             parts.append(_combine(z, 0, 1024, pieces))
             assert parts[-1] == crc_kernel._raw_transit(chunk.tobytes(), 0)
         else:
             parts.append(crc_kernel._raw_transit(chunk.tobytes(), 0))
-    run = crc_kernel.fold_run(n32)
-    leaves = [0] * (256 * run - nchunks) + parts
-    runs = []
-    for t in range(256):
-        c = 0
-        for v in leaves[t * run : (t + 1) * run]:
-            c = ref_crc._gf2_apply(_op(z, 1280, 1, 0), c) ^ v
-        runs.append(c)
-    got = _combine(z, 1312, 2336, runs)
+    if nchunks == 1:  # the kernel skips the tickets and the fold
+        got = parts[0]
+    else:
+        leaves = [0] * (256 * run - nchunks) + parts
+        runs = []
+        for t in range(256):
+            c = leaves[t * run]
+            for v in leaves[t * run + 1 : (t + 1) * run]:
+                c = ref_crc._gf2_apply(_op(z, 1280, 1, 0), c) ^ v
+            runs.append(c)
+        got = _combine(z, 1312, 2336, runs)
     assert got == crc_kernel._raw_transit(row.tobytes(), 0)
     assert got ^ crc_kernel._final_const(4 * n32) == ref_crc.crc32c(row.tobytes())
+
+
+# K4's shapes on the paths (rows of 1 MiB) -> (span, blocks) on 132 SMs
+K4_SHAPES = {1: (16, 256), 4: (32, 512), 14: (64, 896), 224: (64, 14336)}
+
+
+@pytest.mark.parametrize("rows", sorted(K4_SHAPES))
+def test_k4_geometry_fills_the_card(rows):
+    """The host's choice at the paths' shapes: the grid reaches all 132
+    SMs, and no span with fewer waves x (span + 64) byte steps reaches
+    them too."""
+    n32 = 262144
+    span, nchunks, run = crc_kernel.geometry(rows, n32)
+    blocks = rows * nchunks
+    assert (span, blocks) == K4_SHAPES[rows]
+    assert (nchunks - 1) * 256 * span < 4 * n32 <= nchunks * 256 * span
+    assert run == _run(nchunks) == 1
+    assert blocks >= 132
+
+    def cost(s):
+        b = rows * -(-4 * n32 // (256 * s))
+        return -(-b // 792) * (s + 64) if b >= 132 else float("inf")
+
+    assert cost(span) == min(cost(s) for s in crc_kernel.SPANS)
+
+
+@pytest.mark.parametrize(
+    "rows,n32,want", [(1, 1, (16, 1, 1)), (300, 5, (16, 1, 1)),
+                      (1, (1 << 21) + 3, (64, 513, 4)), (3, (1 << 21) + 3, (64, 513, 4))]
+)
+def test_k4_geometry_edges(rows, n32, want):
+    """Rows too short to reach every SM take the smallest span; long
+    rows fold runs of several chunks."""
+    span, nchunks, run = crc_kernel.geometry(rows, n32)
+    assert (span, nchunks, run) == want
+    assert run == _run(nchunks) and span in crc_kernel.SPANS
+
+
+def test_k4_table_copy_layout():
+    """The block's copy of the device table (each entry four times, one
+    16-byte slot q from entry q // 8) puts entry b of lane l's copy at
+    word 32 b + l, the word the lookup reads."""
+    table4 = np.repeat(np.array(crc_kernel.byte_table(), dtype=np.uint32), 4)
+    tab = np.concatenate([table4[4 * (q >> 3) : 4 * (q >> 3) + 4] for q in range(2048)])
+    for b in range(256):
+        for lane in range(32):
+            offset = ((b << 7) & 0x7F80) | (4 * lane)  # the kernel's byte address
+            assert tab[offset // 4] == crc_kernel.byte_table()[b]
 
 
 def _shards(n: int, seed: int):
@@ -376,3 +459,10 @@ def test_crc_segments_combine_to_the_whole_row():
     segs = [crc_kernel.crc_lin_rows(_u32(x[:, i : i + 1024])) for i in range(0, 4096, 1024)]
     got = crc_kernel.combine_segments(segs, 4096).numpy().view(np.uint32)
     assert got.tolist() == [ref_crc.crc32c(x[r].tobytes()) for r in range(5)]
+
+
+def test_crc_span_sweep_needs_a_card(monkeypatch):
+    from seaweedfs_tpu_torch import crc_span_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert crc_span_sweep.main() == 1

@@ -97,24 +97,84 @@ def test_k1_k2_every_width(card, k, r):
         assert torch.equal(got, codec_cuda.gf_apply_batch_plain(rows, xb))
 
 
-def test_k4_equals_plain_at_tile_width(card):
-    x = _lanes((14, LANES), 2, card)
+@pytest.mark.parametrize("rows", [1, 4, 14, 224])
+def test_k4_equals_plain_at_tile_width(card, rows):
+    """K4 at the row counts the paths launch it with (1- and 4-shard
+    rebuild, single-volume encode, batch encode round): one launch,
+    equal to the plain version, the host CRC and the raw form."""
+    x = _lanes((rows, LANES), 2 + rows, card)
     before = crc_kernel.LAUNCHES.value
     got = crc_kernel.crc32c_rows(x)
     torch.cuda.synchronize()
     assert crc_kernel.LAUNCHES.value == before + 1
     assert torch.equal(got, crc_kernel.crc32c_rows_plain(x))
+    host = x.cpu().numpy()
+    assert got.cpu().numpy().view(np.uint32).tolist() == [crc32c(host[i]) for i in range(rows)]
     lin = crc_kernel.crc_lin_rows(x)
     assert torch.equal(crc_kernel.finalize_rows(lin, 4 * LANES), got)
 
 
-# 2**21 + 3 lanes: 513 chunks, so the row fold takes runs of 4 chunks
+def test_k4_back_to_back_launches_reset_their_tickets(card):
+    """100 launches on one stream, no synchronisation between them: each
+    row's last block sets its ticket back to 0 for the next launch."""
+    xs = _lanes((100, 14, 8192), 21, card)
+    got = [crc_kernel.crc32c_rows(xs[i]) for i in range(100)]
+    torch.cuda.synchronize()
+    for i in range(100):
+        assert torch.equal(got[i], crc_kernel.crc32c_rows_plain(xs[i])), i
+
+
+def test_k4_two_streams_at_once(card):
+    """Launches on two streams in flight together, on different tiles:
+    each stream has its own tickets."""
+    xs = _lanes((2, 8, 14, 65536), 22, card)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for i in range(8):
+        for j, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[j].append(crc_kernel.crc32c_rows(xs[j, i]))
+    torch.cuda.synchronize()
+    for j in range(2):
+        for i in range(8):
+            assert torch.equal(got[j][i], crc_kernel.crc32c_rows_plain(xs[j, i])), (j, i)
+
+
+def test_k4_graph_replays(card):
+    """16 launches captured in one CUDA graph and replayed twice, the
+    inputs rewritten between the replays: byte-exact both times."""
+    xs = _lanes((16, 4, 65536), 23, card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # the stream's first call, outside the capture
+        crc_kernel.crc32c_rows(xs[0])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = crc_kernel.LAUNCHES.value
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [crc_kernel.crc32c_rows(xs[i]) for i in range(16)]
+    assert crc_kernel.LAUNCHES.value == before + 16
+    for seed in (24, 25):
+        xs.copy_(_lanes(xs.shape, seed, card))
+        graph.replay()
+        torch.cuda.synchronize()
+        for i in range(16):
+            assert torch.equal(outs[i], crc_kernel.crc32c_rows_plain(xs[i])), (seed, i)
+
+
+# 2**21 + 3 lanes over 3 rows: 513 chunks of 16 KiB, so the row fold
+# takes runs of 4 chunks
 @pytest.mark.parametrize("n32", [1, 5, 4095, 4097, 70001, (1 << 21) + 3])
 def test_k4_any_row_length(card, n32):
     x = _lanes((3, n32), n32, card)
     got = crc_kernel.crc32c_rows(x).cpu().numpy().view(np.uint32)
     host = x.cpu().numpy()
     assert got.tolist() == [crc32c(host[i]) for i in range(3)]
+    if n32 == (1 << 21) + 3:
+        assert crc_kernel.geometry(3, n32, torch.cuda.get_device_properties(
+            card).multi_processor_count)[2] > 1
 
 
 def test_stage_pairs_on_the_card(card, tmp_path):
