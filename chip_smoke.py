@@ -8,9 +8,10 @@ Phases, each of which raises on a fault (the script then exits nonzero):
   2. the kernels: build every CUDA source (all nvcc processes at once)
      and log each GF kernel instantiation's registers and spills, run
      each kernel at the main path's shapes (K1 with the encode, 4-shard
-     and 1-shard decode matrices; K4 at every row count the paths give
-     it: 1, 4, 14 and 224 rows of 1 MiB), hold it byte-exact against its
-     plain PyTorch version on the card, time both with CUDA events, and
+     and 1-shard decode matrices, and the degraded read's 1-row decode
+     at one tile and one 32-tile run; K4 at the encode's [14, 262144]
+     tile), hold it byte-exact against its plain PyTorch version on the
+     card, time both with CUDA events, and
      compute its bound on this card; then, untimed, hold K1, K2 and K3
      against their plain versions over random (k, rows) matrices, and K4
      over random row counts and ragged, unaligned rows;
@@ -23,6 +24,17 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      rebuild it, delete shards {0, 5, 10, 13} and rebuild them, each
      byte-identical; the kernels' launch counters must grow in every
      one of the three runs;
+ 3b. degraded reads on that volume (run_degraded_phase): delete shards
+     {0, 5, 10, 13}, read every needle through EcVolume (K1 decodes on
+     the card, no K4), each equal to its .dat record; a warm pass that
+     must not decode resident tiles again; 8 threads reading the same
+     cold needles on shard 0 (at most one K1 launch a decode run of
+     cold tiles); then rebuild shards 0 and 5 through
+     stream_rebuild_ec_files with a repair session seeded from the tile
+     cache while a thread keeps serving (donated bytes used, survivor
+     reads cut by them; that thread's own launches are booked to the
+     degraded path, not the rebuild), and shards 10 and 13 after it,
+     all byte-identical with the encode's CRCs;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -34,8 +46,13 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      one rebuild_ec_files_batch call (two signature groups); verify 16
      volumes with MeshCodec.verify_batch_u32, clean and with planted
      faults; the batch kernels' counters must grow in each run;
-  5. the report: K4's time, bound and launches at each of its shapes,
-     a `kernels` JSON line, then the final status line.
+  5. the report: K1 and K4 at every launch signature the paths gave
+     them (the wrappers' tallies: shape, and K1's matrix), each
+     byte-exact against its plain version, timed, bounded, and priced
+     as launches x (ms - bound); K1 at the degraded read's shapes
+     ([10, 65536] and [10, 2097152] lanes, one decode row) and
+     cuda_apply_matrix's wall a call there; a `kernels` JSON line, then
+     the final status line.
 
 Without a CUDA device it prints the reason and exits 1 before any result.
 """
@@ -51,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -73,11 +91,16 @@ BATCH = 16  # volumes per round of the batch phase (WEED_EC_PIPELINE_BATCH)
 # BASELINE.json config 3: 256 sealed volumes, here of ~4 MiB of .dat each
 BATCH_VOLUMES = 256
 BATCH_VOLUME_BYTES = 4 << 20
-# K4's shapes on the paths: (path, rows of LANES lanes) — the 1- and
-# 4-shard rebuilds, the single-volume encode's [14, n] tile and the
-# batch encode's [224, n] round tile
-CRC_SHAPES = (("rebuild1", 1), ("rebuild4", 4), ("encode", 14), ("batch_encode", 224))
 CRC_POOL_WORDS = 64 << 20  # 256 MiB of lanes K4's timed inputs are sliced from
+# every launch signature of K1 and K4 on the paths is timed over inputs
+# sliced from a pool of at least this many bytes (beyond the 50 MB L2),
+# at most SIG_MAX_INPUTS distinct ones
+SIG_POOL_BYTES = 128 << 20
+SIG_MAX_INPUTS = 1024
+# K1's shapes on the degraded read: one 256 KiB tile (tile_cache's default)
+# and a run of 32 tiles (8 MiB a row)
+DEG_TILE_LANES = 65536
+DEG_RUN_LANES = 2097152
 
 
 def log(msg: str) -> None:
@@ -143,20 +166,23 @@ def _max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
 
-def check_gf(name: str, rows, seed: int, card: str) -> dict:
+def check_gf(name: str, rows, seed: int, card: str, lanes: int = LANES) -> dict:
+    """K1 with coefficient rows `rows` over [k, lanes] int32 lanes:
+    byte-exact against its plain version, then timed over distinct
+    input sets of at least 128 MiB in all (beyond the 50 MB L2)."""
     import torch
 
     from seaweedfs_tpu_torch.ec import codec_cuda
 
     k, r = rows.shape[1], rows.shape[0]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    # 8 distinct input/output sets (> the 50 MB L2) so timing sees HBM
+    sets = max(8, (128 << 20) // (k * 4 * lanes))
     xs = [
-        torch.randint(-(2**31), 2**31 - 1, (k, LANES), dtype=torch.int32,
+        torch.randint(-(2**31), 2**31 - 1, (k, lanes), dtype=torch.int32,
                       device="cuda", generator=g)
-        for _ in range(8)
+        for _ in range(sets)
     ]
-    outs = [torch.empty((r, LANES), dtype=torch.int32, device="cuda") for _ in xs]
+    outs = [torch.empty((r, lanes), dtype=torch.int32, device="cuda") for _ in xs]
     terms = codec_cuda.gf_terms(rows)
     got = codec_cuda.gf_apply_u32(rows, xs[0], terms)
     want = codec_cuda.gf_apply_plain(rows, xs[0])
@@ -164,22 +190,70 @@ def check_gf(name: str, rows, seed: int, card: str) -> dict:
     err = _max_abs_err(got, want)
     if err or not torch.equal(got, want):
         raise AssertionError(f"K1 {name}: kernel disagrees with its plain version")
-    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], terms, outs[i % 8]))
-    eager_ms = _time_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % 8], terms, outs[i % 8]), 200)
-    plain_ms = _time_ms(lambda i: codec_cuda.gf_apply_plain(rows, xs[i % 8]), 5, warm=1)
-    nbytes = (k + r) * 4 * LANES
+    del got, want
+    iters = max(64, sets)
+    ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % sets], terms,
+                                                      outs[i % sets]), iters=iters)
+    eager_ms = _time_ms(lambda i: codec_cuda.gf_apply_u32(rows, xs[i % sets], terms,
+                                                          outs[i % sets]), 200)
+    plain_ms = _time_ms(lambda i: codec_cuda.gf_apply_plain(rows, xs[i % sets]), 3, warm=1)
+    nbytes = (k + r) * 4 * lanes
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(
-        f"K1 gf_apply {name} [{k},{LANES}]->[{r},{LANES}] on {card}: "
-        f"byte-exact vs plain (max_abs_err 0); kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s; {eager_ms:.4f} ms a call launched "
-        f"eagerly from Python), plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+        f"K1 gf_apply {name} [{k},{lanes}]->[{r},{lanes}] on {card}: "
+        f"byte-exact vs plain (max_abs_err 0); kernel {ms:.4f} ms over {sets} distinct "
+        f"inputs ({nbytes / ms / 1e6:.1f} GB/s; {eager_ms:.4f} ms a call launched "
+        f"eagerly from Python), plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
         f"(bytes; {bound / ms:.3f} of it)"
     )
+    del xs, outs
     return {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "max_abs_err": err,
+        "max_abs_err": err, "eager_ms": eager_ms,
     }
+
+
+def time_apply_matrix(rows, lanes: int, seed: int, card: str, reps: int = 20) -> dict:
+    """One degraded decode as EcVolume makes it: codec_cuda.cuda_apply_matrix
+    on a numpy [k, 4 * lanes] survivor stack, against the numpy codec's
+    bytes; host wall a call, then the same four steps timed one by one
+    (numpy pad, pageable H2D, K1, D2H into numpy), each ended by a
+    synchronize."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+    from seaweedfs_tpu_torch.ec.codec import cpu_apply_matrix
+
+    rng = np.random.default_rng(seed)
+    stacked = rng.integers(0, 256, (rows.shape[1], 4 * lanes), dtype=np.uint8)
+    got = codec_cuda.cuda_apply_matrix(rows, stacked)
+    if not np.array_equal(got, cpu_apply_matrix(rows, stacked)):
+        raise AssertionError(f"cuda_apply_matrix at {lanes} lanes disagrees with numpy")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        codec_cuda.cuda_apply_matrix(rows, stacked)
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    steps = {"pad": 0.0, "h2d": 0.0, "k1": 0.0, "d2h": 0.0}
+    n = stacked.shape[1]
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        padded = np.zeros((stacked.shape[0], codec_cuda._bucket_len(n)), dtype=np.uint8)
+        padded[:, :n] = stacked
+        t1 = time.perf_counter()
+        x = torch.from_numpy(padded.view(np.int32)).to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = codec_cuda.gf_apply_u32(rows, x)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu().numpy().view(np.uint8)[:, :n]
+        t4 = time.perf_counter()
+        for key, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[key] += dt * 1e3 / reps
+    log(f"cuda_apply_matrix [{rows.shape[0]}x{rows.shape[1]}] over [{rows.shape[1]},"
+        f"{4 * lanes}] bytes on {card}: {ms:.4f} ms a call, equal to the numpy codec's; "
+        f"its steps one by one (ms): " + json.dumps({k: round(v, 4) for k, v in steps.items()}))
+    return {"ms": ms, "steps_ms": steps}
 
 
 def sweep_gf(seed: int, draws: int = 48) -> int:
@@ -251,12 +325,12 @@ def ptxas_summary(logs: dict) -> list[str]:
 
 
 def check_crc(seed: int, card: str) -> dict:
-    """K4 at every shape the paths launch it with (CRC_SHAPES): at each,
-    byte-exact against its plain version and the host shim (final and
-    raw forms), then timed over distinct inputs sliced from one 256 MiB
-    tensor (every timed run of launches reads at least 128 MiB, beyond
-    the 50 MB L2). The returned ms, plain_ms and bound_ms are [14, n]'s,
-    the single-volume encode's tile; `shapes` holds every shape's."""
+    """K4 at the single-volume encode's tile [14, LANES]: byte-exact
+    against its plain version and the host shim (final and raw forms),
+    timed over distinct inputs sliced from one 256 MiB tensor (beyond
+    the 50 MB L2), eagerly, and its plain version. Every shape the
+    paths launch it with is checked and timed after them
+    (check_signatures)."""
     import torch
 
     from seaweedfs_tpu_torch.ec import crc_kernel
@@ -265,60 +339,121 @@ def check_crc(seed: int, card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     pool = torch.randint(-(2**31), 2**31 - 1, (CRC_POOL_WORDS,), dtype=torch.int32,
                          device="cuda", generator=g)
-    shapes, err = {}, 0
-    for path, rows in CRC_SHAPES:
-        per = rows * LANES
-        xs = [pool[i * per:(i + 1) * per].view(rows, LANES)
-              for i in range(CRC_POOL_WORDS // per)]
-        got = crc_kernel.crc32c_rows(xs[0])
-        want = crc_kernel.crc32c_rows_plain(xs[0])
-        raw = crc_kernel.crc_lin_rows(xs[0])
-        torch.cuda.synchronize()
-        err = max(err, _max_abs_err(got, want))
-        if err or not torch.equal(got, want):
-            raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}]: kernel disagrees "
-                                 f"with its plain version")
-        if not torch.equal(crc_kernel.finalize_rows(raw, 4 * LANES), got):
-            raise AssertionError(f"K4 crc_lin_rows [{rows},{LANES}]: raw form disagrees")
-        host = xs[0].cpu().numpy()
-        if [crc32c(host[i]) for i in range(rows)] != [
-                int(v) for v in got.cpu().numpy().view(np.uint32)]:
-            raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}] disagrees with the "
-                                 f"host CRC-32C")
-        iters = min(256, max(16, len(xs)))
-        ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]), iters=iters)
-        nbytes = rows * 4 * LANES + rows * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        shapes[rows] = {"path": path, "ms": ms, "bound_ms": bound}
-        log(f"K4 crc32c_rows [{rows},{LANES}] on {card}: byte-exact vs plain, host shim "
-            f"and raw form (max_abs_err 0); kernel {ms:.4f} ms over {min(iters, len(xs))} "
-            f"distinct inputs of {per >> 18} MiB ({nbytes / ms / 1e6:.1f} GB/s), bound "
-            f"{bound:.4f} ms (bytes; {bound / ms:.3f} of it)")
-    x14 = [pool[i * 14 * LANES:(i + 1) * 14 * LANES].view(14, LANES) for i in range(4)]
-    eager_ms = _time_ms(lambda i: crc_kernel.crc32c_rows(x14[i % 4]), 200)
-    plain_ms = _time_ms(lambda i: crc_kernel.crc32c_rows_plain(x14[i % 4]), 2, warm=1)
-    log(f"K4 crc32c_rows [14,{LANES}] on {card}: {eager_ms:.4f} ms a call launched "
-        f"eagerly from Python, plain {plain_ms:.3f} ms")
-    del pool, xs, x14
-    return {
-        "ms": shapes[14]["ms"], "plain_ms": plain_ms, "bound_ms": shapes[14]["bound_ms"],
-        "bound_by": "bytes", "max_abs_err": err, "shapes": shapes,
-    }
+    rows = 14
+    per = rows * LANES
+    xs = [pool[i * per:(i + 1) * per].view(rows, LANES) for i in range(CRC_POOL_WORDS // per)]
+    got = crc_kernel.crc32c_rows(xs[0])
+    want = crc_kernel.crc32c_rows_plain(xs[0])
+    raw = crc_kernel.crc_lin_rows(xs[0])
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}]: kernel disagrees with its "
+                             f"plain version")
+    if not torch.equal(crc_kernel.finalize_rows(raw, 4 * LANES), got):
+        raise AssertionError(f"K4 crc_lin_rows [{rows},{LANES}]: raw form disagrees")
+    host = xs[0].cpu().numpy()
+    if [crc32c(host[i]) for i in range(rows)] != [
+            int(v) for v in got.cpu().numpy().view(np.uint32)]:
+        raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}] disagrees with the host CRC-32C")
+    ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]), iters=len(xs))
+    eager_ms = _time_ms(lambda i: crc_kernel.crc32c_rows(xs[i % 4]), 200)
+    plain_ms = _time_ms(lambda i: crc_kernel.crc32c_rows_plain(xs[i % 4]), 2, warm=1)
+    nbytes = rows * 4 * LANES + rows * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"K4 crc32c_rows [{rows},{LANES}] on {card}: byte-exact vs plain, host shim and raw "
+        f"form (max_abs_err 0); kernel {ms:.4f} ms over {len(xs)} distinct inputs "
+        f"({nbytes / ms / 1e6:.1f} GB/s; {eager_ms:.4f} ms a call launched eagerly from "
+        f"Python), plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.3f} "
+        f"of it)")
+    del pool, xs
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "max_abs_err": err, "eager_ms": eager_ms}
 
 
-def crc_shape_lines(k4: dict, runs: dict, card: str) -> list[str]:
-    """One line per K4 shape with the launches the paths made at it, and
-    the sum of launches x (ms - bound) over the shapes."""
-    lines, loss = [], 0.0
-    for rows, s in sorted(k4["shapes"].items()):
-        n = runs[s["path"]]["launches"]["crc32c_rows"]
-        loss += n * (s["ms"] - s["bound_ms"])
-        lines.append(f"K4 [{rows},{LANES}] on {card}: {s['ms']:.4f} ms, bound "
-                     f"{s['bound_ms']:.5f} ms, share {s['bound_ms'] / s['ms']:.3f}, launches "
-                     f"{n} ({s['path']}), launches x (ms - bound) "
-                     f"{n * (s['ms'] - s['bound_ms']):.3f} ms")
-    lines.append(f"K4 launches x (ms - bound) over the four shapes on {card}: {loss:.3f} ms")
-    return lines
+def _sig_inputs(pool, rows: int, n32: int) -> list:
+    """Distinct [rows, n32] views sliced from `pool`, at most SIG_MAX_INPUTS."""
+    per = rows * n32
+    return [pool[i * per:(i + 1) * per].view(rows, n32)
+            for i in range(min(SIG_MAX_INPUTS, pool.numel() // per))]
+
+
+def check_signatures(runs: dict, paths, names: dict, seed: int, card: str) -> dict:
+    """K1 and K4 at every signature `paths` launched them with (the
+    wrappers' tallies: K1's rows, k, lanes and matrix, K4's rows and
+    lanes). At each: byte-exact against its plain version (K4 also the
+    host shim and its raw form), then timed over distinct inputs sliced
+    from one pool of at least SIG_POOL_BYTES, with its bound from the
+    bytes, and priced: launches x (ms - bound). `names` labels known
+    matrices by their bytes. Returns {kernel: {"shapes", "loss_ms",
+    "launches"}}."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda, crc_kernel
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    result = {}
+    for kname in SIG_KERNELS:
+        by_sig: dict = {}
+        for path in paths:
+            for sig, n in runs[path].get("sigs", {}).get(kname, {}).items():
+                by_sig.setdefault(sig, {})[path] = n
+        k1 = kname == "gf_apply"
+        in_words = [(sig[1] if k1 else sig[0]) * sig[2 if k1 else 1] for sig in by_sig]
+        words = max([SIG_POOL_BYTES // 4] + in_words)
+        pool = torch.randint(-(2**31), 2**31 - 1, (words,), dtype=torch.int32,
+                             device="cuda", generator=g)
+        shapes, loss = [], 0.0
+        for sig in sorted(by_sig, key=lambda sg: (sg[0], sg[2 if k1 else 1], str(sg))):
+            if k1:
+                r, k, n32, mat = sig
+                rows = np.frombuffer(mat, dtype=np.uint8).reshape(r, k)
+                xs = _sig_inputs(pool, k, n32)
+                outs = torch.empty((len(xs), r, n32), dtype=torch.int32, device="cuda")
+                terms = codec_cuda.gf_terms(rows)
+                label = names.get(mat, "rows " + mat.hex())
+                if not torch.equal(codec_cuda.gf_apply_u32(rows, xs[0], terms),
+                                   codec_cuda.gf_apply_plain(rows, xs[0])):
+                    raise AssertionError(f"K1 [{k},{n32}] ({label}): kernel disagrees with "
+                                         f"its plain version")
+                ms = _kernel_ms(lambda i: codec_cuda.gf_apply_u32(
+                    rows, xs[i % len(xs)], terms, outs[i % len(xs)]),
+                    iters=min(SIG_MAX_INPUTS, max(64, len(xs))))
+                nbytes = (k + r) * 4 * n32
+                shape = f"[{k},{n32}]->[{r},{n32}] ({label})"
+                del outs
+            else:
+                r, n32 = sig
+                xs = _sig_inputs(pool, r, n32)
+                got = crc_kernel.crc32c_rows(xs[0])
+                host = xs[0].cpu().numpy()
+                if not torch.equal(got, crc_kernel.crc32c_rows_plain(xs[0])) or not (
+                        torch.equal(crc_kernel.finalize_rows(crc_kernel.crc_lin_rows(xs[0]),
+                                                             4 * n32), got)) or [
+                        crc32c(host[i]) for i in range(r)] != [
+                        int(v) for v in got.cpu().numpy().view(np.uint32)]:
+                    raise AssertionError(f"K4 [{r},{n32}]: kernel disagrees with its plain "
+                                         f"version, raw form or the host shim")
+                ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]),
+                                iters=min(SIG_MAX_INPUTS, max(64, len(xs))))
+                nbytes = r * 4 * n32 + r * 4
+                shape = f"[{r},{n32}]"
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            n = sum(by_sig[sig].values())
+            loss += n * (ms - bound)
+            shapes.append({"shape": shape, "launches": by_sig[sig], "ms": ms,
+                           "bound_ms": bound, "inputs": len(xs)})
+            log(f"{kname} {shape} on {card}: byte-exact vs plain; {ms:.4f} ms over "
+                f"{len(xs)} distinct inputs, bound {bound:.5f} ms (bytes; share "
+                f"{bound / ms:.3f}), launches {by_sig[sig]}, launches x (ms - bound) "
+                f"{n * (ms - bound):.3f} ms")
+        del pool
+        total = sum(sum(v.values()) for v in by_sig.values())
+        log(f"{kname} over its {len(by_sig)} launch signatures on the paths on {card}: "
+            f"{total} launches, launches x (ms - bound) {loss:.3f} ms")
+        result[kname] = {"shapes": shapes, "loss_ms": loss, "launches": total}
+    return result
 
 
 def sweep_crc(seed: int, draws: int = 40) -> int:
@@ -444,35 +579,6 @@ def check_verify(rows, seed: int, card: str) -> dict:
 # --- phase 3: the single-volume path ----------------------------------------
 
 
-def write_volume(base: str, nbytes: int, seed: int,
-                 max_payload: int = 4 << 20) -> tuple[int, list]:
-    """A sealed v3 volume of about `nbytes`: superblock, needles with
-    random payloads of log-uniform size over 1 KiB-`max_payload`, and
-    .idx. Returns (dat size, [(id, offset, size)])."""
-    from seaweedfs_tpu_torch.storage import idx as idx_codec
-    from seaweedfs_tpu_torch.storage import types as t
-    from seaweedfs_tpu_torch.storage.needle import Needle
-    from seaweedfs_tpu_torch.storage.super_block import VERSION3, SuperBlock
-
-    rng = np.random.default_rng(seed)
-    entries = []
-    with open(base + ".dat", "wb") as dat, open(base + ".idx", "wb") as idx:
-        dat.write(SuperBlock(version=VERSION3).to_bytes())
-        off = dat.tell()
-        nid = 1
-        while off < nbytes:
-            size = int(np.exp(rng.uniform(np.log(1024), np.log(max_payload))))
-            n = Needle(cookie=int(rng.integers(1 << 32)), id=nid,
-                       data=rng.bytes(size), append_at_ns=nid)
-            rec = n.to_bytes(VERSION3)
-            dat.write(rec)
-            idx.write(idx_codec.pack_entry(nid, t.offset_to_units(off), n.size))
-            entries.append((nid, off, n.size))
-            off += len(rec)
-            nid += 1
-    return off, entries
-
-
 def _file_crc(path: str) -> int:
     from seaweedfs_tpu_torch.util.crc import crc32c
 
@@ -503,6 +609,28 @@ def _reset_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: c.value for name, c in _counts().items()}
+
+
+SIG_KERNELS = ("gf_apply", "crc32c_rows")  # the wrappers that tally signatures
+
+
+def _read_sigs() -> dict:
+    """{kernel: {signature: launches}} since the last reset, for the
+    kernels whose wrappers tally their launch signatures: K1 (rows, k,
+    n32, matrix bytes) and K4 (rows, n32)."""
+    counts = _counts()
+    return {name: counts[name].by_signature() for name in SIG_KERNELS}
+
+
+def _add_sigs(*tallies, sign: int = 1) -> dict:
+    """The sum of {kernel: {signature: n}} tallies; sign=-1 subtracts
+    every tally after the first."""
+    out = {name: dict(tallies[0].get(name, {})) for name in SIG_KERNELS}
+    for tally in tallies[1:]:
+        for name in SIG_KERNELS:
+            for sig, n in tally.get(name, {}).items():
+                out[name][sig] = out[name].get(sig, 0) + sign * n
+    return {name: {sig: n for sig, n in by.items() if n} for name, by in out.items()}
 
 
 def _must_launch(label: str, launches: dict, names) -> None:
@@ -553,11 +681,13 @@ def profile_encode(encode, workdir: str, card: str, label: str = "encode") -> di
 def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
                   card: str = "") -> dict:
     """Encode one volume and rebuild 1 and 4 lost shards on `device`
-    (None: the card). Returns per-run stats and kernel launches."""
+    (None: the card), then run the degraded phase on it
+    (run_degraded_phase). Returns per-run stats and kernel launches."""
     from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar
     from seaweedfs_tpu_torch.ec.codec import new_encoder
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.super_block import VERSION3
+    from seaweedfs_tpu_torch.storage.synthetic import write_volume
 
     base = os.path.join(workdir, "1")
     t0 = time.perf_counter()
@@ -571,7 +701,7 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
     t0 = time.perf_counter()
     ec_files.write_ec_files(base, rs=rs, want_crcs=True, durable=True, stats=enc)
     enc_wall = time.perf_counter() - t0
-    enc_launch = _read_counts()
+    enc_launch, enc_sigs = _read_counts(), _read_sigs()
     ec_files.write_sorted_file_from_idx(base, durable=True)
     if ecc_sidecar.write_sidecar(base, enc["shard_crcs"]) is None:
         raise AssertionError("the .ecc sidecar was not written")
@@ -623,7 +753,8 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
     os.mkdir(originals)
     for p in shard_paths:
         shutil.copyfile(p, os.path.join(originals, os.path.basename(p)))
-    runs = {"encode": {"wall_s": enc_wall, "launches": enc_launch, "stats": enc}}
+    runs = {"encode": {"wall_s": enc_wall, "launches": enc_launch, "sigs": enc_sigs,
+                       "stats": enc}}
     for label, lost in (("rebuild1", (3,)), ("rebuild4", (0, 5, 10, 13))):
         for i in lost:
             os.remove(shard_paths[i])
@@ -632,7 +763,7 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
         t0 = time.perf_counter()
         got = ec_files.rebuild_ec_files(base, rs=rs, want_crcs=True, durable=True, stats=st)
         wall = time.perf_counter() - t0
-        launches = _read_counts()
+        launches, sigs = _read_counts(), _read_sigs()
         if tuple(got) != lost:
             raise AssertionError(f"{label}: rebuilt {got}, expected {lost}")
         for i in lost:
@@ -648,13 +779,385 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
             + json.dumps({k: st[k] for k in ("read_s", "device_s", "writeback_s",
                                               "compute_s", "write_s", "loop_s",
                                               "host_crc_rows")}))
-        runs[label] = {"wall_s": wall, "launches": launches, "stats": st}
+        runs[label] = {"wall_s": wall, "launches": launches, "sigs": sigs, "stats": st}
     if device is None:  # on the card every run must have gone through K1 and K4
         for label, run in runs.items():
             _must_launch(label, run["launches"], ("gf_apply", "crc32c_rows"))
+    runs.update(run_degraded_phase(workdir, entries, originals, enc["shard_crcs"], device,
+                                   card))
+    if device is None:
         runs["profiled_encode"] = profile_encode(
             lambda: ec_files.write_ec_files(base, rs=rs, want_crcs=True), workdir, card)
     return runs
+
+
+# --- phase 3b: degraded reads and the piggybacked rebuild --------------------
+
+LOST = (0, 5, 10, 13)  # two data shards, two parity: all RS(10,4) tolerates
+SF_THREADS, SF_NEEDLES, WARM_NEEDLES = 8, 16, 64
+
+
+def _pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q)) * 1e3 if xs else float("nan")
+
+
+def _lost_intervals(ev, off: int, size: int) -> list:
+    """(shard, shard offset, length) of a .dat span's intervals that lie
+    on a lost shard."""
+    from seaweedfs_tpu_torch.ec import locate
+
+    out = []
+    for iv in locate.locate_data(locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE,
+                                 ev.dat_file_size(), off, size):
+        sid, soff = iv.to_shard_id_and_offset()
+        if sid in LOST:
+            out.append((sid, soff, iv.size))
+    return out
+
+
+def _span_delta(name: str, before: dict) -> dict:
+    """What the spans named `name` added since the totals `before`
+    (trace.totals): count, seconds, bytes and stage seconds."""
+    from seaweedfs_tpu_torch import trace
+
+    now = trace.totals(name)
+    return {"count": now["count"] - before["count"],
+            "seconds": now["seconds"] - before["seconds"],
+            "bytes": now["bytes"] - before["bytes"],
+            "stages": {k: v - before["stages"].get(k, 0.0)
+                       for k, v in now["stages"].items()}}
+
+
+def _thread_launches() -> tuple[dict, dict]:
+    """The calling thread's own launches of every kernel, and its
+    signature tallies (LaunchCounter.mine)."""
+    counts = _counts()
+    mine = {name: c.mine() for name, c in counts.items()}
+    return ({name: n for name, (n, _) in mine.items()},
+            {name: mine[name][1] for name in SIG_KERNELS})
+
+
+def run_degraded_phase(workdir: str, entries: list, originals: str, enc_crcs: list,
+                       device=None, card: str = "") -> dict:
+    """The degraded-read side of the main path on volume 1 of `workdir`
+    (whole, its shards saved in `originals`): lose shards LOST, read every
+    needle through EcVolume (K1 decodes on `device`, None: the card), a
+    warm pass, a singleflight check under SF_THREADS threads, then the
+    piggybacked rebuild of the lost data shards while a thread keeps
+    serving, and a plain rebuild of the lost parity. Raises on any fault;
+    returns per-run stats, launches and signature tallies ("degraded",
+    with the serving thread's reads during the rebuild; "repair_piggyback",
+    the rebuild's own; "repair_parity"). The decode and gather times come
+    from the "ec.degraded" spans' stages (trace.totals)."""
+    from seaweedfs_tpu_torch import trace
+    from seaweedfs_tpu_torch.ec import ec_files, ec_stream, repair_session
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+    from seaweedfs_tpu_torch.ec.ec_volume import _DECODE_RUN_TILES, EcVolume
+    from seaweedfs_tpu_torch.stats.metrics import (
+        EC_DEGRADED_READS, EC_REPAIR_BYTES_READ, EC_TILE_CACHE)
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    from seaweedfs_tpu_torch.storage.super_block import VERSION3
+
+    on_card = device is None
+    base = os.path.join(workdir, "1")
+    paths = {i: base + ec_files.to_ext(i) for i in range(14)}
+    for i in LOST:
+        os.remove(paths[i])
+    ev = EcVolume.load(workdir, 1, backend="cuda", device=device)
+    tile = ev.tile_cache.tile_bytes
+    runs: dict = {}
+
+    def counters():
+        return (EC_DEGRADED_READS.value(), EC_TILE_CACHE.value("hit"),
+                EC_TILE_CACHE.value("miss"))
+
+    dat_fd = os.open(base + ".dat", os.O_RDONLY)
+    try:
+        def check(n, off, size):
+            rec = os.pread(dat_fd, get_actual_size(size, VERSION3), off)
+            if n.to_bytes(VERSION3) != rec:
+                raise AssertionError(f"needle {n.id}: bytes differ from the .dat record")
+
+        lost_of = {nid: _lost_intervals(ev, off, get_actual_size(size, VERSION3))
+                   for nid, off, size in entries}
+        # --- cold pass: every needle ---
+        _reset_counts()
+        c0, s0 = counters(), trace.totals("ec.degraded")
+        lat = {True: [], False: []}
+        served = 0
+        t0 = time.perf_counter()
+        for nid, off, size in entries:
+            t1 = time.perf_counter()
+            n = ev.read_needle(nid)  # Needle.from_bytes checks the CRC
+            lat[bool(lost_of[nid])].append(time.perf_counter() - t1)
+            check(n, off, size)
+            served += get_actual_size(size, VERSION3)
+        wall = time.perf_counter() - t0
+        read_s = {lost: sum(v) for lost, v in lat.items()}
+        launches, sigs = _read_counts(), _read_sigs()
+        c1, spans = counters(), _span_delta("ec.degraded", s0)
+        cold = {
+            "wall_s": wall, "needles": len(entries), "bytes": served,
+            "degraded_needles": len(lat[True]),
+            "read_s_lost": read_s[True], "read_s_healthy": read_s[False],
+            "check_s": wall - read_s[True] - read_s[False],
+            "degraded_reads": c1[0] - c0[0], "tile_hits": c1[1] - c0[1],
+            "tile_misses": c1[2] - c0[2],
+            "p50_ms_lost": _pct(lat[True], 50), "p99_ms_lost": _pct(lat[True], 99),
+            "p50_ms_healthy": _pct(lat[False], 50), "p99_ms_healthy": _pct(lat[False], 99),
+            "apply_s": spans["stages"].get("decode", 0.0), "apply_calls": spans["count"],
+            "apply_mib": spans["bytes"] / 2**20,
+            "gather_s": spans["stages"].get("gather", 0.0),
+        }
+        if not lat[True] or cold["degraded_reads"] <= 0:
+            raise AssertionError("the cold pass served no needle from a lost shard")
+        if on_card:
+            _must_launch("degraded cold pass", launches, ("gf_apply",))
+            if launches["crc32c_rows"]:
+                raise AssertionError("the degraded read launched K4")
+            if launches["gf_apply"] != spans["count"]:
+                raise AssertionError(f"cold pass: {launches['gf_apply']} K1 launches for "
+                                     f"{spans['count']} decodes")
+        log(f"degraded cold pass on {card}: shards {LOST} lost, {len(entries)} needles "
+            f"({cold['degraded_needles']} on a lost shard), {served} bytes, each equal to "
+            f"its .dat record, CRC ok; wall {wall:.4f} s, launches {launches}, "
+            + json.dumps({k: v for k, v in cold.items()
+                          if k not in ("wall_s", "needles", "bytes", "degraded_needles")}))
+
+        # --- warm pass: the last lost-shard needles again ---
+        lost_ids = [e for e in entries if lost_of[e[0]]]
+        warm_set = lost_ids[-WARM_NEEDLES:]
+        resident = 0
+        h0 = EC_TILE_CACHE.value("hit")
+        _reset_counts()
+        for nid, off, size in warm_set:
+            before = _read_counts()["gf_apply"]
+            covered = all(ev.tile_cache.covers(*iv) for iv in lost_of[nid])
+            check(ev.read_needle(nid), off, size)
+            if covered:
+                resident += 1
+                if _read_counts()["gf_apply"] != before:
+                    raise AssertionError(f"warm needle {nid}: resident tiles decoded again")
+        hits = EC_TILE_CACHE.value("hit") - h0
+        warm_launches, warm_sigs = _read_counts(), _read_sigs()
+        log(f"degraded warm pass on {card}: {len(warm_set)} lost-shard needles, "
+            f"{resident} with every tile resident (no K1 launch for them), tile-cache "
+            f"hits {hits}, launches {warm_launches}")
+
+        # --- singleflight: 8 threads, the same 16 cold needles on shard 0 ---
+        # Up to half of the needles span two or three tiles, so that a
+        # decode run covers several; all their tiles fit the probation
+        # segment, so none is evicted before its readers hit it. Every
+        # thread reads them in one order, and a thread passes a needle
+        # only once its tiles are cached, so the decodes are those of one
+        # reader: a run of contiguous cold tiles of an interval, at most
+        # ec_volume's _DECODE_RUN_TILES, is one K1 launch.
+        ev.tile_cache.invalidate()  # every tile cold
+
+        def tile_spans(nid):  # (first tile offset, tiles) of each lost interval
+            return [(o // tile * tile, (o % tile + ln - 1) // tile + 1)
+                    for _, o, ln in lost_of[nid]]
+
+        on0 = [e for e in entries
+               if lost_of[e[0]] and {iv[0] for iv in lost_of[e[0]]} == {0}]
+        ntiles = {e[0]: sum(n for _, n in tile_spans(e[0])) for e in on0}
+        multi = sorted((e for e in on0 if 2 <= ntiles[e[0]] <= 3),
+                       key=lambda e: (ntiles[e[0]], e[2]))
+        single = sorted((e for e in on0 if ntiles[e[0]] == 1), key=lambda e: e[2])
+        budget = ev.tile_cache.probation_bytes_cap * 3 // 4 // tile
+        order = [e for pair in zip(multi[:SF_NEEDLES // 2], single) for e in pair]
+        order += [e for e in single + multi if e not in order]
+        picked, tiles, decode_runs = [], set(), 0
+        for e in order:
+            mine = {o + j * tile for o, n in tile_spans(e[0]) for j in range(n)}
+            if len(tiles | mine) > budget:
+                continue
+            picked.append(e)
+            for o, n in tile_spans(e[0]):  # one reader's decode runs
+                run = 0
+                for j in range(n):
+                    if o + j * tile in tiles:
+                        run = 0  # a cached tile ends a run
+                        continue
+                    decode_runs += run % _DECODE_RUN_TILES == 0
+                    run += 1
+                    tiles.add(o + j * tile)
+            if len(picked) == SF_NEEDLES:
+                break
+        if len(picked) < min(SF_NEEDLES, 4):
+            raise AssertionError(f"only {len(picked)} cold needles on shard 0")
+        barrier = threading.Barrier(SF_THREADS)
+        got: list = [None] * SF_THREADS
+        errors: list = []
+
+        def sf_reader(t):
+            try:
+                barrier.wait(30)
+                got[t] = [ev.read_needle(nid).to_bytes(VERSION3) for nid, _, _ in picked]
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        _reset_counts()
+        c0 = counters()
+        threads = [threading.Thread(target=sf_reader, args=(t,)) for t in range(SF_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        sf_wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        sf_launches, sf_sigs = _read_counts(), _read_sigs()
+        c1 = counters()
+        for t in range(1, SF_THREADS):
+            if got[t] != got[0]:
+                raise AssertionError(f"singleflight: thread {t} read other bytes")
+        for (nid, off, size), rec in zip(picked, got[0]):
+            if rec != os.pread(dat_fd, get_actual_size(size, VERSION3), off):
+                raise AssertionError(f"singleflight: needle {nid} differs from the .dat")
+        decodes = c1[2] - c0[2]
+        if on_card and not 0 < sf_launches["gf_apply"] <= decode_runs:
+            raise AssertionError(f"singleflight: {sf_launches['gf_apply']} K1 launches for "
+                                 f"{decode_runs} decode runs ({len(tiles)} tiles)")
+        log(f"singleflight on {card}: {SF_THREADS} threads x {len(picked)} cold needles on "
+            f"shard 0 ({len(tiles)} distinct tiles in {decode_runs} decode runs), identical "
+            f"bytes, wall {sf_wall:.4f} s, launches {sf_launches}, tile-cache misses "
+            f"{decodes}")
+        runs["degraded"] = {
+            "wall_s": wall, "cold": cold,
+            "launches": {k: launches[k] + warm_launches[k] + sf_launches[k]
+                         for k in launches},
+            "sigs": _add_sigs(sigs, warm_sigs, sf_sigs),
+            "warm": {"needles": len(warm_set), "resident": resident, "hits": hits},
+            "singleflight": {"needles": len(picked), "tiles": len(tiles),
+                             "decode_runs": decode_runs,
+                             "launches": sf_launches["gf_apply"], "wall_s": sf_wall},
+        }
+
+        # --- piggyback: rebuild shards 0 and 5 while serving them ---
+        # A session consumes only ranges every one of its targets has
+        # donated, and needle reads decode data shards only, so the
+        # session names the data shards; the parity shards count as held
+        # elsewhere (remote_readers, never read: ten local survivors) and
+        # are rebuilt after.
+        data_lost = tuple(i for i in LOST if i < 10)
+        parity_lost = tuple(i for i in LOST if i >= 10)
+        row = (os.path.getsize(paths[1]) // (2 * ec_files.SMALL_BLOCK_SIZE))
+        lo, hi = row * ec_files.SMALL_BLOCK_SIZE, (row + 1) * ec_files.SMALL_BLOCK_SIZE
+        for nid, off, size in entries:  # one whole block of each data target
+            if any(sid in data_lost and lo <= soff < hi for sid, soff, _ in lost_of[nid]):
+                ev.read_needle(nid)
+        sess = repair_session.open_session(1, data_lost)
+        seeded = ev.donate_cached_tiles(sess)
+        serve_ids = [e[0] for e in entries
+                     if {iv[0] for iv in lost_of[e[0]]} & set(data_lost)]
+        stop = threading.Event()
+        serving = {"needles": 0}
+
+        def serve():
+            # the serving thread's own launches are booked to the
+            # degraded path, apart from the rebuild's
+            n0, g0 = _thread_launches()
+            try:
+                while not stop.is_set():
+                    for nid in serve_ids:
+                        if stop.is_set():
+                            break
+                        ev.read_needle(nid)
+                        serving["needles"] += 1
+            except Exception as e:  # noqa: BLE001
+                errors.append(e)
+            finally:
+                n1, g1 = _thread_launches()
+                serving["launches"] = {k: n1[k] - n0[k] for k in n1}
+                serving["sigs"] = _add_sigs(g1, g0, sign=-1)
+
+        remote = {i: (lambda off, size, p=os.path.join(originals, os.path.basename(paths[i])):
+                      _pread_file(p, off, size)) for i in parity_lost}
+        r0 = EC_REPAIR_BYTES_READ.value("local") + EC_REPAIR_BYTES_READ.value("remote")
+        st: dict = {}
+        _reset_counts()
+        server = threading.Thread(target=serve)
+        server.start()
+        t0 = time.perf_counter()
+        try:
+            got_ids = ec_stream.stream_rebuild_ec_files(
+                base, tile_bytes=ec_stream.DEFAULT_TILE_BYTES // 2, stats=st,
+                remote_readers=remote, session=sess, want_crcs=True, durable=True,
+                device=device)
+        finally:
+            pig_wall = time.perf_counter() - t0
+            stop.set()
+            server.join(120)
+            repair_session.close_session(sess)
+        if errors:
+            raise errors[0]
+        window, window_sigs = _read_counts(), _read_sigs()
+        pig_launches = {k: window[k] - serving["launches"][k] for k in window}
+        pig_sigs = _add_sigs(window_sigs, serving["sigs"], sign=-1)
+        read = EC_REPAIR_BYTES_READ.value("local") + EC_REPAIR_BYTES_READ.value("remote") - r0
+        shard_len = os.path.getsize(paths[data_lost[0]])
+        if tuple(got_ids) != data_lost:
+            raise AssertionError(f"piggyback rebuilt {got_ids}, expected {data_lost}")
+        used = st["used_donated_bytes"]
+        if used <= 0:
+            raise AssertionError("the piggybacked rebuild used no donated bytes")
+        if read != 10 * (shard_len - used // len(data_lost)):
+            raise AssertionError(f"piggyback read {read} survivor bytes, expected "
+                                 f"{10 * (shard_len - used // len(data_lost))}")
+        if serving["launches"]["crc32c_rows"]:
+            raise AssertionError("the degraded reads during the rebuild launched K4")
+        if on_card:
+            _must_launch("piggybacked rebuild", pig_launches, ("gf_apply", "crc32c_rows"))
+        log(f"piggybacked rebuild {data_lost} on {card} (session seeded with {seeded} tiles, "
+            f"{serving['needles']} needles served meanwhile by a thread whose own launches "
+            f"were {serving['launches']}): wall {pig_wall:.4f} s, donated "
+            f"{st['donated_bytes']} bytes, used {used}, survivor bytes read {int(read)} "
+            f"(naive {10 * shard_len}), serve_yields {st['serve_yields']}, the rebuild's "
+            f"launches {pig_launches}, stages "
+            + _stage_line(st, ("read_s", "device_s", "writeback_s", "compute_s", "write_s",
+                               "loop_s", "host_crc_rows")))
+        deg = runs["degraded"]
+        deg["launches"] = {k: deg["launches"][k] + serving["launches"][k]
+                           for k in deg["launches"]}
+        deg["sigs"] = _add_sigs(deg["sigs"], serving["sigs"])
+        deg["serve_during_repair"] = {"needles": serving["needles"],
+                                      "launches": serving["launches"]}
+        runs["repair_piggyback"] = {"wall_s": pig_wall, "launches": pig_launches,
+                                    "sigs": pig_sigs, "stats": st, "read_bytes": read}
+        st2: dict = {}
+        _reset_counts()
+        t0 = time.perf_counter()
+        got_ids = ec_files.rebuild_ec_files(base, rs=new_encoder(backend="cuda", device=device),
+                                            want_crcs=True, durable=True, stats=st2)
+        wall2 = time.perf_counter() - t0
+        runs["repair_parity"] = {"wall_s": wall2, "launches": _read_counts(),
+                                 "sigs": _read_sigs(), "stats": st2}
+        if tuple(got_ids) != parity_lost:
+            raise AssertionError(f"parity rebuild returned {got_ids}")
+        crcs = {**st["shard_crcs"], **st2["shard_crcs"]}
+        for i in LOST:
+            if not filecmp.cmp(paths[i], os.path.join(originals, os.path.basename(paths[i])),
+                               shallow=False):
+                raise AssertionError(f"degraded phase: shard {i} is not byte-identical")
+            if crcs[i] != enc_crcs[i]:
+                raise AssertionError(f"degraded phase: shard {i} CRC differs")
+        log(f"parity rebuild {parity_lost} on {card}: wall {wall2:.4f} s, launches "
+            f"{runs['repair_parity']['launches']}; shards {LOST} byte-identical to the "
+            f"encode's, CRCs equal")
+    finally:
+        os.close(dat_fd)
+        ev.close()
+    return runs
+
+
+def _pread_file(path: str, off: int, size: int) -> bytes:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        return os.pread(fd, size, off)
+    finally:
+        os.close(fd)
 
 
 # --- phase 4: the batch path ------------------------------------------------
@@ -687,6 +1190,7 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
     from seaweedfs_tpu_torch.parallel import MeshCodec, make_mesh
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.super_block import VERSION3
+    from seaweedfs_tpu_torch.storage.synthetic import write_volume
 
     shard_bytes = 1 << 20  # one small row per volume: 14 x 1 MiB
     odd, even = (3,), (0, 5, 10, 13)
@@ -721,7 +1225,7 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
         if card_only:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_counts()
+        launches, sigs = _read_counts(), _read_sigs()
         for base, crcs in zip(bases, enc["shard_crcs"]):
             ec_files.write_sorted_file_from_idx(base, durable=True)
             if ecc_sidecar.write_sidecar(base, crcs) is None:
@@ -732,7 +1236,8 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
             f"stages " + _stage_line(enc, ("read_s", "device_s", "writeback_s",
                                             "compute_s", "write_s", "flush_s", "loop_s",
                                             "overlap_s", "host_crc_rows")))
-        runs["batch_encode"] = {"wall_s": wall, "launches": launches, "stats": enc}
+        runs["batch_encode"] = {"wall_s": wall, "launches": launches, "sigs": sigs,
+                                "stats": enc}
         if card_only:
             _must_launch("batch encode", launches, ("gf_apply_batch", "crc32c_rows"))
             # once more under the profiler, into copies of the first chunk
@@ -832,7 +1337,7 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
         if card_only:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_counts()
+        launches, sigs = _read_counts(), _read_sigs()
         if got != [list(ls) for ls in lost] or st["batch_groups"] != 2:
             raise AssertionError(f"batch rebuild returned {got[:4]}..., groups "
                                  f"{st['batch_groups']}")
@@ -853,7 +1358,8 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
             f"{launches}, stages " + _stage_line(st, ("read_s", "device_s", "writeback_s",
                                                       "compute_s", "write_s", "loop_s",
                                                       "host_crc_rows")))
-        runs["batch_rebuild"] = {"wall_s": wall, "launches": launches, "stats": st}
+        runs["batch_rebuild"] = {"wall_s": wall, "launches": launches, "sigs": sigs,
+                                 "stats": st}
         if card_only:
             _must_launch("batch rebuild", launches, ("gf_apply_batch",))
     finally:
@@ -886,7 +1392,7 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
     counts.append(np.asarray(vcodec.verify_batch_u32(
         vcodec.shard_volumes(data.view(np.uint32)),
         vcodec.shard_volumes(parity.view(np.uint32)))).tolist())
-    launches = _read_counts()
+    launches, sigs = _read_counts(), _read_sigs()
     dev = vcodec.devices[0]
     plain = codec_cuda.gf_verify_batch_plain(
         vcodec.matrix[10:], torch.from_numpy(data.view(np.int32)).to(dev),
@@ -897,7 +1403,8 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
     log(f"batch verify of {nv} volumes on {card}: clean {counts[0]}, parity byte "
         f"flipped in volume 5 {counts[1]}, data byte flipped in volume 9 {counts[2]} "
         f"(= the plain version's); first call wall {wall:.4f} s, launches {launches}")
-    runs["batch_verify"] = {"wall_s": wall, "launches": launches, "counts": counts}
+    runs["batch_verify"] = {"wall_s": wall, "launches": launches, "sigs": sigs,
+                            "counts": counts}
     if card_only:
         _must_launch("batch verify", launches, ("gf_verify_batch",))
     return runs
@@ -933,13 +1440,20 @@ def main() -> int:
 
     matrix = gf256.build_code_matrix(10, 14)
     k1_enc = check_gf("encode", matrix[10:], args.seed, card)
-    lost = (0, 5, 10, 13)
+    lost = LOST
     survivors = tuple(i for i in range(14) if i not in lost)
     k1_dec = check_gf("decode4", gf256.decode_rows(matrix, survivors, lost),
                       args.seed + 1, card)
     # the single-shard rebuild's matrix: shard 3 from the first 10 survivors
     k1_dec1 = check_gf("decode1", gf256.decode_rows(
         matrix, tuple(i for i in range(14) if i != 3)[:10], (3,)), args.seed + 6, card)
+    # the degraded read's decode: shard 0 from the survivors of LOST, one
+    # 256 KiB tile and one 32-tile run (ec_volume._DECODE_RUN_TILES)
+    deg_rows = gf256.decode_rows(matrix, survivors, (0,))
+    k1_tile = check_gf("degraded_tile", deg_rows, args.seed + 9, card, lanes=DEG_TILE_LANES)
+    k1_run = check_gf("degraded_run", deg_rows, args.seed + 10, card, lanes=DEG_RUN_LANES)
+    apply_tile = time_apply_matrix(deg_rows, DEG_TILE_LANES, args.seed + 11, card)
+    apply_run = time_apply_matrix(deg_rows, DEG_RUN_LANES, args.seed + 12, card, reps=5)
     k4 = check_crc(args.seed + 2, card)
     k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
     k2_dec = check_gf_batch("decode4", gf256.decode_rows(matrix, survivors, lost),
@@ -968,27 +1482,48 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    paths = ("encode", "rebuild1", "rebuild4", "batch_encode", "batch_rebuild",
-             "batch_verify")
+    paths = ("encode", "rebuild1", "rebuild4", "degraded", "repair_piggyback",
+             "repair_parity", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
-    log(f"launches over every path (single-volume encode and rebuilds, batch encode, "
-        f"rebuild and verify) on {card}: {total}; K1 decode4 {k1_dec['ms']:.4f} ms, "
-        f"K1 decode1 {k1_dec1['ms']:.4f} ms, K2 decode4 {k2_dec['ms']:.4f} ms")
-    for line in crc_shape_lines(k4, runs, card):
-        log(line)
+    log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
+        f"piggybacked and parity rebuilds, batch encode, rebuild and verify) on {card}: "
+        f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
+        f"K2 decode4 {k2_dec['ms']:.4f} ms")
+    deg = runs["degraded"]
+    log(f"K1 on the degraded read on {card}: [1x10] rows, tile [10,{DEG_TILE_LANES}] "
+        f"{k1_tile['ms']:.4f} ms (bound {k1_tile['bound_ms']:.5f}), run [10,{DEG_RUN_LANES}] "
+        f"{k1_run['ms']:.4f} ms (bound {k1_run['bound_ms']:.5f}); cuda_apply_matrix a call "
+        f"{apply_tile['ms']:.4f} / {apply_run['ms']:.4f} ms; launches on the degraded path "
+        f"{deg['launches']['gf_apply']} (cold pass {deg['cold']['apply_calls']} decodes, "
+        f"{deg['cold']['apply_mib']:.1f} MiB a row)")
+    # every K1 and K4 signature the paths launched, checked, timed and priced
+    first10 = tuple(i for i in range(14) if i != 3)[:10]
+    names = {gf256.decode_rows(matrix, srv, tg).astype(np.uint8).tobytes(): label
+             for label, srv, tg in (
+                 ("decode (3,)", first10, (3,)),
+                 ("decode (0, 5, 10, 13)", survivors, lost),
+                 ("decode (0,)", survivors, (0,)),
+                 ("decode (5,)", survivors, (5,)),
+                 ("decode (0, 5)", survivors, (0, 5)),
+                 ("decode (10, 13)", tuple(range(10)), (10, 13)))}
+    names[np.ascontiguousarray(matrix[10:], dtype=np.uint8).tobytes()] = "encode"
+    t0 = time.perf_counter()
+    sigs = check_signatures(runs, paths, names, args.seed + 13, card)
+    log(f"launch signatures checked and timed in {time.perf_counter() - t0:.2f} s")
     log(smi)
 
     def row(name, source, replaces, *checks):
         first = checks[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": total[name],
+                # every signature check raised unless it was byte-exact (0)
                 "max_abs_err": max(c["max_abs_err"] for c in checks),
                 "ms": first["ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
                 "library_ms": None}
 
     kernels = [
-        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1),
+        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1, k1_tile, k1_run),
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
         row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4),

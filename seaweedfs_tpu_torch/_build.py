@@ -130,21 +130,45 @@ def check(err: int, what: str) -> None:
 
 class LaunchCounter:
     """Kernel launches through one wrapper: bumped where the wrapper
-    launches its kernel and nowhere else (thread-safe)."""
+    launches its kernel and nowhere else (thread-safe). A launch may
+    name its signature (what its time depends on: its shape, and for
+    the GF kernels the coefficient matrix), tallied beside the count
+    (`by_signature`); a thread reads its own launches with `mine`."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
+        self._by: dict = {}
         self._lock = threading.Lock()
+        self._local = threading.local()
 
-    def inc(self) -> None:
+    def inc(self, signature=None) -> None:
         with self._lock:
             self._n += 1
+            if signature is not None:
+                self._by[signature] = self._by.get(signature, 0) + 1
+        mine = self._local.__dict__
+        mine["n"] = mine.get("n", 0) + 1
+        if signature is not None:
+            by = mine.setdefault("by", {})
+            by[signature] = by.get(signature, 0) + 1
 
     @property
     def value(self) -> int:
         return self._n
 
+    def by_signature(self) -> dict:
+        """{signature: launches} since the last reset."""
+        with self._lock:
+            return dict(self._by)
+
+    def mine(self) -> tuple[int, dict]:
+        """The calling thread's launches since it started, and their
+        tally by signature (reset leaves them; read them as deltas)."""
+        mine = self._local.__dict__
+        return mine.get("n", 0), dict(mine.get("by", {}))
+
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by = {}

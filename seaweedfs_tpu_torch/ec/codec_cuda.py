@@ -184,7 +184,7 @@ def gf_apply_u32(
         w.ctypes.data, mj.ctypes.data, stream,
     )
     _build.check(err, "gf_apply launch")
-    LAUNCHES.inc()
+    LAUNCHES.inc((r, k, n32, rows.tobytes()))
     return out
 
 

@@ -255,7 +255,7 @@ def _launch(x_u32: torch.Tensor, final_const: int) -> torch.Tensor:
         final_const & 0xFFFFFFFF, stream,
     )
     _build.check(err, "crc32c_rows launch")
-    LAUNCHES.inc()
+    LAUNCHES.inc((rows, n32))
     return out
 
 

@@ -620,6 +620,23 @@ def write_sorted_file_from_idx(
         f.write(entries)
 
 
+def write_idx_file_from_ec_index(base_file_name: str) -> None:
+    """.ecx (+ .ecj tombstones) → .idx, for decoding shards back to a
+    normal volume (ec_decoder.go:17 WriteIdxFileFromEcIndex)."""
+    with open(base_file_name + ".ecx", "rb") as f:
+        ecx = f.read()
+    out = bytearray(ecx)
+    ecj_path = base_file_name + ".ecj"
+    if os.path.exists(ecj_path):
+        with open(ecj_path, "rb") as f:
+            ecj = f.read()
+        for off in range(0, len(ecj) - t.NEEDLE_ID_SIZE + 1, t.NEEDLE_ID_SIZE):
+            key = t.bytes_to_needle_id(ecj[off : off + t.NEEDLE_ID_SIZE])
+            out += idx_codec.pack_entry(key, 0, t.TOMBSTONE_FILE_SIZE)
+    with open(base_file_name + ".idx", "wb") as f:
+        f.write(bytes(out))
+
+
 def find_dat_file_size(base_file_name: str, version: int) -> int:
     """Max (offset + record size) over live .ecx entries
     (ec_decoder.go:47 FindDatFileSize)."""

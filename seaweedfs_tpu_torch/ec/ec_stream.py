@@ -37,6 +37,7 @@ import queue
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
@@ -624,6 +625,8 @@ def stream_rebuild_ec_files(
     | None = None,
     fetch_fn: Callable[["object"], np.ndarray] | None = None,
     stats: dict | None = None,
+    remote_readers: dict[int, Callable[[int, int], bytes]] | None = None,
+    session=None,
     durable: bool = False,
     want_crcs: bool = False,
     device=None,
@@ -636,37 +639,66 @@ def stream_rebuild_ec_files(
     [len(targets), step] u8, or a (bytes, [len(targets)] CRC-32C) pair
     when the stage fused the CRC. The default pair runs K1 and K4 on
     `device`. want_crcs=True lands {shard id: whole-file CRC-32C} in
-    stats["shard_crcs"]. Survivor bytes read and rebuilt bytes written
-    are counted on weed_ec_repair_bytes_read_total /
-    weed_ec_repair_bytes_written_total."""
+    stats["shard_crcs"] (device-fused where the stage supports the
+    shape; host CRC for donated ranges and odd tails).
+
+    remote_readers maps shard id → fetch(offset, size) -> bytes for
+    survivors that live on OTHER nodes: the reader pool pulls their
+    spans in parallel with the local preads, and shards readable
+    remotely are treated as present (not rebuilt). At least one
+    survivor must be local — its file size fixes the tile walk.
+
+    `session` (an ec.repair_session.RebuildSession) consumes the tiles
+    degraded serving already decoded as donations: the readers gather
+    survivors only for the GAPS, and yield to in-flight degraded
+    gathers between tiles. Survivor bytes gathered are counted
+    local-vs-remote on weed_ec_repair_bytes_read_total, rebuilt bytes
+    written on weed_ec_repair_bytes_written_total."""
     if (rebuild_fn is None) != (fetch_fn is None):
         raise ValueError("rebuild_fn and fetch_fn must be injected together")
     if rebuild_fn is None:
         rebuild_fn, fetch_fn = _cuda_rebuild_fns(want_crcs=want_crcs, device=device)
-    tile_bytes = tile_bytes or DEFAULT_TILE_BYTES // 2
+    # local rebuilds want fine tiles (more in-flight preads to overlap);
+    # remote gathers a big one (one fetch per remote survivor a tile)
+    tile_bytes = tile_bytes or (
+        4 * DEFAULT_TILE_BYTES if remote_readers else DEFAULT_TILE_BYTES // 2
+    )
     writer_threads = DEFAULT_WRITER_THREADS
     reader_threads = DEFAULT_READER_THREADS
     depth = pipeline_depth()
+    remote_readers = dict(remote_readers or {})
 
     from seaweedfs_tpu_torch.ec.ec_files import shard_presence, to_ext
 
-    present, targets_l = shard_presence(base_file_name)
-    targets = tuple(targets_l)
+    present, local_missing = shard_presence(base_file_name)
+    local_ids = [i for i, p in enumerate(present) if p]
+    # a shard readable remotely exists in the cluster: it can serve as
+    # a survivor but must not be rebuilt here
+    targets = tuple(i for i in local_missing if i not in remote_readers)
     if not targets:
         return []
-    local_ids = [i for i, p in enumerate(present) if p]
-    if len(local_ids) < DATA_SHARDS:
+    remote_ids = [i for i in remote_readers if not present[i]]
+    if len(local_ids) + len(remote_ids) < DATA_SHARDS:
         raise ValueError(
-            f"too few shard files to rebuild: {len(local_ids)} of {DATA_SHARDS}"
+            "too few shard files to rebuild: "
+            f"{len(local_ids) + len(remote_ids)} of {DATA_SHARDS}"
         )
-    # any 10-of-14 subset reconstructs identical bytes; take the lowest
-    survivors = tuple(local_ids[:DATA_SHARDS])
+    if not local_ids:
+        raise ValueError(
+            "rebuild needs at least one local survivor (its size fixes "
+            "the shard length)"
+        )
+    # prefer local survivors (free reads), top up from remote holders;
+    # any 10-of-14 subset reconstructs identical bytes
+    survivors = tuple(sorted((local_ids + sorted(remote_ids))[:DATA_SHARDS]))
     shard_size = os.path.getsize(base_file_name + to_ext(local_ids[0]))
 
     out_fds: dict[int, int] = {}  # opened inside the try: no leak on ENOSPC
     pipe = _Pipeline()
     read_q: queue.Queue = queue.Queue(maxsize=max(2, reader_threads))
     write_q: queue.Queue = queue.Queue(maxsize=depth)
+    # gap gathers sub-allocate contiguous [k, g_len] views out of one
+    # flat slot per tile
     ring = _StagingRing(
         depth + writer_threads + 1,
         DATA_SHARDS * tile_bytes,
@@ -684,35 +716,100 @@ def stream_rebuild_ec_files(
     offsets = list(range(0, shard_size, tile_bytes))
     idx_lock = threading.Lock()
     idx_iter = iter(offsets)
+
+    n_remote = sum(1 for i in survivors if not present[i])
     read_local = EC_REPAIR_BYTES_READ.labels("local")
+    read_remote = EC_REPAIR_BYTES_READ.labels("remote")
 
     def reader():
-        fds = {i: os.open(base_file_name + to_ext(i), os.O_RDONLY) for i in survivors}
+        fds = {
+            i: os.open(base_file_name + to_ext(i), os.O_RDONLY)
+            for i in survivors
+            if present[i]
+        }
+        # remote survivor fetches fan out per tile: serialized, one
+        # slow holder would stall the whole tile walk
+        fetch_pool = (
+            ThreadPoolExecutor(max_workers=min(n_remote, DATA_SHARDS))
+            if n_remote > 1
+            else None
+        )
+
+        def gather(g_off: int, g_len: int, dest: np.ndarray) -> np.ndarray:
+            """One [k, g_len] survivor read at g_off into a staging-ring
+            view — the only place rebuild bytes cross a disk or the
+            network, so the repair accounting lives here."""
+            tile = dest.reshape(DATA_SHARDS, g_len)
+            futures = {}
+            if fetch_pool is not None:
+                futures = {
+                    j: fetch_pool.submit(remote_readers[i], g_off, g_len)
+                    for j, i in enumerate(survivors)
+                    if i not in fds
+                }
+            for j, i in enumerate(survivors):
+                if i in fds:
+                    got = _pread_into(fds[i], tile[j], g_off)
+                    read_local.inc(got)
+                else:
+                    fut = futures.get(j)
+                    raw = (
+                        fut.result()
+                        if fut is not None
+                        else remote_readers[i](g_off, g_len)
+                    )
+                    got = len(raw)
+                    read_remote.inc(got)
+                    if got == g_len:
+                        tile[j] = np.frombuffer(raw, dtype=np.uint8)
+                if got != g_len:
+                    raise ValueError(
+                        f"ec shard {i} truncated: expected {g_len} at {g_off}"
+                    )
+            return tile
+
         try:
             while True:
                 with idx_lock:
                     offset = next(idx_iter, None)
                 if offset is None:
                     return
+                if session is not None:
+                    # serve-first: degraded gathers in flight own the
+                    # disks and links; repair waits (bounded)
+                    session.yield_to_serving()
                 step = min(tile_bytes, shard_size - offset)
-                got_slot = ring.acquire(pipe.stop)
-                if got_slot is None:
-                    return
-                slot_id, buf = got_slot
+                if session is not None:
+                    covered, gaps = session.consume(offset, step)
+                else:
+                    covered, gaps = [], [(offset, step)]
+                slot_id = -1
+                if gaps:
+                    got_slot = ring.acquire(pipe.stop)
+                    if got_slot is None:
+                        return
+                    slot_id, buf = got_slot
                 t0 = time.perf_counter()
-                tile = buf[: DATA_SHARDS * step].reshape(DATA_SHARDS, step)
-                for j, i in enumerate(survivors):
-                    got = _pread_into(fds[i], tile[j], offset)
-                    read_local.inc(got)
-                    if got != step:
-                        raise ValueError(
-                            f"ec shard {i} truncated: expected {step} at {offset}"
-                        )
+                # parts: ("don", off, {target: bytes}) ride through as
+                # bytes; ("raw", off, [k, n] tile) get decoded. Only the
+                # gaps pay survivor reads, out of the tile's ring slot
+                # (Σ gap bytes ≤ step, so they fit).
+                parts: list = [("don", d_off, per_t) for d_off, per_t in covered]
+                cur = 0
+                for g_off, g_len in gaps:
+                    dest = buf[cur : cur + DATA_SHARDS * g_len]
+                    cur += DATA_SHARDS * g_len
+                    parts.append(("raw", g_off, gather(g_off, g_len, dest)))
                 _charge(busy, busy_lock, "read_s", time.perf_counter() - t0)
-                if not _q_put(read_q, (offset, slot_id, tile), pipe.stop):
-                    ring.release(slot_id)
+                if not _q_put(read_q, (offset, slot_id, parts), pipe.stop):
+                    if slot_id >= 0:
+                        ring.release(slot_id)
                     return
         finally:
+            if fetch_pool is not None:
+                # in-flight remote fetches finish before the rebuild
+                # returns: the caller closes the reader channels then
+                fetch_pool.shutdown(wait=True, cancel_futures=True)
             for fd in fds.values():
                 os.close(fd)
 
@@ -723,26 +820,53 @@ def stream_rebuild_ec_files(
             item = _q_get(write_q, pipe.stop)
             if item is _EOF or item is _STOPPED:
                 return
-            offset, slot_id, handle = item
+            _offset, slot_id, parts = item
             t0 = time.perf_counter()
-            got = fetch_fn(handle)
-            rebuilt, crcs = got if isinstance(got, tuple) else (got, None)
+            fetched = []
+            for kind, off, payload in parts:
+                crcs = None
+                if kind == "h":
+                    payload = fetch_fn(payload)
+                    if isinstance(payload, tuple):
+                        payload, crcs = payload
+                fetched.append((kind, off, payload, crcs))
             t1 = time.perf_counter()
             host_rows = 0
-            if want_crcs and crcs is None:
-                crcs = [crc32c(np.ascontiguousarray(r)) for r in rebuilt]
-                host_rows = len(targets)
-            t2 = time.perf_counter()
-            length = 0
-            for j, i in enumerate(targets):
-                row = np.ascontiguousarray(rebuilt[j])
-                _pwrite_full(out_fds[i], row, offset)
-                EC_REPAIR_BYTES_WRITTEN.inc(len(row))
-                length = len(row)
             if want_crcs:
-                crc_ranges.append((offset, length, [int(c) for c in crcs]))
+                # donated ranges and declined-fused tiles: CRC the bytes
+                # being written on the host, charged as compute
+                filled = []
+                for kind, off, payload, crcs in fetched:
+                    if crcs is None:
+                        if kind == "don":
+                            crcs = [crc32c(payload[i]) for i in targets]
+                        else:
+                            crcs = [
+                                crc32c(np.ascontiguousarray(payload[j]))
+                                for j in range(len(targets))
+                            ]
+                        host_rows += len(targets)
+                    filled.append((kind, off, payload, crcs))
+                fetched = filled
+            t2 = time.perf_counter()
+            for kind, off, payload, crcs in fetched:
+                length = 0
+                if kind == "don":
+                    for i in targets:
+                        _pwrite_full(out_fds[i], payload[i], off)
+                        EC_REPAIR_BYTES_WRITTEN.inc(len(payload[i]))
+                        length = len(payload[i])
+                else:
+                    for j, i in enumerate(targets):
+                        row = np.ascontiguousarray(payload[j])
+                        _pwrite_full(out_fds[i], row, off)
+                        EC_REPAIR_BYTES_WRITTEN.inc(len(row))
+                        length = len(row)
+                if want_crcs:
+                    crc_ranges.append((off, length, [int(c) for c in crcs]))
             t3 = time.perf_counter()
-            ring.release(slot_id)
+            if slot_id >= 0:
+                ring.release(slot_id)
             _charge(busy, busy_lock, fetch_bucket, t1 - t0)
             _charge(busy, busy_lock, "compute_s", t2 - t1)
             _charge(busy, busy_lock, "write_s", t3 - t2)
@@ -766,11 +890,18 @@ def stream_rebuild_ec_files(
             item = _q_get(read_q, pipe.stop)
             if item is _STOPPED:
                 break
-            offset, slot_id, tile = item
+            offset, slot_id, parts = item
             t0 = time.perf_counter()
-            handle = rebuild_fn(survivors, targets, tile)
+            parts = [
+                (
+                    ("h", off, rebuild_fn(survivors, targets, payload))
+                    if kind == "raw"
+                    else (kind, off, payload)
+                )
+                for kind, off, payload in parts
+            ]
             _charge(busy, busy_lock, "device_s", time.perf_counter() - t0)
-            if not _q_put(write_q, (offset, slot_id, handle), pipe.stop):
+            if not _q_put(write_q, (offset, slot_id, parts), pipe.stop):
                 break
         for _ in range(writer_threads):
             if not _q_put(write_q, _EOF, pipe.stop):
@@ -800,7 +931,14 @@ def stream_rebuild_ec_files(
                     stats.update(ring.stats())
                     if want_crcs and ok and not pipe.errors and fsync_err is None:
                         stats["shard_crcs"] = _fold_rebuild_crcs(targets, crc_ranges)
+                    if session is not None:
+                        stats["donated_bytes"] = session.donated_bytes
+                        stats["used_donated_bytes"] = session.used_donated_bytes
+                        stats["serve_yields"] = session.yields
                 _trace_stages(_sp, busy)
+                if session is not None:
+                    _sp.annotate("donated_bytes", session.used_donated_bytes)
+                    _sp.annotate("serve_yields", session.yields)
                 _sp.__exit__(*sys.exc_info())
     return list(targets)
 

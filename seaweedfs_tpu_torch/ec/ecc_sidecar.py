@@ -11,6 +11,12 @@ Crash ordering: the sidecar ATTESTS shard bytes, so callers write it
 only after the shard files are fsynced (durable=True on the drivers),
 and it publishes through util/durable.publish (fsync bytes → rename →
 fsync dir).
+
+`sidecar_status` is the scrubber's freshness check: a sidecar older
+than a shard it attests, or disagreeing with a shard's on-disk size,
+is stale. Rebuilt shards are byte-identical to the originals, but their
+files are newer, so the rebuild verbs merge the fresh CRCs and
+republish. ``WEED_EC_ECC=0`` disables both emit and verify.
 """
 
 from __future__ import annotations
@@ -22,6 +28,12 @@ from seaweedfs_tpu_torch.util import durable
 
 ECC_EXT = ".ecc"
 _VERSION = 1
+
+
+def ecc_enabled() -> bool:
+    """`WEED_EC_ECC` env knob: any value but "0" keeps the sidecar
+    emit + scrub verify on."""
+    return os.environ.get("WEED_EC_ECC", "1") != "0"
 
 
 def sidecar_path(base: str) -> str:
@@ -90,3 +102,35 @@ def write_sidecar(
         json.dump({"version": _VERSION, "shards": shards}, f)
     durable.publish(tmp, dst)
     return dst
+
+
+def sidecar_status(
+    base: str, shard_paths: dict[int, str], total_shards: int = 14
+) -> tuple[str, dict | None]:
+    """("ok", doc) when the sidecar attests every shard in
+    `shard_paths` and is no older than any of them; ("missing", None) /
+    ("stale", doc-or-None) otherwise. Size disagreement and
+    shard-newer-than-sidecar both count as stale (the attested CRCs may
+    describe bytes that are no longer on disk)."""
+    doc = load_sidecar(base)
+    if doc is None:
+        return "missing", None
+    try:
+        ecc_mtime = os.stat(sidecar_path(base)).st_mtime_ns
+    except OSError:
+        return "missing", None
+    for sid, path in shard_paths.items():
+        ent = doc["shards"].get(str(sid))
+        if ent is None:
+            return "stale", doc
+        try:
+            st = os.stat(path)
+        except OSError:
+            return "stale", doc
+        if st.st_size != ent.get("size"):
+            return "stale", doc
+        if st.st_mtime_ns > ecc_mtime:
+            return "stale", doc
+    if len(doc["shards"]) < total_shards:
+        return "stale", doc
+    return "ok", doc

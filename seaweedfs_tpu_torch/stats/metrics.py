@@ -1,5 +1,6 @@
-"""Counters the EC drivers bump: the part of seaweedfs_tpu/stats/metrics.py
-that ec_stream and ec_files touch, under the same metric names.
+"""Counters the EC pipelines and the degraded read path bump: the part of
+seaweedfs_tpu/stats/metrics.py that ec_stream, ec_files, ec_volume,
+tile_cache and repair_session touch, under the same metric names.
 
 A Counter holds one float per label tuple; `labels(...)` returns a
 child bound to one tuple and `value(...)` reads it. Prometheus
@@ -42,6 +43,16 @@ class _CounterChild:
         self._parent._add(self._key, amount)
 
 
+# --- EC degraded reads & repair-bandwidth accounting ------------------------
+EC_DEGRADED_READS = Counter(
+    "weed_ec_degraded_read_total",
+    "EC intervals served by reconstruction (a shard was lost/quarantined)",
+)
+EC_TILE_CACHE = Counter(
+    "weed_ec_tile_cache_total",
+    "reconstructed-tile cache probes on the degraded read path",
+    ("result",),  # result: hit | miss
+)
 EC_REPAIR_BYTES_READ = Counter(
     "weed_ec_repair_bytes_read_total",
     "survivor bytes gathered by EC rebuild, by where they came from",
@@ -50,4 +61,8 @@ EC_REPAIR_BYTES_READ = Counter(
 EC_REPAIR_BYTES_WRITTEN = Counter(
     "weed_ec_repair_bytes_written_total",
     "rebuilt shard bytes written by EC rebuild",
+)
+EC_REPAIR_DONATED_BYTES = Counter(
+    "weed_ec_repair_donated_bytes_total",
+    "tile bytes degraded serving handed to an in-progress rebuild",
 )

@@ -12,7 +12,8 @@ indexes.
 
 from __future__ import annotations
 
-from typing import Iterator
+import io
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -42,7 +43,43 @@ def iter_entries(data: bytes) -> Iterator[tuple[int, int, int]]:
         yield unpack_entry(data, off)
 
 
-# --- numpy bulk view ---------------------------------------------------------
+def walk_index_file(
+    f: io.BufferedIOBase,
+    fn: Callable[[int, int, int], None],
+    rows_to_read: int = 1024,
+) -> None:
+    """Stream (key, offset_units, size) entries to `fn` (idx/walk.go:14)."""
+    f.seek(0)
+    while True:
+        chunk = f.read(ENTRY_SIZE * rows_to_read)
+        if not chunk:
+            return
+        for off in range(0, len(chunk) - ENTRY_SIZE + 1, ENTRY_SIZE):
+            fn(*unpack_entry(chunk, off))
+        if len(chunk) < ENTRY_SIZE * rows_to_read:
+            return
+
+
+# --- numpy bulk views -------------------------------------------------------
+
+def entries_as_arrays(data: bytes) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decode a whole .idx/.ecx byte blob to (keys u64, offsets u64,
+    sizes u32) arrays in one vectorized pass. Honors the process
+    offset size (4- or 5-byte entries)."""
+    osz = t.OFFSET_SIZE
+    entry = t.NEEDLE_MAP_ENTRY_SIZE
+    n = len(data) // entry
+    raw = np.frombuffer(data, dtype=np.uint8, count=n * entry).reshape(n, entry)
+    keys = raw[:, :8].copy().view(">u8").reshape(n).astype(np.uint64)
+    # big-endian offsets of arbitrary width: widen to 8 bytes, view u64
+    off8 = np.zeros((n, 8), dtype=np.uint8)
+    off8[:, 8 - osz :] = raw[:, 8 : 8 + osz]
+    offsets = off8.view(">u8").reshape(n).astype(np.uint64)
+    sizes = (
+        raw[:, 8 + osz : 8 + osz + 4].copy().view(">u4").reshape(n).astype(np.uint32)
+    )
+    return keys, offsets, sizes
+
 
 def arrays_to_entries(keys: np.ndarray, offsets: np.ndarray, sizes: np.ndarray) -> bytes:
     osz = t.OFFSET_SIZE

@@ -78,3 +78,6 @@ def bytes_to_offset(b: bytes) -> int:
 def needle_id_to_bytes(needle_id: int) -> bytes:
     return (needle_id & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "big")
 
+
+def bytes_to_needle_id(b: bytes) -> int:
+    return int.from_bytes(b[:8], "big")

@@ -7,6 +7,8 @@ against the reference's XLA CRC program and the host CRC. The same
 numpy arrays go to both packages; tolerance 0 (integer math).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -370,6 +372,67 @@ def test_plain_versions_do_not_count_as_launches():
     codec_cuda.gf_apply_u32(MATRICES["parity"], x)
     crc_kernel.crc32c_rows(x)
     assert (codec_cuda.LAUNCHES.value, crc_kernel.LAUNCHES.value) == before
+
+
+def test_launch_counter_tallies_signatures_and_threads():
+    import threading
+
+    from seaweedfs_tpu_torch import _build
+
+    c = _build.LaunchCounter("k")
+    c.inc((1, 64))
+    c.inc((1, 64))
+    c.inc()
+    seen = {}
+
+    def other():
+        c.inc((4, 8))
+        seen["mine"] = c.mine()
+
+    th = threading.Thread(target=other)
+    th.start()
+    th.join()
+    assert c.value == 4
+    assert c.by_signature() == {(1, 64): 2, (4, 8): 1}
+    assert c.mine() == (3, {(1, 64): 2})  # this thread's own
+    assert seen["mine"] == (1, {(4, 8): 1})
+    c.reset()
+    assert (c.value, c.by_signature()) == (0, {})
+    assert c.mine() == (3, {(1, 64): 2})  # read as deltas: reset leaves it
+
+
+def test_launch_counter_holds_under_contention():
+    """More threads than cores bump one counter with a short switch
+    interval: no launch is lost from the count, the tally or a thread's
+    own count."""
+    import sys
+    import threading
+
+    from seaweedfs_tpu_torch import _build
+
+    c = _build.LaunchCounter("k")
+    threads, per = 4 * (os.cpu_count() or 1) + 1, 500
+    mine = [None] * threads
+
+    def bump(t):
+        for i in range(per):
+            c.inc((t % 3, i % 2))
+        mine[t] = c.mine()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ths = [threading.Thread(target=bump, args=(t,)) for t in range(threads)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in ths)
+    assert c.value == threads * per
+    assert sum(c.by_signature().values()) == threads * per
+    assert all(m[0] == per and sum(m[1].values()) == per for m in mine)
 
 
 def _batch(b: int, n32: int, seed: int) -> np.ndarray:

@@ -61,6 +61,26 @@ def test_k1_equals_plain_at_tile_width(card, rows):
     assert torch.equal(got, codec_cuda.gf_apply_plain(rows, x))
 
 
+@pytest.mark.parametrize("n32", [65536, 131072])
+def test_piggyback_shapes_equal_plain_and_tally_signatures(card, n32):
+    """The piggybacked and parity rebuilds' shapes: K1 with the 2-row
+    decode matrices of (0, 5) and (10, 13), K4 over their 2-row tiles.
+    Each launch is tallied under its signature, on this thread too."""
+    rows05 = gf256.decode_rows(MATRIX, SURV4, (0, 5))
+    rows1013 = gf256.decode_rows(MATRIX, tuple(range(10)), (10, 13))
+    x = _lanes((10, n32), n32, card)
+    k1, k4 = codec_cuda.LAUNCHES.by_signature(), crc_kernel.LAUNCHES.by_signature()
+    mine = codec_cuda.LAUNCHES.mine()[0]
+    for rows in (rows05, rows1013):
+        got = codec_cuda.gf_apply_u32(rows, x)
+        assert torch.equal(got, codec_cuda.gf_apply_plain(rows, x))
+        assert torch.equal(crc_kernel.crc32c_rows(got), crc_kernel.crc32c_rows_plain(got))
+        sig = (2, 10, n32, np.asarray(rows, dtype=np.uint8).tobytes())
+        assert codec_cuda.LAUNCHES.by_signature()[sig] == k1.get(sig, 0) + 1
+    assert crc_kernel.LAUNCHES.by_signature()[(2, n32)] == k4.get((2, n32), 0) + 2
+    assert codec_cuda.LAUNCHES.mine()[0] == mine + 2
+
+
 @pytest.mark.parametrize("n32", [1, 3, 1001, 4097])
 def test_k1_ragged_and_unaligned(card, n32):
     base = _lanes((10 * n32 + 1,), n32, card)
@@ -332,3 +352,73 @@ def test_batch_drivers_on_the_card(card, tmp_path):
             blob = open(base + ec_files.to_ext(i), "rb").read()
             assert blob == open(ref + ec_files.to_ext(i), "rb").read()
             assert crcs[i] == crc32c(blob)
+
+
+def _degraded_volume(d: str, seed: int):
+    """A ~12 MiB volume in `d` (one small row), encoded on the host,
+    shards LOST4 deleted. Returns its needles [(id, offset, size)]."""
+    from seaweedfs_tpu_torch.storage.synthetic import write_volume
+
+    base = os.path.join(d, "1")
+    _, entries = write_volume(base, 12 << 20, seed, max_payload=1 << 20)
+    ec_files.write_ec_files(base, rs=new_encoder(backend="cpu"))
+    ec_files.write_sorted_file_from_idx(base)
+    for i in LOST4:
+        os.remove(base + ec_files.to_ext(i))
+    return entries
+
+
+def test_degraded_read_on_the_card_equals_the_cpu_port(card, tmp_path):
+    from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+
+    entries = _degraded_volume(str(tmp_path), 4)
+    gpu = EcVolume.load(str(tmp_path), 1, backend="cuda")  # device None: the card
+    cpu = EcVolume.load(str(tmp_path), 1, backend="cuda", device="cpu")
+    assert gpu.rs.device.type == "cuda" and cpu.rs.device.type == "cpu"
+    k1, k4 = codec_cuda.LAUNCHES.value, crc_kernel.LAUNCHES.value
+    for nid, off, size in entries:
+        a, b = gpu.read_needle(nid), cpu.read_needle(nid)
+        assert a.to_bytes() == b.to_bytes(), nid
+    span = gpu.read_span(5000, 3 << 20)
+    assert span == cpu.read_span(5000, 3 << 20)
+    assert codec_cuda.LAUNCHES.value > k1  # decoded by K1 on the card
+    assert crc_kernel.LAUNCHES.value == k4  # the read path checksums nothing
+    gpu.close()
+    cpu.close()
+
+
+def test_eight_threads_decode_through_apply_matrix(card):
+    import threading
+
+    rng = np.random.default_rng(5)
+    rows = gf256.decode_rows(MATRIX, SURV4, (0,))
+    rows4 = gf256.decode_rows(MATRIX, SURV4, LOST4)
+    jobs = [(rows if t % 2 else rows4,
+             rng.integers(0, 256, (10, int(rng.integers(1, 3 << 20))), dtype=np.uint8))
+            for t in range(8)]
+    from seaweedfs_tpu_torch.ec.codec import cpu_apply_matrix
+
+    want = [cpu_apply_matrix(r, x) for r, x in jobs]
+    got: list = [None] * 8
+    errors: list = []
+    barrier = threading.Barrier(8)
+
+    def run(t):
+        try:
+            barrier.wait(30)
+            r, x = jobs[t]
+            got[t] = [codec_cuda.cuda_apply_matrix(r, x) for _ in range(4)]
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    before = codec_cuda.LAUNCHES.value
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors, errors[:1]
+    assert codec_cuda.LAUNCHES.value - before == 32
+    for t in range(8):
+        for out in got[t]:
+            assert np.array_equal(out, want[t]), t
