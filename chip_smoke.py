@@ -35,6 +35,23 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      reads cut by them; that thread's own launches are booked to the
      degraded path, not the rebuild), and shards 10 and 13 after it,
      all byte-identical with the encode's CRCs;
+ 3c. the volume store (run_store_phase), in its own directory: write a
+     1 GiB volume (BASELINE.json config 1) of needles log-uniform over
+     1 KiB-4 MiB from the seed through Store.write_needle, delete every
+     16th, rewrite every 64th under its own id, vacuum (compact,
+     commit_compact) and seal it, every live needle read back equal and
+     every deleted one NeedleNotFound; encode it with ec_files on the
+     cuda backend (K1 + K4) and with the native host codec into a second
+     directory, shards, .ecx and .ecc byte-identical and CRCs equal the
+     host shim's, both walls printed beside the card's name and power
+     limit, the host's CPU, its core count and the codec's SIMD path;
+     the same for a rebuild of shards {0, 5, 10, 13}; mount all 14
+     shards in the Store, unmount and delete those four and read every
+     live needle through its EcVolume (K1 on the card); then upload
+     shards 1 and 2 to a `dir` backend, attach them (the .evf sidecar),
+     delete them locally, reload through a fresh Store (DiskLocation
+     loads the remote half) and read 64 needles on shards 0, 1 and 2
+     (K1 decoding with remote survivors, ranged backend reads counted);
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -43,10 +60,14 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      batch, every volume's CRCs equal to the batch's and 4 volumes
      byte-identical to the single-volume path; rebuild shard 3
      of the odd volumes and shards {0, 5, 10, 13} of the even ones in
-     one rebuild_ec_files_batch call (two signature groups); verify 16
+     one rebuild_ec_files_batch call (two signature groups); the batch
+     host arm (_HostBatchCodec over the native codec) encodes the same
+     volumes and rebuilds the same damage, byte-identical to the K2 runs
+     with equal CRCs, both walls printed; verify 16
      volumes with MeshCodec.verify_batch_u32, clean and with planted
      faults; the batch kernels' counters must grow in each run;
-  5. the report: K1 and K4 at every launch signature the paths gave
+  5. the report: K1 and K4 at every launch signature the paths (the
+     store's included) gave
      them (the wrappers' tallies: shape, and K1's matrix), each
      byte-exact against its plain version, timed, bounded, and priced
      as launches x (ms - bound); K1 at the degraded read's shapes
@@ -101,6 +122,7 @@ SIG_MAX_INPUTS = 1024
 # and a run of 32 tiles (8 MiB a row)
 DEG_TILE_LANES = 65536
 DEG_RUN_LANES = 2097152
+STORE_BYTES = 1 << 30  # the store phase's volume: BASELINE.json config 1
 
 
 def log(msg: str) -> None:
@@ -1160,6 +1182,305 @@ def _pread_file(path: str, off: int, size: int) -> bytes:
         os.close(fd)
 
 
+# --- phase 3c: the volume store ---------------------------------------------
+
+STORE_VID = 9
+STORE_ROOM = 5 << 30  # the store phase's peak in its directory (about 4.3 GiB)
+TIER_SHARDS = (1, 2)  # uploaded to the `dir` backend and attached
+TIER_READS = 64
+
+
+def _store_payload(seed: int, nid: int, version: int, size: int) -> bytes:
+    """Needle nid's payload (rewrites bump `version`), made anew from the
+    seed whenever it is checked, so the phase holds no copy of the GiB."""
+    return np.random.default_rng((seed, nid, version)).bytes(size)
+
+
+def _cpu_model() -> str:
+    """The CPU's model: /proc/cpuinfo's "model name", else lscpu's
+    "Model name", else the vendor, family and model numbers (a virtual
+    machine may report its model name as "unknown")."""
+    fields: dict = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if not key and fields:
+                    break  # the first processor's block is enough
+                fields.setdefault(key, value.strip())
+    except OSError:
+        pass
+    if fields.get("model name", "unknown") != "unknown":
+        return fields["model name"]
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        for line in out.splitlines():
+            if line.startswith("Model name:") and "unknown" not in line:
+                return line.split(":", 1)[1].strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    parts = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "stepping")
+             if k in fields]
+    return "model name unknown (" + (", ".join(parts) or "nothing else reported") + ")"
+
+
+def host_line() -> str:
+    """The host's CPU model, core count and the native codec's SIMD path."""
+    from seaweedfs_tpu_torch.native import gf
+
+    return f"{_cpu_model()}, os.cpu_count() {os.cpu_count()}, native SIMD path {gf.caps()}"
+
+
+def time_native_apply(rows, nbytes: int, seed: int, reps: int = 20) -> float:
+    """Median ms of one native apply_matrix call (one thread) of `rows`
+    over a [k, nbytes] tile: the host codec's counterpart of a K1 launch."""
+    from seaweedfs_tpu_torch.native import gf
+
+    x = np.random.default_rng(seed).integers(0, 256, (rows.shape[1], nbytes), dtype=np.uint8)
+    gf.apply_matrix(rows, x)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        gf.apply_matrix(rows, x)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def _same_files(a: str, b: str, exts) -> None:
+    for ext in exts:
+        if not filecmp.cmp(a + ext, b + ext, shallow=False):
+            raise AssertionError(f"{a}{ext} and {b}{ext} differ")
+
+
+def _timed(fn) -> tuple[float, object]:
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def run_store_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                    card: str = "", smi: str = "") -> dict:
+    """The port's storage path on `device` (None: the card), through a
+    Store over one DiskLocation in `workdir`: write a volume of about
+    `volume_bytes` through Store.write_needle, delete every 16th needle,
+    rewrite every 64th (ids 5, 69, ...) under its own id, vacuum, seal;
+    encode it on the cuda backend and with the native host codec (byte-
+    identical, CRCs equal the host shim's), rebuild shards LOST both ways;
+    serve every live needle through the Store's EcVolume with LOST gone
+    (K1), then tier shards TIER_SHARDS to a `dir` backend, reload through
+    a fresh Store and read TIER_READS needles on shards 0, 1 and 2 (K1
+    decoding with remote survivors). Returns per-run stats, launches
+    and signature tallies: store_encode, store_rebuild4, store_serve,
+    store_tier."""
+    from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar, locate
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+    from seaweedfs_tpu_torch.ec.ec_volume import RemoteEcAttachment
+    from seaweedfs_tpu_torch.stats.metrics import TIER_REMOTE_READS
+    from seaweedfs_tpu_torch.storage import backend
+    from seaweedfs_tpu_torch.storage.needle import Needle, get_actual_size
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.volume import NeedleNotFound
+
+    _check_room(workdir, STORE_ROOM if volume_bytes >= 1 << 30 else 6 * volume_bytes,
+                "the store phase")
+    on_card = device is None
+    vdir = os.path.join(workdir, "store")
+    store = Store([vdir], device=device)
+    vol = store.add_volume(STORE_VID)
+    rng = np.random.default_rng(seed + 31)
+    sizes, written, nid = {}, 0, 0
+    t0 = time.perf_counter()
+    while written < volume_bytes:
+        nid += 1
+        size = int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20))))
+        sizes[nid] = size
+        store.write_needle(STORE_VID, Needle(cookie=nid, id=nid,
+                                             data=_store_payload(seed, nid, 0, size)))
+        written = vol.data_file_size()
+    write_s = time.perf_counter() - t0
+    version = dict.fromkeys(sizes, 0)
+    deleted = {i for i in sizes if i % 16 == 0}
+    rewritten = [i for i in sizes if i % 64 == 5]
+    for i in sorted(deleted):
+        store.delete_needle(STORE_VID, Needle(cookie=i, id=i))
+    for i in rewritten:
+        version[i] = 1
+        store.write_needle(STORE_VID, Needle(cookie=i, id=i,
+                                             data=_store_payload(seed, i, 1, sizes[i])))
+    garbage = vol.garbage_level()
+    before = vol.data_file_size()
+    vacuum_s, _ = _timed(lambda: (vol.compact(), vol.commit_compact()))
+    if not store.mark_volume_readonly(STORE_VID) or vol.garbage_level() != 0.0:
+        raise AssertionError("the vacuumed volume did not seal clean")
+    live = sorted(set(sizes) - deleted)
+
+    def check_reads(read, label, ids=live):
+        for i in ids:
+            if bytes(read(i).data) != _store_payload(seed, i, version[i], sizes[i]):
+                raise AssertionError(f"{label}: needle {i} read back wrong")
+
+    read_s, _ = _timed(lambda: check_reads(lambda i: store.read_needle(STORE_VID, i, i),
+                                           "store"))
+    for i in deleted:
+        try:
+            store.read_needle(STORE_VID, i)
+        except NeedleNotFound:
+            continue
+        raise AssertionError(f"deleted needle {i} still reads")
+    dat_size = vol.data_file_size()
+    log(f"store write on {card}: {len(sizes)} needles, {written} bytes through "
+        f"Store.write_needle in {write_s:.4f} s ({written / write_s / 1e9:.3f} GB/s); "
+        f"{len(deleted)} deleted, {len(rewritten)} rewritten, garbage {garbage:.4f}; "
+        f"vacuum {before} -> {dat_size} bytes in {vacuum_s:.4f} s; sealed; "
+        f"{len(live)} live needles read back equal in {read_s:.4f} s, "
+        f"{len(deleted)} deleted raise NeedleNotFound")
+
+    # --- encode: the card against the native host codec ---
+    base = vol.base_name
+    host_dir = os.path.join(workdir, "native")
+    os.mkdir(host_dir)
+    host = os.path.join(host_dir, os.path.basename(base))
+    for ext in (".dat", ".idx"):
+        os.symlink(base + ext, host + ext)
+    runs: dict = {}
+    gs, ns = {}, {}
+    rs = new_encoder(backend="cuda", device=device)
+    nat = new_encoder(backend="native")
+    _reset_counts()
+    card_s, _ = _timed(lambda: ec_files.write_ec_files(base, rs=rs, want_crcs=True,
+                                                       durable=True, stats=gs))
+    runs["store_encode"] = {"wall_s": card_s, "launches": _read_counts(),
+                            "sigs": _read_sigs(), "stats": gs}
+    host_s, _ = _timed(lambda: ec_files.write_ec_files(host, rs=nat, want_crcs=True,
+                                                       durable=True, stats=ns))
+    for b in (base, host):
+        ec_files.write_sorted_file_from_idx(b, durable=True)
+    ecc_sidecar.write_sidecar(base, gs["shard_crcs"])
+    ecc_sidecar.write_sidecar(host, ns["shard_crcs"])
+    shards = [ec_files.to_ext(i) for i in range(14)]
+    _same_files(base, host, shards + [".ecx", ".ecc"])
+    if gs["shard_crcs"] != ns["shard_crcs"] or gs["shard_crcs"] != [
+            _file_crc(base + ext) for ext in shards]:
+        raise AssertionError("store encode: shard CRCs differ (card, native, host shim)")
+    runs["store_encode"]["native_wall_s"] = host_s
+    apply_ms = time_native_apply(rs.parity_rows, 4 * LANES, seed + 32)
+    runs["store_encode"]["native_apply_ms"] = apply_ms
+    log(f"native apply_matrix, one thread, encode rows over one [10, {4 * LANES}] byte "
+        f"tile (K1's [10, {LANES}] lanes): {apply_ms:.4f} ms a call "
+        f"({10 * 4 * LANES / apply_ms / 1e6:.3f} GB/s of input); host {host_line()}")
+    log(f"store encode of {dat_size} bytes: card {card_s:.4f} s "
+        f"({dat_size / card_s / 1e9:.3f} GB/s) vs native {host_s:.4f} s "
+        f"({dat_size / host_s / 1e9:.3f} GB/s), shards, .ecx and .ecc byte-identical, "
+        f"CRCs equal the host shim's; card {smi}; host {host_line()}; launches "
+        f"{runs['store_encode']['launches']}")
+
+    # --- rebuild LOST: the card against the native host codec ---
+    originals = os.path.join(workdir, "store_orig")
+    os.mkdir(originals)
+    for i in LOST:
+        os.replace(base + shards[i], os.path.join(originals, shards[i]))
+        os.remove(host + shards[i])
+    rc, rn = {}, {}
+    _reset_counts()
+    card_s, got = _timed(lambda: ec_files.rebuild_ec_files(
+        base, rs=rs, want_crcs=True, durable=True, stats=rc))
+    runs["store_rebuild4"] = {"wall_s": card_s, "launches": _read_counts(),
+                              "sigs": _read_sigs(), "stats": rc}
+    host_s, got_n = _timed(lambda: ec_files.rebuild_ec_files(
+        host, rs=nat, want_crcs=True, durable=True, stats=rn))
+    if tuple(got) != LOST or tuple(got_n) != LOST:
+        raise AssertionError(f"store rebuild: rebuilt {got} / {got_n}, expected {LOST}")
+    for i in LOST:
+        _same_files(base, host, [shards[i]])
+        if not filecmp.cmp(base + shards[i], os.path.join(originals, shards[i]),
+                           shallow=False):
+            raise AssertionError(f"store rebuild: shard {i} is not byte-identical")
+        if rc["shard_crcs"][i] != gs["shard_crcs"][i] or rn["shard_crcs"][i] != gs[
+                "shard_crcs"][i]:
+            raise AssertionError(f"store rebuild: shard {i} CRC differs")
+    shutil.rmtree(originals)
+    shutil.rmtree(host_dir)
+    shard_len = os.path.getsize(base + shards[0])
+    runs["store_rebuild4"]["native_wall_s"] = host_s
+    log(f"store rebuild4 {LOST} of {len(LOST) * shard_len} bytes: card {card_s:.4f} s "
+        f"({len(LOST) * shard_len / card_s / 1e9:.3f} GB/s) vs native {host_s:.4f} s "
+        f"({len(LOST) * shard_len / host_s / 1e9:.3f} GB/s), byte-identical, CRCs equal "
+        f"the encode's; card {smi}; host {host_line()}; launches "
+        f"{runs['store_rebuild4']['launches']}")
+
+    # --- serve through the store with LOST gone ---
+    ev = store.mount_ec_shards(STORE_VID, "", list(range(14)))
+    store.unmount_ec_shards(STORE_VID, list(LOST))
+    for i in LOST:
+        os.remove(base + shards[i])
+    _reset_counts()
+    serve_s, _ = _timed(lambda: check_reads(
+        lambda i: store.find_ec_volume(STORE_VID).read_needle(i), "store serve"))
+    runs["store_serve"] = {"wall_s": serve_s, "launches": _read_counts(),
+                           "sigs": _read_sigs()}
+    if on_card:
+        _must_launch("store serve", runs["store_serve"]["launches"], ("gf_apply",))
+    log(f"store serve on {card}: {len(live)} live needles through the Store's EcVolume "
+        f"with shards {LOST} lost, each equal to its payload, wall {serve_s:.4f} s, "
+        f"launches {runs['store_serve']['launches']}")
+
+    # --- tier shards TIER_SHARDS to a `dir` backend, reload, read ---
+    backend.ensure_builtin_factories()
+    backend.load_backend_config(
+        {"dir": {"smoke": {"enabled": True, "dir": os.path.join(workdir, "remote")}}})
+    storage = backend.get_backend("dir.smoke")
+    remote = {}
+    for i in TIER_SHARDS:
+        key, size = storage.copy_file(base + shards[i], {"volumeId": str(STORE_VID),
+                                                        "ext": shards[i]})
+        remote[i] = {"key": key, "size": size}
+    ev.attach_remote(RemoteEcAttachment(storage.name, shard_len, remote))
+    store.unmount_ec_shards(STORE_VID, list(TIER_SHARDS))
+    for i in TIER_SHARDS:
+        os.remove(base + shards[i])
+    store.close()
+    store = Store([vdir], device=device)  # DiskLocation._load_ec_shards -> load_remote
+    try:
+        ev = store.find_ec_volume(STORE_VID)
+        if ev is None or ev.remote is None or sorted(ev.remote.shards) != list(TIER_SHARDS):
+            raise AssertionError("the reloaded store did not attach the tiered shards")
+        picked, on = [], {0: 0, 1: 0, 2: 0}
+        for i in live:
+            off, size = ev.locate_needle(i)
+            ids = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, ev.dat_file_size(),
+                off, get_actual_size(size, ev.version))}
+            hit = ids & {0, *TIER_SHARDS}
+            # an even share of needles on shard 0 (decoded) and on 1 and 2
+            if hit and (0 not in hit or on[0] < TIER_READS // 2):
+                picked.append(i)
+                for s in hit:
+                    on[s] += 1
+            if len(picked) == TIER_READS:
+                break
+        reads0 = TIER_REMOTE_READS.value()
+        _reset_counts()
+        tier_s, _ = _timed(lambda: check_reads(ev.read_needle, "store tier", picked))
+        runs["store_tier"] = {"wall_s": tier_s, "launches": _read_counts(),
+                              "sigs": _read_sigs(), "needles": len(picked),
+                              "remote_reads": int(TIER_REMOTE_READS.value() - reads0)}
+    finally:
+        store.close()
+        backend.BACKEND_STORAGES.pop("dir.smoke", None)
+    if runs["store_tier"]["remote_reads"] <= 0 or on[0] == 0:
+        raise AssertionError(f"store tier: {runs['store_tier']['remote_reads']} remote "
+                             f"reads, {on[0]} needles on shard 0")
+    if on_card:
+        _must_launch("store tier", runs["store_tier"]["launches"], ("gf_apply",))
+    log(f"store tier on {card}: shards {TIER_SHARDS} in a `dir` backend, reloaded "
+        f"through a fresh Store; {len(picked)} needles (on shard 0: {on[0]}, 1: {on[1]}, "
+        f"2: {on[2]}) equal to their payloads, {runs['store_tier']['remote_reads']} "
+        f"ranged backend reads, wall {tier_s:.4f} s, launches "
+        f"{runs['store_tier']['launches']}")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -1167,11 +1488,11 @@ def _stage_line(st: dict, keys) -> str:
     return json.dumps({k: st[k] for k in keys if k in st})
 
 
-def _check_room(workdir: str, need: int) -> None:
+def _check_room(workdir: str, need: int, what: str = "the batch phase") -> None:
     free = shutil.disk_usage(workdir).free
     if free < need:
         raise AssertionError(
-            f"the batch phase needs {need / 2**30:.2f} GiB free in {workdir}, "
+            f"{what} needs {need / 2**30:.2f} GiB free in {workdir}, "
             f"which has {free / 2**30:.2f} GiB"
         )
 
@@ -1185,7 +1506,7 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
     (["cpu"]) runs the same checks on an explicit mesh."""
     import torch
 
-    from seaweedfs_tpu_torch.ec import codec_cuda, ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.ec import codec_cuda, ec_files, ec_stream, ecc_sidecar
     from seaweedfs_tpu_torch.ec.codec import new_encoder
     from seaweedfs_tpu_torch.parallel import MeshCodec, make_mesh
     from seaweedfs_tpu_torch.storage.needle import Needle
@@ -1194,7 +1515,9 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
 
     shard_bytes = 1 << 20  # one small row per volume: 14 x 1 MiB
     odd, even = (3,), (0, 5, 10, 13)
-    need = volumes * (volume_bytes + 14 * shard_bytes) + (
+    # the volumes, their shards, a second shard set from the host route,
+    # the rebuild's saved originals
+    need = volumes * (volume_bytes + 2 * 14 * shard_bytes) + (
         (volumes // 2) * (len(odd) + len(even)) + 4 * 14) * shard_bytes
     _check_room(workdir, int(need * 1.1))
     codec = None if devices is None else MeshCodec(make_mesh(devices))
@@ -1321,6 +1644,32 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
             f"byte-identical (K2 against K1)")
         runs["batch_encode"]["loop_s"] = loop_s
 
+        # the batch encode's host route: the native codec, volume by
+        # volume through the pipelined driver, against the K2 run
+        host_codec = ec_stream._HostBatchCodec(new_encoder(backend="native"))
+        host_dir = os.path.join(workdir, "host")
+        os.mkdir(host_dir)
+        hosts = []
+        for base in bases:
+            hosts.append(os.path.join(host_dir, os.path.basename(base)))
+            os.symlink(base + ".dat", hosts[-1] + ".dat")
+        hs: dict = {}
+        t0 = time.perf_counter()
+        ec_files.write_ec_files_batch(hosts, codec=host_codec, want_crcs=True, durable=True,
+                                      stats=hs)
+        host_wall = time.perf_counter() - t0
+        if hs["shard_crcs"] != enc["shard_crcs"] or hs.get("codec_arm") != "host":
+            raise AssertionError("batch encode: the host route's CRCs differ from K2's")
+        for base, hbase in zip(bases, hosts):
+            _same_files(base, hbase, [ec_files.to_ext(i) for i in range(14)])
+        shutil.rmtree(host_dir)
+        runs["batch_encode"]["native_wall_s"] = host_wall
+        log(f"batch encode of {volumes} volumes: card (K2) {wall:.4f} s "
+            f"({dat_bytes / wall / 1e9:.3f} GB/s) vs native host route {host_wall:.4f} s "
+            f"({dat_bytes / host_wall / 1e9:.3f} GB/s); all {volumes * 14} shard files "
+            f"byte-identical, CRCs equal; card {gpu_line() if card_only else card}; "
+            f"host {host_line()}")
+
         # --- rebuild: two signature groups in one call ---
         originals = os.path.join(workdir, "orig")
         os.mkdir(originals)
@@ -1351,6 +1700,23 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
                 if st["shard_crcs"][v][i] != enc["shard_crcs"][v][i]:
                     raise AssertionError(f"volume {v + 1} shard {i}: rebuilt CRC differs")
                 rebuilt += os.path.getsize(p)
+        # the same damage through the batch host arm (native codec)
+        for base, ls in zip(bases, lost):
+            for i in ls:
+                os.remove(base + ec_files.to_ext(i))
+        hst: dict = {}
+        t0 = time.perf_counter()
+        got_h = ec_files.rebuild_ec_files_batch(bases, codec=host_codec, want_crcs=True,
+                                                durable=True, stats=hst)
+        host_rebuild = time.perf_counter() - t0
+        if got_h != got or hst["shard_crcs"] != st["shard_crcs"]:
+            raise AssertionError("batch rebuild: the host arm differs from K2's")
+        for v, (base, ls) in enumerate(zip(bases, lost)):
+            for i in ls:
+                p = base + ec_files.to_ext(i)
+                if not filecmp.cmp(p, os.path.join(originals, os.path.basename(p)),
+                                   shallow=False):
+                    raise AssertionError(f"host arm: volume {v + 1} shard {i} differs")
         shutil.rmtree(originals)
         log(f"batch rebuild (two groups: {odd} x {volumes - volumes // 2}, {even} x "
             f"{volumes // 2}) on {card}: byte-identical, CRCs equal the encode's, "
@@ -1358,8 +1724,12 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
             f"{launches}, stages " + _stage_line(st, ("read_s", "device_s", "writeback_s",
                                                       "compute_s", "write_s", "loop_s",
                                                       "host_crc_rows")))
+        log(f"batch rebuild of the same damage: card (K2) {wall:.4f} s vs native host "
+            f"arm {host_rebuild:.4f} s ({rebuilt / host_rebuild / 1e9:.3f} GB/s), "
+            f"byte-identical, CRCs equal; card {gpu_line() if card_only else card}; "
+            f"host {host_line()}")
         runs["batch_rebuild"] = {"wall_s": wall, "launches": launches, "sigs": sigs,
-                                 "stats": st}
+                                 "stats": st, "native_wall_s": host_rebuild}
         if card_only:
             _must_launch("batch rebuild", launches, ("gf_apply_batch",))
     finally:
@@ -1431,8 +1801,9 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.build(_build.CUDA_SOURCES + ("crc32c.c",))
-    log(f"built {_build.CUDA_SOURCES} and the host CRC shim in {time.perf_counter() - t0:.2f} s")
+    _build.build(_build.CUDA_SOURCES + ("crc32c.c", "gf256.c"))
+    log(f"built {_build.CUDA_SOURCES}, the host CRC shim and the native GF(2^8) codec in "
+        f"{time.perf_counter() - t0:.2f} s; host {host_line()}")
     for line in ptxas_summary(_build.build_logs) or ["none: every library was already built"]:
         log(f"  ptxas {line}")
 
@@ -1475,6 +1846,11 @@ def main() -> int:
         runs = run_main_path(workdir, args.volume_mib << 20, args.seed, None, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)
+    try:
+        runs.update(run_store_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
     try:
         runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
@@ -1483,10 +1859,12 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     paths = ("encode", "rebuild1", "rebuild4", "degraded", "repair_piggyback",
-             "repair_parity", "batch_encode", "batch_rebuild", "batch_verify")
+             "repair_parity", "store_encode", "store_rebuild4", "store_serve", "store_tier",
+             "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
-        f"piggybacked and parity rebuilds, batch encode, rebuild and verify) on {card}: "
+        f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
+        f"reads, batch encode, rebuild and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]

@@ -13,10 +13,14 @@ byte math runs through a backend:
 
   "cuda"  K1 on the card (codec_cuda.py); device="cpu" runs its plain
           torch version on the host instead — only when asked
-  "cpu"   numpy LUT / compiled XOR schedule — the bit-exact host codec
+  "cpu"     numpy LUT / compiled XOR schedule — the bit-exact host codec
+  "native"  the SIMD C shim (csrc/gf256.c, ec/codec_native.py): the host
+            codec the card is judged against, registered on first use
 
-The default is "cuda" unless WEED_EC_CODEC names another. There is no
-silent fallback: the cuda backend raises when no card is present.
+The default is "cuda" unless WEED_EC_CODEC names another; the default
+never picks a host codec by itself. There is no silent fallback: the
+cuda backend raises when no card is present, and native raises when
+its shim cannot be built.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ TOTAL_SHARDS = DATA_SHARDS + PARITY_SHARDS
 
 # backend name -> apply_matrix(matrix [R,C] u8, inputs [C,N] u8) -> [R,N] u8
 _BACKENDS: dict[str, Callable[..., np.ndarray]] = {}
-_KNOWN = ("cpu", "cuda")
+_KNOWN = ("cpu", "cuda", "native")
+_LAZY_BACKENDS = ("native",)  # registered on first use
 
 
 def register_backend(name: str, fn: Callable[..., np.ndarray]) -> None:
@@ -65,7 +70,9 @@ register_backend("cpu", cpu_apply_matrix)
 
 
 def default_backend() -> str:
-    """WEED_EC_CODEC when set (cpu or cuda), else cuda."""
+    """WEED_EC_CODEC when set (cpu, cuda or native), else cuda. Unlike
+    the reference, nothing is detected: a host codec is used only when
+    it is named, so a missing card is never hidden."""
     env = os.environ.get("WEED_EC_CODEC", "").strip().lower()
     if env:
         if env not in _KNOWN:
@@ -75,6 +82,19 @@ def default_backend() -> str:
             )
         return env
     return "cuda"
+
+
+def resolve_backend(backend: str | None, device=None) -> str:
+    """The backend an entry point will run (`backend`, else the
+    default), checked up front: the cuda backend raises here when its
+    device (None: the card) is absent, so a store or EC volume never
+    comes up on a host that would fail its first decode."""
+    name = backend or default_backend()
+    if name == "cuda":
+        from seaweedfs_tpu_torch.ec import codec_cuda
+
+        codec_cuda.resolve_device(device)
+    return name
 
 
 class ReedSolomon:
@@ -108,6 +128,12 @@ class ReedSolomon:
             self._apply = functools.partial(
                 codec_cuda.cuda_apply_matrix, device=self.device
             )
+        elif backend in _LAZY_BACKENDS:
+            from seaweedfs_tpu_torch.ec import codec_native  # noqa: F401 registers
+            from seaweedfs_tpu_torch.native import gf
+
+            gf.load()  # build now: a missing compiler fails here, not mid-encode
+            self._apply = _BACKENDS[backend]
         elif backend in _BACKENDS:
             self._apply = _BACKENDS[backend]
         else:

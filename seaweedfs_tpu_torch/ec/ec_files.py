@@ -15,8 +15,9 @@ Behavioral match of reference weed/storage/erasure_coding/ec_encoder.go:
 
 The byte math goes through a codec.ReedSolomon. With the cuda backend
 (the default) the pipelined ec_stream drivers run K1/K4 on the rs's
-device; WEED_EC_PIPELINE=0 and the numpy "cpu" backend take the serial
-classic loops below. Output bytes are identical on every arm.
+device; with the native host codec they run its C matrix apply in the
+writer pool; WEED_EC_PIPELINE=0 and the numpy "cpu" backend take the
+serial classic loops below. Output bytes are identical on every arm.
 write_ec_files_batch / rebuild_ec_files_batch run many volumes per
 round through a parallel.MeshCodec (K2, K4).
 """
@@ -96,6 +97,17 @@ def _use_stream_driver(rs: ReedSolomon) -> bool:
     return rs._backend_name == "cuda" and ec_stream.pipeline_enabled()
 
 
+def _stream_host_codec(rs: ReedSolomon) -> bool:
+    """Route the native SIMD shim (whose ctypes call releases the GIL)
+    through the pipelined driver too, its matrix apply in the writer
+    pool: the reader and writer pools overlap disk IO with the C
+    encode. The numpy "cpu" backend stays on the classic loop, the
+    bit-exact yardstick. WEED_EC_PIPELINE=0 overrides here too."""
+    from seaweedfs_tpu_torch.ec import ec_stream
+
+    return rs._backend_name == "native" and ec_stream.pipeline_enabled()
+
+
 def iter_ec_tiles(dat_size: int, tile: int, large: int, small: int):
     """Yield (row_offset, block_size, batch_off, step) sub-tiles
     covering the two-tier row layout (strict-`>` row counting,
@@ -171,14 +183,19 @@ def write_ec_files(
     if rs.data_shards != DATA_SHARDS or rs.parity_shards != PARITY_SHARDS:
         raise ValueError("shard-file layout is fixed at RS(10,4)")
 
-    if _use_stream_driver(rs):
+    if _use_stream_driver(rs) or _stream_host_codec(rs):
         from seaweedfs_tpu_torch.ec import ec_stream
 
+        parity_fn = fetch_fn = None
+        if rs._backend_name != "cuda":
+            parity_fn, fetch_fn = ec_stream.local_encode_fns(rs, want_crcs=want_crcs)
         ec_stream.stream_write_ec_files(
             base_file_name,
             tile_bytes=buffer_size,
             large_block_size=large_block_size,
             small_block_size=small_block_size,
+            parity_fn=parity_fn,
+            fetch_fn=fetch_fn,
             stats=stats,
             durable=durable,
             want_crcs=want_crcs,
@@ -286,12 +303,17 @@ def rebuild_ec_files(
     rs = rs or new_encoder()
     if rs.data_shards != DATA_SHARDS or rs.parity_shards != PARITY_SHARDS:
         raise ValueError("shard-file layout is fixed at RS(10,4)")
-    if _use_stream_driver(rs):
+    if _use_stream_driver(rs) or _stream_host_codec(rs):
         from seaweedfs_tpu_torch.ec import ec_stream
 
+        rebuild_fn = fetch_fn = None
+        if rs._backend_name != "cuda":
+            rebuild_fn, fetch_fn = ec_stream.local_rebuild_fns(rs, want_crcs=want_crcs)
         return ec_stream.stream_rebuild_ec_files(
             base_file_name,
             tile_bytes=buffer_size,
+            rebuild_fn=rebuild_fn,
+            fetch_fn=fetch_fn,
             durable=durable,
             stats=stats,
             want_crcs=want_crcs,
@@ -396,10 +418,19 @@ def write_ec_files_batch(
     instead: byte-identical, no overlap, the same durable contract.
     codec=None provisions a mesh over every card and raises without
     one; shapes stay fixed across rounds (finished volumes contribute
-    zero tiles that are discarded)."""
+    zero tiles that are discarded). The host arm (ec_stream's
+    _HostBatchCodec, or WEED_EC_CODEC=native or cpu with codec=None)
+    encodes volume by volume on that host codec."""
     from seaweedfs_tpu_torch.ec import ec_stream
 
     if not base_file_names:
+        return
+    host = ec_stream._host_batch_codec(codec)
+    if host is not None:  # the host arm asked for: one volume at a time
+        ec_stream._write_batch_host(
+            base_file_names, host.rs, tile_bytes, large_block_size, small_block_size,
+            stats, durable, want_crcs,
+        )
         return
     if ec_stream.pipeline_enabled():
         ec_stream.stream_write_ec_files_batch(
@@ -524,7 +555,8 @@ def rebuild_ec_files_batch(
 
     WEED_EC_PIPELINE=0 takes a serial per-volume rebuild_ec_files loop
     instead (the cuda backend on the codec's first device; the card
-    when codec is None): byte-identical, same durable contract. Returns
+    when codec is None; the host codec on the host arm): byte-identical,
+    same durable contract. Returns
     the rebuilt id lists in input order; want_crcs lands `shard_crcs`
     in stats as one {rebuilt id: whole-file CRC-32C} dict per volume on
     both arms."""
@@ -541,7 +573,11 @@ def rebuild_ec_files_batch(
             durable=durable,
             want_crcs=want_crcs,
         )
-    rs = new_encoder(backend="cuda", device=None if codec is None else codec.devices[0])
+    host = ec_stream._host_batch_codec(codec)
+    if host is not None:
+        rs = host.rs  # the host arm asked for
+    else:
+        rs = new_encoder(backend="cuda", device=None if codec is None else codec.devices[0])
     results, all_crcs = [], []
     for base in base_file_names:
         s: dict = {}

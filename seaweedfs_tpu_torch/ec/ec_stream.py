@@ -1258,7 +1258,10 @@ def stream_write_ec_files_batch(
 
     codec=None provisions a MeshCodec over every card, its 'vol' axis
     gcd(batch, cards); it raises without a card (a mesh of CPU devices,
-    passed explicitly, runs the kernels' plain versions).
+    passed explicitly, runs the kernels' plain versions). The host route
+    (each volume through stream_write_ec_files on a host codec) runs
+    only when asked for: codec a _HostBatchCodec, or codec=None with
+    WEED_EC_CODEC=native or cpu.
     WEED_EC_PIPELINE_BATCH caps the volumes per round (ring memory =
     slots x batch x 10 x tile bytes); each chunk gets a mesh sized to
     it over the same devices.
@@ -1268,6 +1271,13 @@ def stream_write_ec_files_batch(
     CRCs for the tail rounds, counted in host_crc_rows). A failed run
     removes every volume's shard files."""
     if not base_file_names:
+        return
+    host = _host_batch_codec(codec)
+    if host is not None:
+        _write_batch_host(
+            base_file_names, host.rs, tile_bytes, large_block_size, small_block_size,
+            stats, durable, want_crcs,
+        )
         return
     limit = pipeline_batch_limit()
     if limit and len(base_file_names) > limit:
@@ -1611,6 +1621,9 @@ def stream_rebuild_ec_files_batch(
     decode matrix each. Every survivor must be local. Output bytes per
     volume equal rebuild_ec_files' (the same ascending survivor choice).
     codec=None provisions a mesh over every card and raises without one.
+    The host arm (_rebuild_batch_chunk_host) runs only when asked for:
+    codec a _HostBatchCodec, or codec=None with WEED_EC_CODEC=native or
+    cpu.
 
     want_crcs=True lands `shard_crcs` in stats: one {rebuilt shard id:
     whole-file CRC-32C} dict per volume, in base_file_names order (host
@@ -1645,7 +1658,10 @@ def stream_rebuild_ec_files_batch(
             if want_crcs:
                 stats["shard_crcs"] = [{} for _ in base_file_names]
         return results
-    if codec is None:
+    host = _host_batch_codec(codec)
+    if host is not None:
+        codec = host
+    elif codec is None:
         codec = _default_mesh_codec(max(len(idxs) for idxs in groups.values()))
 
     limit = pipeline_batch_limit()
@@ -1690,7 +1706,12 @@ def _rebuild_batch_chunk(
     """One (survivors, targets)-homogeneous chunk: [k, step] survivor
     tiles per volume into a [B, k, W] ring slot, one reconstruct round
     through the mesh, the rebuilt rows pwritten. Any failure removes
-    every volume's target files."""
+    every volume's target files. A _HostBatchCodec takes the host arm."""
+    if isinstance(codec, _HostBatchCodec):
+        return _rebuild_batch_chunk_host(
+            bases, codec.rs, survivors, targets, tile_bytes, stats, durable,
+            want_crcs, reader_threads, writer_threads,
+        )
     from seaweedfs_tpu_torch.ec.ec_files import to_ext
     from seaweedfs_tpu_torch.util.crc import crc32c
 
@@ -1810,4 +1831,354 @@ def _fold_rebuild_batch_crcs(
             for t, tid in enumerate(targets):
                 acc[tid] = crc32c_combine(acc[tid], vol_crcs[v][t], step)
         out.append(acc)
+    return out
+
+
+# --- the batch drivers' host arm --------------------------------------------
+
+
+class _HostBatchCodec:
+    """Routes the batch drivers to their host arm around a host
+    ReedSolomon (`rs`, the native shim or numpy): the rebuild runs ONE
+    shared pipeline whose work items are per-(volume, tile) survivor
+    gathers (_rebuild_batch_chunk_host), the encode runs each volume
+    through the single-volume pipelined driver (_write_batch_host).
+    Byte-identical to the card's arm: same decode rows, same survivor
+    order, bytewise GF math.
+
+    The arm runs only when it is asked for — this codec passed in, or
+    codec=None with WEED_EC_CODEC naming a host codec — never because
+    the card is missing."""
+
+    def __init__(self, rs):
+        import types
+
+        self.rs = rs
+        # the group-chunking code reads only devices.shape: (1, 1)
+        self.mesh = types.SimpleNamespace(devices=np.empty((1, 1), dtype=object))
+
+
+def _host_batch_codec(codec):
+    """The host arm's codec when it was asked for, else None (the
+    card's mesh arm)."""
+    if isinstance(codec, _HostBatchCodec):
+        return codec
+    if codec is None:
+        from seaweedfs_tpu_torch.ec.codec import default_backend, new_encoder
+
+        name = default_backend()
+        if name in ("native", "cpu"):
+            return _HostBatchCodec(new_encoder(backend=name))
+    return None
+
+
+def _write_batch_host(
+    bases: list[str], rs, tile_bytes, large_block_size, small_block_size,
+    stats, durable, want_crcs,
+) -> None:
+    """The batch encode's host route: each volume through write_ec_files
+    on the host codec (the pipelined driver with the codec's matrix
+    apply in the writer pool for native), byte-identical to the batch,
+    just unbatched."""
+    from seaweedfs_tpu_torch.ec.ec_files import write_ec_files
+
+    all_crcs: list = []
+    merged: dict = {}
+    for base in bases:
+        s: dict = {}
+        write_ec_files(
+            base, rs=rs, buffer_size=tile_bytes, large_block_size=large_block_size,
+            small_block_size=small_block_size, stats=s, durable=durable,
+            want_crcs=want_crcs,
+        )
+        if want_crcs:
+            all_crcs.append(s.get("shard_crcs"))
+        _merge_chunk_stats(merged, s)
+    if stats is not None:
+        stats.update(merged)
+        stats["batch_volumes"] = len(bases)
+        stats["codec_arm"] = "host"
+        if want_crcs:
+            stats["shard_crcs"] = all_crcs
+
+
+# flat (volume, tile) work lists of at most this many items run inline,
+# with no thread pool: many-small-volumes repair is bound by fixed costs
+_HOST_INLINE_TILES = 16
+
+
+def _host_tile_crcs(rebuilt: np.ndarray, nt: int) -> list[int]:
+    from seaweedfs_tpu_torch.util.crc import crc32c
+
+    return [crc32c(np.ascontiguousarray(rebuilt[t])) for t in range(nt)]
+
+
+def _read_survivors(bases, survivors, v: int, fds: list[int], tile, off: int,
+                    step: int, read_local) -> None:
+    for j in range(DATA_SHARDS):
+        got = _pread_into(fds[j], tile[j], off)
+        read_local.inc(got)
+        if got != step:
+            raise ValueError(
+                f"ec shard {survivors[j]} truncated: expected {step} at {off} "
+                f"({bases[v] + _to_ext(survivors[j])})"
+            )
+
+
+def _to_ext(i: int) -> str:
+    from seaweedfs_tpu_torch.ec.ec_files import to_ext
+
+    return to_ext(i)
+
+
+def _finish_host_outputs(bases, targets, out_fds, durable: bool, ok: bool,
+                         pipe: _Pipeline) -> None:
+    """Close (fsync first on a durable success) every rebuilt target;
+    on any failure remove every volume's targets: no partial set
+    survives."""
+    fsync_err = _close_and_sync(
+        [fd for fds in out_fds for fd in fds.values()], durable, ok, pipe
+    )
+    if not ok or pipe.errors or fsync_err is not None:
+        _remove_all(base + _to_ext(t) for base in bases for t in targets)
+    if fsync_err is not None:
+        raise fsync_err
+
+
+def _open_host_outputs(bases, targets, sizes, out_fds: list) -> None:
+    for v, base in enumerate(bases):
+        fds: dict[int, int] = {}
+        out_fds.append(fds)
+        for tid in targets:
+            fds[tid] = os.open(base + _to_ext(tid), os.O_WRONLY | os.O_CREAT | os.O_TRUNC,
+                               0o644)
+            _preallocate(fds[tid], sizes[v])
+
+
+def _rebuild_batch_chunk_host(
+    bases: list[str], rs, survivors: tuple[int, ...], targets: tuple[int, ...],
+    tile_bytes, stats, durable, want_crcs, reader_threads, writer_threads,
+) -> None:
+    """Host arm of the batch rebuild: one shared pipeline whose work
+    items are per-(volume, tile) survivor gathers, decoded in the writer
+    pool with the group's one decode-rows matrix. Slots keep the
+    single-volume driver's [k, tile] size and the stream crosses volume
+    boundaries with no drain between them. Small work lists run inline
+    (_rebuild_batch_chunk_host_inline). Any failure removes every
+    volume's target files."""
+    tile_bytes = tile_bytes or DEFAULT_TILE_BYTES // 2
+    writer_threads = writer_threads or DEFAULT_WRITER_THREADS
+    reader_threads = reader_threads or DEFAULT_READER_THREADS
+    depth = pipeline_depth()
+    b = len(bases)
+    sizes = [os.path.getsize(base + _to_ext(survivors[0])) for base in bases]
+    items = [(v, off) for v in range(b) for off in range(0, sizes[v], tile_bytes)]
+    if not items:
+        # all-empty shard sets: the rebuilt targets are empty files too
+        from seaweedfs_tpu_torch.util import durable as _durable
+
+        for base in bases:
+            for t in targets:
+                open(base + _to_ext(t), "wb").close()
+                if durable:
+                    _durable.fsync_path(base + _to_ext(t))
+        if stats is not None:
+            stats["batch_volumes"] = b
+            stats["codec_arm"] = "host"
+            if want_crcs:
+                stats["shard_crcs"] = [{t: 0 for t in targets} for _ in bases]
+        return
+
+    rows = rs.decode_rows(tuple(survivors), tuple(targets))
+    if len(items) <= _HOST_INLINE_TILES:
+        return _rebuild_batch_chunk_host_inline(
+            bases, rs, rows, survivors, targets, sizes, items, tile_bytes, stats,
+            durable, want_crcs,
+        )
+    nt = len(targets)
+    pipe = _Pipeline()
+    read_q: queue.Queue = queue.Queue(maxsize=max(2, reader_threads))
+    write_q: queue.Queue = queue.Queue(maxsize=depth)
+    ring = _StagingRing(depth + writer_threads + 1, DATA_SHARDS * tile_bytes)
+    busy = _new_busy()
+    busy_lock = threading.Lock()
+    # (volume, offset, step, [crc per target]); order is restored by
+    # sorting on offset when folding
+    crc_parts: list[tuple[int, int, int, list[int]]] = []
+    wall0 = time.perf_counter()
+    _sp = trace.span("ec_stream.rebuild_batch", nbytes=sum(sizes) * max(1, nt))
+    _sp.__enter__()
+
+    idx_lock = threading.Lock()
+    idx_iter = iter(items)
+    out_fds: list[dict[int, int]] = []
+    read_local = EC_REPAIR_BYTES_READ.labels("local")
+
+    def reader():
+        fds: dict[int, list[int]] = {}  # volume -> survivor fds, opened lazily
+        try:
+            while True:
+                with idx_lock:
+                    it = next(idx_iter, None)
+                if it is None:
+                    return
+                v, off = it
+                vol_fds = fds.get(v)
+                if vol_fds is None:
+                    vol_fds = fds[v] = []
+                    for s in survivors:
+                        vol_fds.append(os.open(bases[v] + _to_ext(s), os.O_RDONLY))
+                got_slot = ring.acquire(pipe.stop)
+                if got_slot is None:
+                    return
+                slot_id, buf = got_slot
+                step = min(tile_bytes, sizes[v] - off)
+                t0 = time.perf_counter()
+                tile = buf[: DATA_SHARDS * step].reshape(DATA_SHARDS, step)
+                _read_survivors(bases, survivors, v, vol_fds, tile, off, step, read_local)
+                _charge(busy, busy_lock, "read_s", time.perf_counter() - t0)
+                if not _q_put(read_q, (v, off, step, slot_id, tile), pipe.stop):
+                    ring.release(slot_id)
+                    return
+        finally:
+            for vol_fds in fds.values():
+                for fd in vol_fds:
+                    os.close(fd)
+
+    def writer():
+        while True:
+            item = _q_get(write_q, pipe.stop)
+            if item is _EOF or item is _STOPPED:
+                return
+            v, off, step, slot_id, tile = item
+            t0 = time.perf_counter()
+            rebuilt = rs._apply(rows, tile)
+            if want_crcs:
+                crc_parts.append((v, off, step, _host_tile_crcs(rebuilt, nt)))
+            t1 = time.perf_counter()
+            for t, tid in enumerate(targets):
+                _pwrite_full(out_fds[v][tid], np.ascontiguousarray(rebuilt[t]), off)
+                EC_REPAIR_BYTES_WRITTEN.inc(step)
+            t2 = time.perf_counter()
+            ring.release(slot_id)
+            _charge(busy, busy_lock, "compute_s", t1 - t0)
+            _charge(busy, busy_lock, "write_s", t2 - t1)
+            if want_crcs:
+                _charge(busy, busy_lock, "host_crc_rows", nt)
+
+    ok = False
+    try:
+        _open_host_outputs(bases, targets, sizes, out_fds)
+        for _ in range(min(reader_threads, len(items))):
+            pipe.spawn(reader)
+        for _ in range(writer_threads):
+            pipe.spawn(writer)
+        for _ in range(len(items)):
+            item = _q_get(read_q, pipe.stop)
+            if item is _STOPPED or not _q_put(write_q, item, pipe.stop):
+                break
+        for _ in range(writer_threads):
+            if not _q_put(write_q, _EOF, pipe.stop):
+                break
+        ok = True
+    finally:
+        try:
+            pipe.finish(caller_error=not ok)
+        finally:
+            tc0 = time.perf_counter()
+            try:
+                _finish_host_outputs(bases, targets, out_fds, durable, ok, pipe)
+            finally:
+                busy["flush_s"] = time.perf_counter() - tc0
+                if stats is not None:
+                    _finish_stats(stats, busy, wall0, reader_threads, writer_threads)
+                    stats["pipeline_depth"] = depth
+                    stats.update(ring.stats())
+                    stats["batch_volumes"] = b
+                    stats["codec_arm"] = "host"
+                    if want_crcs and ok and not pipe.errors:
+                        stats["shard_crcs"] = _fold_host_batch_crcs(b, targets, crc_parts)
+                _trace_stages(_sp, busy)
+                _sp.__exit__(*sys.exc_info())
+
+
+def _rebuild_batch_chunk_host_inline(
+    bases: list[str], rs, rows, survivors: tuple[int, ...], targets: tuple[int, ...],
+    sizes: list[int], items: list[tuple[int, int]], tile_bytes: int, stats, durable,
+    want_crcs,
+) -> None:
+    """The host arm with no threads, for small batches: one staging
+    buffer and one pass over the flat (volume, tile) work list, so the
+    batch pays one set of fixed costs and no pipeline hand-offs. Same
+    durability and abort contract as the threaded arm."""
+    b = len(bases)
+    nt = len(targets)
+    busy = {"read_s": 0.0, "compute_s": 0.0, "write_s": 0.0, "host_crc_rows": 0}
+    crc_parts: list[tuple[int, int, int, list[int]]] = []
+    wall0 = time.perf_counter()
+    buf = np.empty((DATA_SHARDS, tile_bytes), dtype=np.uint8)
+    in_fds: list[list[int] | None] = [None] * b
+    out_fds: list[dict[int, int]] = []
+    read_local = EC_REPAIR_BYTES_READ.labels("local")
+    pipe = _Pipeline()  # no threads: carries the epilogue's error state
+    ok = False
+    with trace.span("ec_stream.rebuild_batch", nbytes=sum(sizes) * max(1, nt)) as _sp:
+        try:
+            _open_host_outputs(bases, targets, sizes, out_fds)
+            for v, off in items:
+                vol_fds = in_fds[v]
+                if vol_fds is None:
+                    vol_fds = in_fds[v] = []
+                    for s in survivors:
+                        vol_fds.append(os.open(bases[v] + _to_ext(s), os.O_RDONLY))
+                step = min(tile_bytes, sizes[v] - off)
+                tile = buf[:, :step]
+                t0 = time.perf_counter()
+                _read_survivors(bases, survivors, v, vol_fds, tile, off, step, read_local)
+                t1 = time.perf_counter()
+                rebuilt = rs._apply(rows, tile)
+                if want_crcs:
+                    crc_parts.append((v, off, step, _host_tile_crcs(rebuilt, nt)))
+                    busy["host_crc_rows"] += nt
+                t2 = time.perf_counter()
+                for t, tid in enumerate(targets):
+                    _pwrite_full(out_fds[v][tid], np.ascontiguousarray(rebuilt[t]), off)
+                    EC_REPAIR_BYTES_WRITTEN.inc(step)
+                busy["read_s"] += t1 - t0
+                busy["compute_s"] += t2 - t1
+                busy["write_s"] += time.perf_counter() - t2
+            ok = True
+        finally:
+            for vol_fds in in_fds:
+                for fd in vol_fds or ():
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
+            tc0 = time.perf_counter()
+            try:
+                _finish_host_outputs(bases, targets, out_fds, durable, ok, pipe)
+            finally:
+                busy["flush_s"] = time.perf_counter() - tc0
+                if stats is not None:
+                    _finish_stats(stats, busy, wall0, 1, 1)
+                    stats["batch_volumes"] = b
+                    stats["codec_arm"] = "host"
+                    stats["host_inline"] = True
+                    if want_crcs and ok:
+                        stats["shard_crcs"] = _fold_host_batch_crcs(b, targets, crc_parts)
+                _trace_stages(_sp, busy)
+
+
+def _fold_host_batch_crcs(
+    b: int, targets: tuple[int, ...], crc_parts: list[tuple[int, int, int, list[int]]]
+) -> list[dict[int, int]]:
+    """Per-volume {rebuilt shard id: whole-file CRC} folded from the
+    host arm's per-tile records in offset order."""
+    from seaweedfs_tpu_torch.util.crc import crc32c_combine
+
+    out = [dict.fromkeys(targets, 0) for _ in range(b)]
+    for v, _off, step, crcs in sorted(crc_parts):
+        for t, tid in enumerate(targets):
+            out[v][tid] = crc32c_combine(out[v][tid], crcs[t], step)
     return out

@@ -23,14 +23,15 @@ and donated to a rebuild of the same shards (repair_session). There is
 no fallback to another backend: a K1 that fails to build or launch
 fails the read.
 
-The remote tier (the `.evf` sidecar of a volume tiered to an object
-store) needs the storage backends, which the port does not have yet:
-`load` refuses a volume that carries one rather than serve it as if
-its tiered shards were lost.
+A tiered volume's remote half (the `.evf` sidecar: which backend holds
+which shards) is read through storage/backend ahead of the `fetch`
+seam; a backend fault degrades the read to reconstruction and never
+quarantines anything. The decode then runs with remote survivors.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -40,7 +41,7 @@ import numpy as np
 
 from seaweedfs_tpu_torch import trace
 from seaweedfs_tpu_torch.ec import ec_files, locate, repair_session
-from seaweedfs_tpu_torch.ec.codec import ReedSolomon, new_encoder
+from seaweedfs_tpu_torch.ec.codec import ReedSolomon, new_encoder, resolve_backend
 from seaweedfs_tpu_torch.ec.tile_cache import TileCache
 from seaweedfs_tpu_torch.qos.singleflight import SingleFlight
 from seaweedfs_tpu_torch.storage import idx as idx_codec
@@ -69,6 +70,33 @@ class ShardTruncated(RuntimeError):
     """A local shard file is shorter than its nominal length (disk
     truncation/corruption). Reads treat the shard as lost and
     reconstruct from the survivors instead of serving zero-fill."""
+
+
+class RemoteEcAttachment:
+    """A tiered EC volume's remote half: which backend holds which
+    shards, persisted as the `.evf` sidecar next to the (local) .ecx.
+
+    Remote shards are deliberately NOT EcVolumeShard mounts: the
+    quarantine machinery is path/file-based and a transient backend
+    error must degrade to reconstruction, never permanently quarantine
+    a perfectly good remote object."""
+
+    def __init__(self, backend_name: str, shard_size: int, shards: dict[int, dict]):
+        self.backend_name = backend_name  # "dir.default" / "s3.default"
+        self.shard_size = int(shard_size)  # nominal per-shard length
+        # shard id -> {"key": str, "size": int}
+        self.shards = {int(k): dict(v) for k, v in shards.items()}
+
+    def to_json(self) -> dict:
+        return {
+            "backend": self.backend_name,
+            "shard_size": self.shard_size,
+            "shards": {str(k): v for k, v in sorted(self.shards.items())},
+        }
+
+    @classmethod
+    def from_json(cls, doc: dict) -> "RemoteEcAttachment":
+        return cls(doc["backend"], doc["shard_size"], doc.get("shards", {}))
 
 
 class EcVolumeShard:
@@ -141,6 +169,8 @@ class EcVolume:
         # device its kernels run on (None = the card)
         self.backend = backend
         self.device = device
+        # no card and no other backend or the CPU asked for: raise here
+        resolve_backend(backend, device)
         self._rs: ReedSolomon | None = None
         self.version = 3
         # serializes quarantine decisions so only one thread verifies
@@ -148,6 +178,9 @@ class EcVolume:
         self._quarantine_lock = threading.Lock()
         # shard id → reason for every shard quarantined on this volume
         self.quarantined: dict[int, str] = {}
+        # wired by the Store to its quarantine registry, so the event
+        # reaches the heartbeat at once
+        self.on_quarantine: Callable[[int, int, str], None] | None = None
         # shard id → consecutive verified-full-size read failures: at 3
         # the shard is a failing medium (EIO) and gets quarantined so
         # repair regenerates it (chaos hardening, see _read_interval).
@@ -162,9 +195,9 @@ class EcVolume:
         # singleflight for tile decodes: N concurrent degraded GETs of
         # one hot uncached tile must not fan out N× k-shard gathers
         self._decode_flight = SingleFlight()
-        # the remote tier is not ported: no shard is ever remote here
-        # (load refuses a volume with a .evf sidecar)
-        self.remote = None
+        # shards this node moved to an object-store backend, readable
+        # with ranged sub-shard reads (the .evf sidecar)
+        self.remote: RemoteEcAttachment | None = None
 
     # --- mounting (disk_location_ec.go) ---
     @classmethod
@@ -177,19 +210,13 @@ class EcVolume:
         device=None,
     ) -> "EcVolume":
         ev = cls(directory, vid, collection, backend=backend, device=device)
-        if os.path.exists(ev.evf_path):
-            # a tiered volume's shards live in an object store: serving
-            # it without them would fail reads the reference serves
-            raise NotImplementedError(
-                f"{ev.evf_path}: EC volume {vid} is tiered to a remote "
-                f"backend, and the port has no remote tier (storage/backend)"
-            )
         if not os.path.exists(ev.base_name + ".ecx"):
             raise FileNotFoundError(ev.base_name + ".ecx")
         for shard_id in range(ec_files.TOTAL_SHARDS):
             path = ev.base_name + ec_files.to_ext(shard_id)
             if os.path.exists(path):
                 ev.mount_shard(shard_id)
+        ev.load_remote()
         return ev
 
     def mount_shard(self, shard_id: int) -> None:
@@ -225,14 +252,108 @@ class EcVolume:
         return self.base_name + ".evf"
 
     def serving_shard_ids(self) -> list[int]:
-        """Shards this node can serve: its local mounts (the reference
-        adds tiered remote shards; the port has no remote tier)."""
-        return self.shard_ids()
+        """Shards this node can serve: local mounts plus tiered remote
+        shards. This is what rides the heartbeat's ec_index_bits — a
+        fully tiered volume must keep routing here (and must NOT look
+        missing to the repair scheduler)."""
+        ids = set(self.shards)
+        if self.remote is not None:
+            ids |= set(self.remote.shards)
+        return sorted(ids)
+
+    def load_remote(self) -> None:
+        """Adopt an existing .evf sidecar (startup / remount)."""
+        try:
+            with open(self.evf_path, "rb") as f:
+                self.remote = RemoteEcAttachment.from_json(json.load(f))
+        except FileNotFoundError:
+            self.remote = None
+        except (OSError, ValueError, KeyError) as e:
+            wlog.warning("ec vid %d: unreadable .evf (%s); ignoring", self.volume_id, e)
+            self.remote = None
+
+    def attach_remote(self, attachment: RemoteEcAttachment) -> None:
+        """Durably publish the .evf sidecar, then serve through it.
+        Crash ordering: before the publish, local shards are still the
+        only truth (remote copies are orphans a re-run re-uploads);
+        after it, reads resolve remotely even once local files go."""
+        tmp = self.evf_path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(json.dumps(attachment.to_json(), indent=1).encode())
+        durable.publish(tmp, self.evf_path)
+        self.remote = attachment
+
+    def detach_remote(self) -> RemoteEcAttachment | None:
+        """Drop the .evf (tier-in complete: local shards are back).
+        Returns the old attachment so the caller can delete the remote
+        objects best-effort AFTER the detach is durable."""
+        old = self.remote
+        self.remote = None
+        try:
+            os.remove(self.evf_path)
+            durable.fsync_dir(self.directory)
+        except OSError:
+            pass
+        return old
+
+    def _remote_fetch(self, shard_id: int, offset: int, size: int) -> bytes | None:
+        """Ranged sub-shard read against the attached backend; None on
+        any failure (the caller falls through to peer fetch and
+        reconstruction — a flaky backend degrades, never faults)."""
+        remote = self.remote
+        if remote is None:
+            return None
+        info = remote.shards.get(shard_id)
+        if info is None:
+            return None
+        from seaweedfs_tpu_torch.stats.metrics import (
+            TIER_REMOTE_READ_ERRORS,
+            TIER_REMOTE_READS,
+        )
+        from seaweedfs_tpu_torch.storage import backend as bk
+
+        backend = bk.get_backend(remote.backend_name)
+        if backend is None:
+            TIER_REMOTE_READ_ERRORS.inc()
+            wlog.warning(
+                "ec vid %d: tier backend %s not configured",
+                self.volume_id, remote.backend_name,
+            )
+            return None
+        try:
+            data = backend.new_storage_file(
+                info["key"], int(info.get("size", remote.shard_size))
+            ).read_at(size, offset)
+        except Exception as e:  # noqa: BLE001 — any backend fault degrades
+            TIER_REMOTE_READ_ERRORS.inc()
+            wlog.warning(
+                "ec vid %d shard %d: tier read [%d,%d) failed: %s",
+                self.volume_id, shard_id, offset, offset + size, e,
+            )
+            return None
+        if len(data) != size:
+            TIER_REMOTE_READ_ERRORS.inc()
+            return None
+        TIER_REMOTE_READS.inc()
+        return data
 
     def _with_remote(self, fetch: ShardFetcher | None) -> ShardFetcher | None:
-        """The reference interposes the tier backend ahead of the
-        peer-fetch seam here; with no remote tier it is `fetch`."""
-        return fetch
+        """Interpose the tier backend ahead of the peer-fetch seam:
+        tiered shards resolve with one ranged backend GET; on a miss or
+        backend fault the original fetch (peer fan-in) still runs, and
+        reconstruction candidates go through the same wrapper."""
+        if self.remote is None:
+            return fetch
+
+        def wrapped(shard_id: int, offset: int, size: int) -> bytes | None:
+            data = self._remote_fetch(shard_id, offset, size)
+            if data is not None:
+                return data
+            if fetch is not None:
+                return fetch(shard_id, offset, size)
+            return None
+
+        return wrapped
 
     @property
     def rs(self) -> ReedSolomon:
@@ -264,7 +385,8 @@ class EcVolume:
         Uses the MAX across mounted shards: intact shards all share the
         nominal length, while a truncated one is shorter — deriving
         geometry from it would mis-split rows and corrupt the interval
-        mapping for every shard."""
+        mapping for every shard. A fully tiered volume takes it from
+        the .evf attachment."""
         shard_size = self._nominal_shard_len()
         large, small = locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE
         n_large = shard_size // large
@@ -321,6 +443,10 @@ class EcVolume:
                 pass  # vanished/unwritable dir: unmount still protects
             self.quarantined[shard_id] = reason
         self.tile_cache.invalidate()
+        cb = self.on_quarantine
+        if cb is not None:
+            # outside the lock: the callback pokes the heartbeat
+            cb(self.volume_id, shard_id, reason)
         return True
 
     def _quarantine_if_truncated(self, shard_id: int) -> bool:
@@ -365,6 +491,9 @@ class EcVolume:
             reason = f"truncated: {actual} bytes, nominal {nominal}"
             self.quarantined[shard_id] = reason
         self.tile_cache.invalidate()
+        cb = self.on_quarantine
+        if cb is not None:
+            cb(self.volume_id, shard_id, reason)
         return True
 
     def _read_interval(
@@ -426,9 +555,12 @@ class EcVolume:
 
     def _nominal_shard_len(self) -> int:
         """Full per-shard byte length (every intact shard of a volume
-        shares it — see dat_file_size)."""
+        shares it — see dat_file_size). A fully tiered volume has no
+        local shard; its length comes from the .evf attachment."""
         sizes = [s.size for s in list(self.shards.values())]
         if not sizes:
+            if self.remote is not None:
+                return self.remote.shard_size
             raise NotEnoughShards("no local shards mounted")
         return max(sizes)
 
@@ -704,7 +836,7 @@ class EcVolume:
             for path in (p, p + ".bad"):  # .bad = quarantined forensic copy
                 if os.path.exists(path):
                     os.remove(path)
-        for ext in (".ecx", ".ecj"):
+        for ext in (".ecx", ".ecj", ".evf"):
             p = self.base_name + ext
             if os.path.exists(p):
                 os.remove(p)

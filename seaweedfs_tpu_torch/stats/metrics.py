@@ -1,10 +1,12 @@
-"""Counters the EC pipelines and the degraded read path bump: the part of
-seaweedfs_tpu/stats/metrics.py that ec_stream, ec_files, ec_volume,
-tile_cache and repair_session touch, under the same metric names.
+"""Counters and gauges the EC pipelines, the degraded read path and the
+volume store bump: the part of seaweedfs_tpu/stats/metrics.py that
+ec_stream, ec_files, ec_volume, tile_cache, repair_session, volume and
+store touch, under the same metric names.
 
 A Counter holds one float per label tuple; `labels(...)` returns a
-child bound to one tuple and `value(...)` reads it. Prometheus
-rendering and the registry of the reference are not part of the port.
+child bound to one tuple and `value(...)` reads it. A Gauge is `set`
+per label tuple. Prometheus rendering and the registry of the
+reference are not part of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +45,22 @@ class _CounterChild:
         self._parent._add(self._key, amount)
 
 
+class Gauge:
+    def __init__(self, name: str, help_: str, label_names: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.label_names = label_names
+        self._values: dict[tuple[str, ...], float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, value: float, *label_values: str) -> None:
+        with self._lock:
+            self._values[tuple(label_values)] = value
+
+    def value(self, *label_values: str) -> float:
+        return self._values.get(tuple(label_values), 0.0)
+
+
 # --- EC degraded reads & repair-bandwidth accounting ------------------------
 EC_DEGRADED_READS = Counter(
     "weed_ec_degraded_read_total",
@@ -65,4 +83,24 @@ EC_REPAIR_BYTES_WRITTEN = Counter(
 EC_REPAIR_DONATED_BYTES = Counter(
     "weed_ec_repair_donated_bytes_total",
     "tile bytes degraded serving handed to an in-progress rebuild",
+)
+
+# --- volume store --------------------------------------------------------------
+COMMIT_FLUSHES = Counter(
+    "weed_commit_flush_total",
+    "durability flushes (fsync) issued by the volume write path",
+)
+SCRUB_QUARANTINED = Gauge(
+    "scrub_quarantined_shards",
+    "EC shards currently quarantined on this server",
+    ("server",),
+)
+TIER_REMOTE_READS = Counter(
+    "weed_tier_remote_read_total",
+    "ranged sub-shard reads served from the tier backend",
+)
+TIER_REMOTE_READ_ERRORS = Counter(
+    "weed_tier_remote_read_errors_total",
+    "tier backend reads that failed (the read degraded to "
+    "peer-fetch/reconstruction instead)",
 )

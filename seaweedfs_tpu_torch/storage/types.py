@@ -81,3 +81,28 @@ def needle_id_to_bytes(needle_id: int) -> bytes:
 
 def bytes_to_needle_id(b: bytes) -> int:
     return int.from_bytes(b[:8], "big")
+
+
+import re as _re  # noqa: E402
+
+_HEX_RE = _re.compile(r"[0-9a-fA-F]+\Z")
+
+
+def _parse_hex_uint(s: str, bits: int, what: str) -> int:
+    """Strict hex parse matching Go's strconv.ParseUint(s, 16, bits):
+    no sign, no 0x prefix, no underscores, no whitespace."""
+    if not _HEX_RE.match(s):
+        raise ValueError(f"{what} {s!r} format error")
+    v = int(s, 16)
+    if v >= 1 << bits:
+        raise ValueError(f"{what} {s!r} overflows uint{bits}")
+    return v
+
+
+def parse_needle_id(id_string: str) -> int:
+    """Hex needle-id string → int (needle_id_type.go ParseNeedleId)."""
+    return _parse_hex_uint(id_string, 64, "needle id")
+
+
+def parse_cookie(cookie_string: str) -> int:
+    return _parse_hex_uint(cookie_string, 32, "cookie")

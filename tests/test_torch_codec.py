@@ -327,11 +327,13 @@ def test_default_backend(monkeypatch):
     assert codec.default_backend() == "cuda"
     monkeypatch.setenv("WEED_EC_CODEC", "cpu")
     assert codec.default_backend() == "cpu"
+    monkeypatch.setenv("WEED_EC_CODEC", "native")
+    assert codec.default_backend() == "native"
     monkeypatch.setenv("WEED_EC_CODEC", "tpu")
     with pytest.raises(ValueError):
         codec.default_backend()
     with pytest.raises(ValueError):
-        codec.new_encoder(backend="native")
+        codec.new_encoder(backend="tpu")
 
 
 def test_codec_state_from_reference_matrix():

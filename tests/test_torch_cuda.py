@@ -422,3 +422,49 @@ def test_eight_threads_decode_through_apply_matrix(card):
     for t in range(8):
         for out in got[t]:
             assert np.array_equal(out, want[t]), t
+
+
+def test_store_on_the_card(card, tmp_path):
+    """Store with no ec_backend and no device: its EcVolume decodes with
+    K1 on the card, equal to the store's own .dat records, and the
+    volume it wrote and vacuumed encodes on the card and with the
+    native host codec to the same bytes."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    rng = np.random.default_rng(6)
+    store = Store([str(tmp_path / "d")])
+    v = store.add_volume(3)
+    payload = {}
+    for nid in range(1, 400):
+        payload[nid] = rng.integers(0, 256, int(rng.integers(1, 60000)), dtype=np.uint8).tobytes()
+        store.write_needle(3, Needle(cookie=nid, id=nid, data=payload[nid]))
+    for nid in range(1, 400, 16):
+        store.delete_needle(3, Needle(cookie=nid, id=nid))
+        del payload[nid]
+    v.compact()
+    v.commit_compact()
+    store.mark_volume_readonly(3)
+    base = v.base_name
+    native = str(tmp_path / "native")
+    os.makedirs(native)
+    os.symlink(base + ".dat", os.path.join(native, "3.dat"))
+    gs, ns = {}, {}
+    ec_files.write_ec_files(base, want_crcs=True, durable=True, stats=gs)
+    ec_files.write_ec_files(os.path.join(native, "3"), rs=new_encoder(backend="native"),
+                            want_crcs=True, stats=ns)
+    assert gs["shard_crcs"] == ns["shard_crcs"]
+    for i in range(14):
+        ext = ec_files.to_ext(i)
+        assert open(base + ext, "rb").read() == open(os.path.join(native, "3") + ext, "rb").read()
+    ec_files.write_sorted_file_from_idx(base)
+    ev = store.mount_ec_shards(3, "", list(range(14)))
+    assert ev.rs.device.type == "cuda"
+    store.unmount_ec_shards(3, list(LOST4))
+    for i in LOST4:
+        os.remove(base + ec_files.to_ext(i))
+    before = codec_cuda.LAUNCHES.value
+    for nid, data in payload.items():
+        assert bytes(store.find_ec_volume(3).read_needle(nid).data) == data
+    assert codec_cuda.LAUNCHES.value > before
+    store.close()

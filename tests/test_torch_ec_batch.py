@@ -285,6 +285,9 @@ def test_rebuild_abort_removes_every_target(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("pipeline", ["1", "0"])
 def test_codec_none_needs_a_card(tmp_path, monkeypatch, pipeline):
+    # no card and no host codec asked for (WEED_EC_CODEC=native or cpu
+    # would ask for the host arm)
+    monkeypatch.delenv("WEED_EC_CODEC", raising=False)
     monkeypatch.setenv("WEED_EC_PIPELINE", pipeline)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, ports = _volumes(tmp_path, 2, seed=60, base_bytes=20_000)

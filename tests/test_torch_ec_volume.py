@@ -275,11 +275,26 @@ def test_too_many_truncated_shards_fail_loudly(small):
 
 
 def test_load_refuses_a_tiered_volume(small):
-    d, _, _ = small
+    """A `.evf` sidecar no longer makes load refuse the volume: it mounts
+    with its remote half attached. Here the backend is `s3.default`,
+    which the port has no factory for, so it resolves to nothing, as an
+    unconfigured backend does in the reference: the remote shard's reads
+    count as tier errors and degrade to reconstruction."""
+    from seaweedfs_tpu_torch.stats.metrics import TIER_REMOTE_READ_ERRORS
+
+    d, dat, live = small
     with open(os.path.join(d, f"{VID}.evf"), "w") as f:
-        f.write('{"backend": "s3.default", "shard_size": 1048576, "shards": {}}')
-    with pytest.raises(NotImplementedError, match="remote tier"):
-        _port(d)
+        f.write('{"backend": "s3.default", "shard_size": 1048576, '
+                '"shards": {"0": {"key": "k0", "size": 1048576}}}')
+    os.remove(os.path.join(d, str(VID)) + ec_files.to_ext(0))
+    errors = TIER_REMOTE_READ_ERRORS.value()
+    ev = _port(d)
+    assert ev.remote is not None and ev.remote.backend_name == "s3.default"
+    assert ev.serving_shard_ids() == list(range(14)) and 0 not in ev.shard_ids()
+    for off, size in live.values():
+        assert ev.read_span(off, get_actual_size(size, 3)) == _record(dat, off, size)
+    assert TIER_REMOTE_READ_ERRORS.value() > errors
+    ev.close()
 
 
 def test_load_needs_the_index(small):
