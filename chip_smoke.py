@@ -10,8 +10,9 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      each kernel at the main path's shapes (K1 with the encode, 4-shard
      and 1-shard decode matrices, and the degraded read's 1-row decode
      at one tile and one 32-tile run; K4 at the encode's [14, 262144]
-     tile), hold it byte-exact against its plain PyTorch version on the
-     card, time both with CUDA events, and
+     tile; K5 with the degraded read's 1-row decode at the 4 KiB and
+     32 KiB buckets of an exact interval), hold it byte-exact against its
+     plain PyTorch version on the card, time both with CUDA events, and
      compute its bound on this card; then, untimed, hold K1, K2 and K3
      against their plain versions over random (k, rows) matrices, and K4
      over random row counts and ragged, unaligned rows;
@@ -23,7 +24,8 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      needles read back through the striping; then delete shard 3 and
      rebuild it, delete shards {0, 5, 10, 13} and rebuild them, each
      byte-identical; the kernels' launch counters must grow in every
-     one of the three runs;
+     one of the three runs; the encode once more under torch.profiler,
+     in a process of its own (profile_encode), for the card's idle share;
  3b. degraded reads on that volume (run_degraded_phase): delete shards
      {0, 5, 10, 13}, read every needle through EcVolume (K1 decodes on
      the card, no K4), each equal to its .dat record; a warm pass that
@@ -52,13 +54,31 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      delete them locally, reload through a fresh Store (DiskLocation
      loads the remote half) and read 64 needles on shards 0, 1 and 2
      (K1 decoding with remote survivors, ranged backend reads counted);
+ 3d. the volume server (run_server_phase), in its own directory: start the
+     port's VolumeServer standalone (ec_codec="cuda", scrub_interval=0)
+     and drive it as a user does, over HTTP and gRPC, with the HTTP
+     load from 8 keep-alive connections of a load generator in a
+     process of its own (this script with --http-client): POST a 1 GiB
+     volume of needles log-uniform over 1 KiB-4 MiB, DELETE every 16th,
+     GET every live needle back equal to its payload's SHA-256
+     (conditional GETs 304, deleted ones 404); VolumeMarkReadonly and
+     VolumeEcShardsGenerate (K1 + K4), byte-identical to a native encode
+     of the same .dat; lose shards {0, 5, 10, 13} and
+     VolumeEcShardsRebuild them (K1 + K4), byte-identical; mount the
+     shards, drop the .dat volume, lose the four again and GET every
+     live needle (tile-cache decodes: K1), then again with
+     WEED_EC_TILE_CACHE=0 (exact intervals: K5 under 64 KiB, K1 above,
+     both must launch); last, two VolumeEcShardsGenerate calls at once
+     on two 64 MiB volumes, equal to the same encodes run one after the
+     other; after stop() no thread the server started may be left;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
      fused CRCs, durable) and check CRCs, parity and needles; encode the
      same volumes through write_ec_files in a loop, timed beside the
      batch, every volume's CRCs equal to the batch's and 4 volumes
-     byte-identical to the single-volume path; rebuild shard 3
+     byte-identical to the single-volume path, and one round of 16
+     under torch.profiler as in phase 3; rebuild shard 3
      of the odd volumes and shards {0, 5, 10, 13} of the even ones in
      one rebuild_ec_files_batch call (two signature groups); the batch
      host arm (_HostBatchCodec over the native codec) encodes the same
@@ -66,9 +86,9 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      with equal CRCs, both walls printed; verify 16
      volumes with MeshCodec.verify_batch_u32, clean and with planted
      faults; the batch kernels' counters must grow in each run;
-  5. the report: K1 and K4 at every launch signature the paths (the
-     store's included) gave
-     them (the wrappers' tallies: shape, and K1's matrix), each
+  5. the report: K1, K4 and K5 at every launch signature the paths (the
+     store's and the server's included) gave
+     them (the wrappers' tallies: shape, and K1's and K5's matrix), each
      byte-exact against its plain version, timed, bounded, and priced
      as launches x (ms - bound); K1 at the degraded read's shapes
      ([10, 65536] and [10, 2097152] lanes, one decode row) and
@@ -102,10 +122,12 @@ HBM_BYTES_PER_S = 3.35e12
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/gf_apply.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/gf_verify.cu"
 K4_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c_rows.cu"
+K5_SOURCE = "seaweedfs_tpu_torch/csrc/gf_bits.cu"
 K1_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:204 swar_apply_u32"
 K2_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:236 swar_apply_u32_batch"
 K3_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:321 swar_verify_u32_batch"
 K4_REPLACES = "seaweedfs_tpu/ec/crc_kernel.py:133 crc32c_rows"
+K5_REPLACES = "seaweedfs_tpu/ec/codec_tpu.py:78 apply_matrix_bits"
 
 LANES = 262144  # 1 MiB of stream per row: the pipelined tile of the main path
 BATCH = 16  # volumes per round of the batch phase (WEED_EC_PIPELINE_BATCH)
@@ -278,6 +300,80 @@ def time_apply_matrix(rows, lanes: int, seed: int, card: str, reps: int = 20) ->
     return {"ms": ms, "steps_ms": steps}
 
 
+def check_k5(name: str, rows, n: int, seed: int, card: str) -> dict:
+    """K5 with GF rows `rows` over a [k, n] uint8 stream (one bucket of an
+    exact-interval decode): byte-exact against its plain version, then
+    timed over distinct inputs of at least 128 MiB in all, beside the
+    library yardstick: the same GF(2) product as one float32 torch.matmul
+    of the bit-matrix with the input's bit-planes (exact: a sum is at most
+    k * 8), the unpack and the pack excluded."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    k, r = rows.shape[1], rows.shape[0]
+    a_bits = codec_cuda.gf_matrix_to_bits(rows)
+    masks = codec_cuda.bit_masks(a_bits)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = max(8, (128 << 20) // (k * n))
+    pool = torch.randint(0, 256, (sets, 1, k, n), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    got = codec_cuda.apply_matrix_bits_batch(a_bits, pool[0], masks)
+    want = codec_cuda.gf_bits_plain(a_bits, pool[0])
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"K5 {name}: kernel disagrees with its plain version")
+    ms = _kernel_ms(lambda i: codec_cuda.apply_matrix_bits_batch(
+        a_bits, pool[i % sets], masks), iters=max(64, min(sets, 1024)))
+    plain_ms = _time_ms(lambda i: codec_cuda.gf_bits_plain(a_bits, pool[i % sets]), 20)
+    a = torch.from_numpy(a_bits.astype(np.float32)).cuda()
+    planes = [((pool[i, 0][:, None, :] >> torch.arange(8, dtype=torch.uint8, device="cuda")
+                [None, :, None]) & 1).reshape(k * 8, n).float() for i in range(8)]
+    library_ms = _time_ms(lambda i: torch.matmul(a, planes[i % 8]), 200)
+    nbytes = (k + r) * n
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(
+        f"K5 gf_bits {name} [{k},{n}]->[{r},{n}] bytes on {card}: byte-exact vs plain "
+        f"(max_abs_err 0); kernel {ms:.4f} ms over {sets} distinct inputs, plain "
+        f"{plain_ms:.4f} ms, library (float32 matmul of the bit-planes, unpack and pack "
+        f"excluded) {library_ms:.4f} ms, bound {bound:.6f} ms (bytes; {bound / ms:.4f} "
+        f"of it)"
+    )
+    del pool, planes
+    return {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "max_abs_err": err, "library_ms": library_ms,
+    }
+
+
+def sweep_k5(seed: int, draws: int = 24) -> int:
+    """Untimed exactness sweep of K5 against its plain version: C and R
+    drawn from 1..16, ragged and unaligned byte counts (the scalar
+    variant) and multiples of 4 (the vector one), batches of 1..3.
+    Returns the calls checked."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for i in range(draws):
+        c, r, b = int(rng.integers(1, 17)), int(rng.integers(1, 17)), int(rng.integers(1, 4))
+        vec = i % 2 == 0
+        n = int(rng.integers(1, 9000)) * (4 if vec else 1)
+        a_bits = codec_cuda.gf_matrix_to_bits(rng.integers(0, 256, (r, c), dtype=np.uint8))
+        off = 0 if vec else 1
+        x = torch.randint(0, 256, (b * c * n + off,), dtype=torch.uint8, device="cuda",
+                          generator=g)[off:].view(b, c, n)
+        if not torch.equal(codec_cuda.apply_matrix_bits_batch(a_bits, x),
+                           codec_cuda.gf_bits_plain(a_bits, x)):
+            raise AssertionError(f"K5 disagrees with its plain version at C {c}, R {r}, "
+                                 f"n {n}, B {b}, {'vector' if vec else 'scalar'}")
+    torch.cuda.synchronize()
+    return draws
+
+
 def sweep_gf(seed: int, draws: int = 48) -> int:
     """Untimed exactness sweep of K1, K2 and K3 against their plain
     versions over random matrices: k runs through 1..16 three times,
@@ -401,9 +497,10 @@ def _sig_inputs(pool, rows: int, n32: int) -> list:
 
 
 def check_signatures(runs: dict, paths, names: dict, seed: int, card: str) -> dict:
-    """K1 and K4 at every signature `paths` launched them with (the
+    """K1, K4 and K5 at every signature `paths` launched them with (the
     wrappers' tallies: K1's rows, k, lanes and matrix, K4's rows and
-    lanes). At each: byte-exact against its plain version (K4 also the
+    lanes, K5's rows, columns, bytes, batch and bit-matrix). At each:
+    byte-exact against its plain version (K4 also the
     host shim and its raw form), then timed over distinct inputs sliced
     from one pool of at least SIG_POOL_BYTES, with its bound from the
     bytes, and priced: launches x (ms - bound). `names` labels known
@@ -421,14 +518,33 @@ def check_signatures(runs: dict, paths, names: dict, seed: int, card: str) -> di
         for path in paths:
             for sig, n in runs[path].get("sigs", {}).get(kname, {}).items():
                 by_sig.setdefault(sig, {})[path] = n
-        k1 = kname == "gf_apply"
-        in_words = [(sig[1] if k1 else sig[0]) * sig[2 if k1 else 1] for sig in by_sig]
+        k1, k5 = kname == "gf_apply", kname == "gf_bits"
+        in_words = [sig[1] * sig[2] * sig[3] // 4 + 1 if k5 else
+                    (sig[1] if k1 else sig[0]) * sig[2 if k1 else 1] for sig in by_sig]
         words = max([SIG_POOL_BYTES // 4] + in_words)
         pool = torch.randint(-(2**31), 2**31 - 1, (words,), dtype=torch.int32,
                              device="cuda", generator=g)
         shapes, loss = [], 0.0
-        for sig in sorted(by_sig, key=lambda sg: (sg[0], sg[2 if k1 else 1], str(sg))):
-            if k1:
+        for sig in sorted(by_sig, key=lambda sg: (sg[0], sg[2 if k1 or k5 else 1], str(sg))):
+            if k5:
+                r, c, n, b, mat = sig
+                a_bits = np.frombuffer(mat, dtype=np.int8).reshape(r * 8, c * 8)
+                masks = codec_cuda.bit_masks(a_bits)
+                flat = pool.view(torch.uint8)
+                per = b * c * n
+                xs = [flat[i * per:(i + 1) * per].view(b, c, n)
+                      for i in range(min(SIG_MAX_INPUTS, flat.numel() // per))]
+                label = names.get(mat, f"{r}x{c} bit-matrix")
+                if not torch.equal(codec_cuda.apply_matrix_bits_batch(a_bits, xs[0], masks),
+                                   codec_cuda.gf_bits_plain(a_bits, xs[0])):
+                    raise AssertionError(f"K5 [{b},{c},{n}] ({label}): kernel disagrees "
+                                         f"with its plain version")
+                ms = _kernel_ms(lambda i: codec_cuda.apply_matrix_bits_batch(
+                    a_bits, xs[i % len(xs)], masks),
+                    iters=min(SIG_MAX_INPUTS, max(64, len(xs))))
+                nbytes = (c + r) * n * b
+                shape = f"[{b},{c},{n}]->[{b},{r},{n}] bytes ({label})"
+            elif k1:
                 r, k, n32, mat = sig
                 rows = np.frombuffer(mat, dtype=np.uint8).reshape(r, k)
                 xs = _sig_inputs(pool, k, n32)
@@ -621,6 +737,7 @@ def _counts() -> dict:
         "gf_apply_batch": codec_cuda.BATCH_LAUNCHES,
         "gf_verify_batch": codec_cuda.VERIFY_LAUNCHES,
         "crc32c_rows": crc_kernel.LAUNCHES,
+        "gf_bits": codec_cuda.BITS_LAUNCHES,
     }
 
 
@@ -633,13 +750,14 @@ def _read_counts() -> dict:
     return {name: c.value for name, c in _counts().items()}
 
 
-SIG_KERNELS = ("gf_apply", "crc32c_rows")  # the wrappers that tally signatures
+SIG_KERNELS = ("gf_apply", "crc32c_rows", "gf_bits")  # the wrappers that tally signatures
 
 
 def _read_sigs() -> dict:
     """{kernel: {signature: launches}} since the last reset, for the
     kernels whose wrappers tally their launch signatures: K1 (rows, k,
-    n32, matrix bytes) and K4 (rows, n32)."""
+    n32, matrix bytes), K4 (rows, n32) and K5 (rows, columns, bytes,
+    batch, bit-matrix bytes)."""
     counts = _counts()
     return {name: counts[name].by_signature() for name in SIG_KERNELS}
 
@@ -661,31 +779,89 @@ def _must_launch(label: str, launches: dict, names) -> None:
             raise AssertionError(f"{label}: kernel {kname} was never launched")
 
 
-def profile_encode(encode, workdir: str, card: str, label: str = "encode") -> dict:
-    """Run encode() once more under torch.profiler and read the device
+def profile_encode(kind: str, bases: list, workdir: str, card: str,
+                   label: str = "encode") -> dict:
+    """Encode `bases` once more under torch.profiler and read the device
     timeline: busy = the union of kernel, copy and memset intervals on
-    the card; idle share = 1 - busy / wall."""
+    the card; idle share = 1 - busy / wall. `kind` "single" is
+    write_ec_files of bases[0] on the card, "batch" write_ec_files_batch
+    of them all. It runs in a process of its own (this script with
+    --profile-encode), after one unprofiled warm-up encode of the same
+    files there: on the card machine a process's profiler records fewer
+    of its device events the older the process is, none after about two
+    minutes (PERF.md section 7). Raises unless every kernel launch, copy
+    and memset the trace shows on the host has its device event."""
+    job = os.path.join(workdir, "profile_job.json")
+    out_path = os.path.join(workdir, "profile_out.json")
+    with open(job, "w") as f:
+        json.dump({"kind": kind, "bases": bases}, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-encode", job, out_path],
+        capture_output=True, text=True, timeout=600,
+    )
+    if proc.returncode:
+        raise AssertionError(f"the profiled {label} failed (rc {proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    with open(out_path) as f:
+        out = json.load(f)
+    os.remove(job)
+    os.remove(out_path)
+    log(f"profiled {label} on {card}: " + json.dumps(out))
+    return out
+
+
+def profiled_encode(job_path: str, out_path: str) -> int:
+    """The process of profile_encode: warm up, profile one encode, check
+    the trace for lost device events and write the timeline's summary
+    to `out_path`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from seaweedfs_tpu_torch.ec import ec_files
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+
+    with open(job_path) as f:
+        job = json.load(f)
+    bases = job["bases"]
+    if job["kind"] == "single":
+        rs = new_encoder(backend="cuda")
+
+        def encode():
+            ec_files.write_ec_files(bases[0], rs=rs, want_crcs=True)
+    else:
+        def encode():
+            ec_files.write_ec_files_batch(bases, want_crcs=True)
+    encode()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         encode()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = os.path.join(workdir, "trace.json")
+    path = out_path + ".trace.json"
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    spans, by_cat = [], {}
+    os.remove(path)
+    spans, by_cat, on_device = [], {}, set()
+    host_calls: dict = {}
     for e in events:
         cat = e.get("cat", "")
+        corr = e.get("args", {}).get("correlation")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
             spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
             key = e["name"] if cat == "kernel" else cat
             by_cat[key] = by_cat.get(key, 0.0) + float(e["dur"]) / 1e3
-    if not spans:
-        raise AssertionError("the profiled encode recorded no device activity")
+            on_device.add(corr)
+        elif cat == "cuda_runtime" and re.search("LaunchKernel|Memcpy|Memset", e["name"]):
+            host_calls[corr] = e["name"]
+    lost = [name for corr, name in host_calls.items() if corr not in on_device]
+    if not spans or lost:
+        by_name: dict = {}
+        for name in lost:
+            by_name[name] = by_name.get(name, 0) + 1
+        raise AssertionError(f"the profiled encode's trace lacks the device events of "
+                             f"{len(lost)} of {len(host_calls)} host calls: {by_name}")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -693,11 +869,11 @@ def profile_encode(encode, workdir: str, card: str, label: str = "encode") -> di
             end = b
     busy_ms = busy / 1e3
     out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / (wall * 1e3),
+           "idle_share": 1.0 - busy_ms / (wall * 1e3), "device_calls": len(host_calls),
            "device_ms_by_name": {k: round(v, 4) for k, v in sorted(by_cat.items())}}
-    os.remove(path)
-    log(f"profiled {label} on {card}: " + json.dumps(out))
-    return out
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
 
 
 def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
@@ -808,8 +984,7 @@ def run_main_path(workdir: str, volume_bytes: int, seed: int, device=None,
     runs.update(run_degraded_phase(workdir, entries, originals, enc["shard_crcs"], device,
                                    card))
     if device is None:
-        runs["profiled_encode"] = profile_encode(
-            lambda: ec_files.write_ec_files(base, rs=rs, want_crcs=True), workdir, card)
+        runs["profiled_encode"] = profile_encode("single", [base], workdir, card)
     return runs
 
 
@@ -937,8 +1112,9 @@ def run_degraded_phase(workdir: str, entries: list, originals: str, enc_crcs: li
             _must_launch("degraded cold pass", launches, ("gf_apply",))
             if launches["crc32c_rows"]:
                 raise AssertionError("the degraded read launched K4")
-            if launches["gf_apply"] != spans["count"]:
-                raise AssertionError(f"cold pass: {launches['gf_apply']} K1 launches for "
+            if launches["gf_apply"] + launches["gf_bits"] != spans["count"]:
+                raise AssertionError(f"cold pass: {launches['gf_apply']} K1 and "
+                                     f"{launches['gf_bits']} K5 launches for "
                                      f"{spans['count']} decodes")
         log(f"degraded cold pass on {card}: shards {LOST} lost, {len(entries)} needles "
             f"({cold['degraded_needles']} on a lost shard), {served} bytes, each equal to "
@@ -953,12 +1129,14 @@ def run_degraded_phase(workdir: str, entries: list, originals: str, enc_crcs: li
         h0 = EC_TILE_CACHE.value("hit")
         _reset_counts()
         for nid, off, size in warm_set:
-            before = _read_counts()["gf_apply"]
+            before = _read_counts()
             covered = all(ev.tile_cache.covers(*iv) for iv in lost_of[nid])
             check(ev.read_needle(nid), off, size)
             if covered:
                 resident += 1
-                if _read_counts()["gf_apply"] != before:
+                after = _read_counts()
+                if (after["gf_apply"], after["gf_bits"]) != (before["gf_apply"],
+                                                             before["gf_bits"]):
                     raise AssertionError(f"warm needle {nid}: resident tiles decoded again")
         hits = EC_TILE_CACHE.value("hit") - h0
         warm_launches, warm_sigs = _read_counts(), _read_sigs()
@@ -1481,6 +1659,464 @@ def run_store_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     return runs
 
 
+# --- phase 3d: the volume server ---------------------------------------------
+
+SERVER_VID = 11
+SERVER_ROOM = 5 << 30  # the server phase's peak in its directory (about 4.2 GiB)
+SERVER_THREADS = 8  # keep-alive client threads
+CONC_BYTES = 64 << 20  # each of the two volumes encoded at once
+COND_GETS = 16  # conditional GETs that must answer 304
+
+
+def _free_port() -> int:
+    """A port p with p and p + 10000 (the server's gRPC port) both free."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid() ^ time.monotonic_ns())
+    for _ in range(200):
+        p = rng.randrange(20000, 50000)
+        try:
+            for q in (p, p + 10000):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", q))
+        except OSError:
+            continue
+        return p
+    raise RuntimeError("no free port pair for the volume server")
+
+
+def _fan(port: int, n_threads: int, items: list, work) -> list:
+    """work(conn, item) over `items` from n_threads keep-alive HTTP
+    clients of 127.0.0.1:`port` (item i on thread i % n_threads); returns
+    the results in item order. The first error is raised after every
+    thread joined."""
+    out: list = [None] * len(items)
+    errors: list = []
+
+    def run(t):
+        import http.client
+
+        conn = None
+        try:
+            for i in range(t, len(items), n_threads):
+                if conn is None:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                out[i] = work(conn, items[i])
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+        finally:
+            if conn is not None:
+                conn.close()
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a client thread did not finish")
+    return out
+
+
+def _http(conn, method: str, path: str, body: bytes | None = None, headers=None):
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def _load_client(port: int, op: str, items: list, workdir: str) -> dict:
+    """Run `op` ("post" or "get") over `items`, [fid, seed, nid, size]
+    each, from SERVER_THREADS keep-alive connections of a load generator
+    in a process of its own (this script with --http-client), so that
+    the client's work (payloads, digests, HTTP parsing) does not share
+    the server's interpreter lock. Returns its {"wall_s", "results":
+    [[fid, seconds, eTag or None], ...]} in item order."""
+    job = os.path.join(workdir, "client_job.json")
+    out = os.path.join(workdir, "client_out.json")
+    with open(job, "w") as f:
+        json.dump({"port": port, "op": op, "threads": SERVER_THREADS, "items": items}, f)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--http-client", job, out],
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode:
+        raise AssertionError(f"the {op} load generator failed (rc {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    os.remove(job)
+    os.remove(out)
+    return got
+
+
+def http_client(job_path: str, out_path: str) -> int:
+    """The load generator of _load_client: make every payload (POST) or
+    its SHA-256 (GET) first, then time each request from its send to
+    the last byte of its reply; a GET's body must hash to its payload's
+    digest. Writes {"wall_s", "results"} to `out_path`."""
+    import hashlib
+
+    with open(job_path) as f:
+        job = json.load(f)
+    op = job["op"]
+    items = [tuple(x) for x in job["items"]]
+    if op == "post":
+        made = {fid: _store_payload(s, nid, 0, size) for fid, s, nid, size in items}
+    else:
+        made = {fid: hashlib.sha256(_store_payload(s, nid, 0, size)).digest()
+                for fid, s, nid, size in items}
+
+    def work(conn, item):
+        fid = item[0]
+        t0 = time.perf_counter()
+        if op == "post":
+            status, _, body = _http(conn, "POST", f"/{fid}", made[fid])
+            dt = time.perf_counter() - t0
+            if status != 201:
+                raise AssertionError(f"POST {fid}: {status} {body[:200]!r}")
+            return [fid, dt, json.loads(body)["eTag"]]
+        status, _, body = _http(conn, "GET", f"/{fid}")
+        dt = time.perf_counter() - t0
+        if status != 200 or hashlib.sha256(body).digest() != made[fid]:
+            raise AssertionError(f"GET {fid}: status {status}, {len(body)} bytes "
+                                 f"differ from its payload")
+        return [fid, dt, None]
+
+    t0 = time.perf_counter()
+    results = _fan(job["port"], job["threads"], items, work)
+    wall = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"wall_s": wall, "results": results}, f)
+    return 0
+
+
+# threads of the process, not of a server: the tracing plane's span
+# drainer, started by the first span the process records, folds spans
+# into a histogram every 0.25 s and touches no device
+PROCESS_THREADS = ("trace-drain",)
+
+
+def _pinned_live() -> dict:
+    """Page-locked host memory that live tensors hold: the distinct
+    storages of the CPU tensors the collector sees that are pinned. (The
+    pinned allocator's own counters cannot say this: a freed block stays
+    "active" until the allocator processes its events, and a cached
+    block is reusable, not held.)"""
+    import gc
+
+    import torch
+
+    held = {}
+    for obj in gc.get_objects():
+        if (issubclass(type(obj), torch.Tensor) and obj.device.type == "cpu"
+                and obj.is_pinned()):
+            storage = obj.untyped_storage()
+            held[storage.data_ptr()] = storage.nbytes()
+    return {"storages": len(held), "bytes": sum(held.values())}
+
+
+def _server_leftovers(before: set, pinned_start: dict | None) -> dict:
+    """After VolumeServer.stop(): the threads that outlived it (waited
+    for up to 10 s: a connection thread ends when its client has gone),
+    and on the card (`pinned_start` the phase's first reading) the
+    pinned memory live tensors still hold, before and after a full
+    collection, with the objects it found."""
+    import gc
+
+    def new_threads() -> list:
+        return [t for t in threading.enumerate()
+                if t not in before and t.name not in PROCESS_THREADS]
+
+    deadline = time.monotonic() + 10.0
+    left = new_threads()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.05)
+        left = new_threads()
+    out: dict = {"threads_left": sorted(t.name for t in left)}
+    if pinned_start is not None:
+        out["pinned_at_start"] = pinned_start
+        out["pinned_before_gc"] = _pinned_live()
+        out["gc_found"] = gc.collect()
+        out["pinned_after_gc"] = _pinned_live()
+    return out
+
+
+def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                     card: str = "", smi: str = "", conc_bytes: int = CONC_BYTES) -> dict:
+    """The port's VolumeServer on `device` (None: the card), standalone
+    in `workdir`, driven over HTTP and gRPC as its users drive it: write
+    a volume of about `volume_bytes` by POST, delete, read back; encode
+    and rebuild through its verbs against a native encode; serve every
+    needle with four shards lost, through the tile cache and then
+    exact-interval decodes (K5); two generates at once. Raises on any
+    fault; returns per-run stats, launches and signature tallies:
+    server_encode, server_rebuild4, server_serve, server_k5,
+    server_concurrent."""
+    from seaweedfs_tpu_torch import trace
+    from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as pb
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+
+    _check_room(workdir, SERVER_ROOM if volume_bytes >= 1 << 30 else 6 * volume_bytes,
+                "the server phase")
+    on_card = device is None
+    vdir = os.path.join(workdir, "server")
+    os.mkdir(vdir)
+    port = _free_port()
+    before = set(threading.enumerate())
+    pinned_start = _pinned_live() if on_card else None
+    vs = VolumeServer([vdir], port=port, ec_codec="cuda", device=device,
+                      scrub_interval=0, max_volume_counts=[8])
+    vs.start()
+    runs: dict = {}
+    ch = rpc.dial(f"127.0.0.1:{vs.grpc_port}")
+    try:
+        stub = rpc.volume_stub(ch)
+        vid = SERVER_VID
+
+        def needles_of(v: int, nbytes: int, salt: int) -> dict:
+            rng = np.random.default_rng((seed, salt))
+            sizes, total, nid = {}, 0, 0
+            while total < nbytes:
+                nid += 1
+                sizes[nid] = int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20))))
+                total += sizes[nid]
+            return {f"{v},{nid:x}{nid * 2654435761 % 2**32:08x}": (nid, size)
+                    for nid, size in sizes.items()}
+
+        def items(v: int, fids: dict, which) -> list:
+            return [[fid, seed + v, *fids[fid]] for fid in which]
+
+        def post_all(v: int, fids: dict) -> tuple:
+            """POST every needle of `fids`: (wall seconds, {fid: eTag})."""
+            got = _load_client(port, "post", items(v, fids, fids), workdir)
+            return got["wall_s"], {fid: etag for fid, _, etag in got["results"]}
+
+        def get_all(v: int, fids: dict, live) -> tuple:
+            """GET each live fid, equal to its payload: (wall seconds,
+            [(fid, seconds), ...])."""
+            got = _load_client(port, "get", items(v, fids, live), workdir)
+            return got["wall_s"], [(fid, dt) for fid, dt, _ in got["results"]]
+
+        # --- write a volume over HTTP ---
+        stub.AllocateVolume(pb.AllocateVolumeRequest(volume_id=vid), timeout=60)
+        fids = needles_of(vid, volume_bytes, 1)
+        post_s, etags = post_all(vid, fids)
+        posted = sum(size for _, size in fids.values())
+        deleted = [fid for fid, (nid, _) in fids.items() if nid % 16 == 0]
+        dels = _fan(port, SERVER_THREADS, deleted,
+                    lambda c, f: _http(c, "DELETE", f"/{f}")[0])
+        if set(dels) != {202}:
+            raise AssertionError(f"DELETE statuses {set(dels)}")
+        live = [fid for fid in fids if fid not in set(deleted)]
+        get_s, got = get_all(vid, fids, live)
+        lat = [dt for _, dt in got]
+        cond = live[:COND_GETS]
+        got = _fan(port, 4, cond, lambda c, f: _http(c, "GET", f"/{f}", headers={
+            "If-None-Match": f'"{etags[f]}"'})[0])
+        gone = _fan(port, 4, deleted, lambda c, f: _http(c, "GET", f"/{f}")[0])
+        if set(got) != {304} or set(gone) != {404}:
+            raise AssertionError(f"conditional GETs {set(got)}, deleted GETs {set(gone)}")
+        runs["server_write"] = {"post_s": post_s, "bytes": posted, "needles": len(fids),
+                                "get_s": get_s, "deleted": len(deleted)}
+        log(f"server write on {card}: {len(fids)} needles, {posted} bytes POSTed from "
+            f"{SERVER_THREADS} keep-alive threads in {post_s:.4f} s "
+            f"({posted / post_s / 1e9:.4f} GB/s, {len(fids) / post_s:.1f} req/s); "
+            f"{len(deleted)} DELETEd (202), then 404; {len(live)} live GETs equal in "
+            f"{get_s:.4f} s ({len(live) / get_s:.1f} req/s), p50 {_pct(lat, 50):.3f} ms, "
+            f"p99 {_pct(lat, 99):.3f} ms; {len(cond)} conditional GETs 304")
+
+        # --- encode through the verbs, against a native encode ---
+        base = vs.store.find_volume(vid).base_name
+        stub.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=vid), timeout=60)
+        _reset_counts()
+        enc_s, _ = _timed(lambda: stub.VolumeEcShardsGenerate(
+            pb.VolumeEcShardsGenerateRequest(volume_id=vid), timeout=600))
+        runs["server_encode"] = {"wall_s": enc_s, "launches": _read_counts(),
+                                 "sigs": _read_sigs()}
+        host_dir = os.path.join(workdir, "server_native")
+        os.mkdir(host_dir)
+        host = os.path.join(host_dir, os.path.basename(base))
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(base + ext, host + ext)
+        ns: dict = {}
+        nat_s, _ = _timed(lambda: ec_files.write_ec_files(
+            host, rs=new_encoder(backend="native"), want_crcs=True, durable=True,
+            stats=ns))
+        ec_files.write_sorted_file_from_idx(host, durable=True)
+        ecc_sidecar.write_sidecar(host, ns["shard_crcs"])
+        shards = [ec_files.to_ext(i) for i in range(14)]
+        _same_files(base, host, shards + [".ecx", ".ecc"])
+        if ns["shard_crcs"] != [_file_crc(base + ext) for ext in shards]:
+            raise AssertionError("server encode: shard CRCs differ from the host shim's")
+        os.remove(host + ".dat")
+        dat_size = os.path.getsize(base + ".dat")
+        runs["server_encode"]["native_wall_s"] = nat_s
+        log(f"server encode (VolumeEcShardsGenerate) of {dat_size} bytes on {card}: "
+            f"{enc_s:.4f} s ({dat_size / enc_s / 1e9:.3f} GB/s) vs native "
+            f"write_ec_files {nat_s:.4f} s; shards, .ecx and .ecc byte-identical, CRCs "
+            f"equal the host shim's; launches {runs['server_encode']['launches']}")
+
+        # --- rebuild through the verb ---
+        for i in LOST:
+            os.remove(base + shards[i])
+        _reset_counts()
+        reb_s, got = _timed(lambda: stub.VolumeEcShardsRebuild(
+            pb.VolumeEcShardsRebuildRequest(volume_id=vid), timeout=600))
+        runs["server_rebuild4"] = {"wall_s": reb_s, "launches": _read_counts(),
+                                   "sigs": _read_sigs()}
+        if tuple(got.rebuilt_shard_ids) != LOST:
+            raise AssertionError(f"server rebuild: rebuilt {list(got.rebuilt_shard_ids)}")
+        _same_files(base, host, [shards[i] for i in LOST] + [".ecc"])
+        shutil.rmtree(host_dir)
+        shard_len = os.path.getsize(base + shards[0])
+        log(f"server rebuild4 (VolumeEcShardsRebuild) {LOST} of {len(LOST) * shard_len} "
+            f"bytes on {card}: {reb_s:.4f} s, byte-identical to the native encode's "
+            f"shards, .ecc equal; launches {runs['server_rebuild4']['launches']}")
+
+        # --- degraded serving: the .dat gone, LOST lost ---
+        stub.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+            volume_id=vid, shard_ids=list(range(14))), timeout=60)
+        stub.VolumeDelete(pb.VolumeDeleteRequest(volume_id=vid), timeout=60)
+        stub.VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+            volume_id=vid, shard_ids=list(LOST)), timeout=60)
+        for i in LOST:
+            os.remove(base + shards[i])
+        ev = vs.store.find_ec_volume(vid)
+        on_lost = set()
+        for fid in live:
+            off, size = ev.locate_needle(fids[fid][0])
+            if _lost_intervals(ev, off, get_actual_size(size, ev.version)):
+                on_lost.add(fid)
+
+        def serve(label: str) -> dict:
+            _reset_counts()
+            s0 = trace.totals("ec.degraded")
+            wall, got = get_all(vid, fids, live)
+            spans = _span_delta("ec.degraded", s0)
+            lost_lat = [dt for fid, dt in got if fid in on_lost]
+            ok_lat = [dt for fid, dt in got if fid not in on_lost]
+            run = {"wall_s": wall, "launches": _read_counts(), "sigs": _read_sigs(),
+                   "needles": len(live), "on_lost": len(lost_lat),
+                   "p50_ms_lost": _pct(lost_lat, 50), "p99_ms_lost": _pct(lost_lat, 99),
+                   "p50_ms_healthy": _pct(ok_lat, 50), "p99_ms_healthy": _pct(ok_lat, 99),
+                   "lost_get_s": sum(lost_lat), "decodes": spans["count"],
+                   "decode_s": spans["stages"].get("decode", 0.0),
+                   "gather_s": spans["stages"].get("gather", 0.0)}
+            log(f"server {label} on {card}: shards {LOST} lost, {len(live)} live needles "
+                f"GET from {SERVER_THREADS} threads, each equal to its payload, wall "
+                f"{wall:.4f} s; on a lost shard ({len(lost_lat)}) p50 "
+                f"{run['p50_ms_lost']:.3f} / p99 {run['p99_ms_lost']:.3f} ms, healthy "
+                f"p50 {run['p50_ms_healthy']:.3f} / p99 {run['p99_ms_healthy']:.3f} ms; "
+                f"the server's ec.degraded spans: {run['decodes']} decodes, decode "
+                f"{run['decode_s']:.4f} s, gather {run['gather_s']:.4f} s, against "
+                f"{run['lost_get_s']:.4f} s summed over the lost-shard GETs; "
+                f"launches by the serving threads {run['launches']}")
+            return run
+
+        runs["server_serve"] = serve("degraded GETs (tile cache on)")
+        if not on_lost:
+            raise AssertionError("no live needle lies on a lost shard")
+        # --- the K5 pass: exact intervals (the cache reads the switch when
+        # the EC volume is made, so remount) ---
+        keep = [i for i in range(14) if i not in LOST]
+        os.environ["WEED_EC_TILE_CACHE"] = "0"
+        try:
+            stub.VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+                volume_id=vid, shard_ids=keep), timeout=60)
+            stub.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+                volume_id=vid, shard_ids=keep), timeout=60)
+            if vs.store.find_ec_volume(vid).tile_cache.capacity_bytes != 0:
+                raise AssertionError("the remounted EC volume still caches tiles")
+            runs["server_k5"] = serve("degraded GETs (WEED_EC_TILE_CACHE=0)")
+        finally:
+            os.environ.pop("WEED_EC_TILE_CACHE", None)
+        k5_runs = runs["server_k5"]["launches"]
+        log(f"server K5 pass on {card}: K5 launches {k5_runs['gf_bits']} (decodes under "
+            f"64 KiB), K1 launches {k5_runs['gf_apply']} (64 KiB and up)")
+        if on_card:
+            _must_launch("server encode", runs["server_encode"]["launches"],
+                         ("gf_apply", "crc32c_rows"))
+            _must_launch("server rebuild4", runs["server_rebuild4"]["launches"],
+                         ("gf_apply", "crc32c_rows"))
+            _must_launch("server serve", runs["server_serve"]["launches"], ("gf_apply",))
+            _must_launch("server K5 pass", k5_runs, ("gf_bits", "gf_apply"))
+
+        # --- two generates at once, against the same encodes one by one ---
+        conc = {}
+        for j, v in enumerate((vid + 1, vid + 2)):
+            stub.AllocateVolume(pb.AllocateVolumeRequest(volume_id=v), timeout=60)
+            conc[v] = needles_of(v, conc_bytes, 2 + j)
+            post_all(v, conc[v])
+            stub.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=v), timeout=60)
+        serial_dir = os.path.join(workdir, "server_serial")
+        os.mkdir(serial_dir)
+        bases = {v: vs.store.find_volume(v).base_name for v in conc}
+        for b in bases.values():
+            for ext in (".dat", ".idx"):
+                shutil.copyfile(b + ext, os.path.join(serial_dir, os.path.basename(b) + ext))
+        errors: list = []
+
+        def generate(v):
+            try:
+                stub.VolumeEcShardsGenerate(pb.VolumeEcShardsGenerateRequest(volume_id=v),
+                                            timeout=600)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        _reset_counts()
+        threads = [threading.Thread(target=generate, args=(v,)) for v in conc]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        conc_s = time.perf_counter() - t0
+        runs["server_concurrent"] = {"wall_s": conc_s, "launches": _read_counts(),
+                                     "sigs": _read_sigs()}
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a concurrent generate did not finish")
+        rs = new_encoder(backend="cuda", device=device)
+        serial_s = 0.0
+        for v, b in bases.items():
+            copy = os.path.join(serial_dir, os.path.basename(b))
+            st: dict = {}
+            dt, _ = _timed(lambda: ec_files.write_ec_files(copy, rs=rs, want_crcs=True,
+                                                           durable=True, stats=st))
+            serial_s += dt
+            ecc_sidecar.write_sidecar(copy, st["shard_crcs"])
+            _same_files(b, copy, shards + [".ecc"])
+        shutil.rmtree(serial_dir)
+        if on_card:
+            _must_launch("server concurrent generates", runs["server_concurrent"]["launches"],
+                         ("gf_apply", "crc32c_rows"))
+        log(f"server concurrency on {card}: two VolumeEcShardsGenerate at once on "
+            f"volumes of {conc_bytes} bytes in {conc_s:.4f} s, shards and .ecc "
+            f"byte-identical to the same encodes one after the other ({serial_s:.4f} s); "
+            f"launches {runs['server_concurrent']['launches']}")
+    finally:
+        ch.close()
+        vs.stop()
+    left = _server_leftovers(before, pinned_start)
+    runs["server_stop"] = left
+    log(f"server stop: threads left {left['threads_left']}"
+        + (f"; pinned host memory held by live tensors at the phase's start "
+           f"{left['pinned_at_start']}, after stop() {left['pinned_before_gc']}, a full "
+           f"collection then found {left['gc_found']} objects, held after it "
+           f"{left['pinned_after_gc']}" if on_card else ""))
+    if left["threads_left"]:
+        raise AssertionError(f"threads outlived VolumeServer.stop(): {left['threads_left']}")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -1571,8 +2207,8 @@ def run_batch_phase(workdir: str, volumes: int, volume_bytes: int, seed: int,
                 copies.append(os.path.join(prof_dir, os.path.basename(base)))
                 shutil.copyfile(base + ".dat", copies[-1] + ".dat")
             runs["profiled_batch_encode"] = profile_encode(
-                lambda: ec_files.write_ec_files_batch(copies, want_crcs=True),
-                workdir, card, f"batch encode of {len(copies)} volumes (one chunk)")
+                "batch", copies, workdir, card,
+                f"batch encode of {len(copies)} volumes (one chunk)")
             shutil.rmtree(prof_dir)
 
         host = [[_file_crc(b + ec_files.to_ext(i)) for i in range(14)] for b in bases]
@@ -1784,7 +2420,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--volume-mib", type=int, default=1024)
+    # the server phase's load generator and the profiled encodes run this
+    # script in processes of their own (_load_client, profile_encode)
+    ap.add_argument("--http-client", nargs=2, metavar=("JOB", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--profile-encode", nargs=2, metavar=("JOB", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.http_client:
+        return http_client(*args.http_client)
+    if args.profile_encode:
+        return profiled_encode(*args.profile_encode)
 
     import torch
 
@@ -1825,6 +2470,10 @@ def main() -> int:
     k1_run = check_gf("degraded_run", deg_rows, args.seed + 10, card, lanes=DEG_RUN_LANES)
     apply_tile = time_apply_matrix(deg_rows, DEG_TILE_LANES, args.seed + 11, card)
     apply_run = time_apply_matrix(deg_rows, DEG_RUN_LANES, args.seed + 12, card, reps=5)
+    # K5 at the degraded read's exact-interval buckets under 64 KiB: the
+    # largest (32 KiB) and a 4 KiB one
+    k5_32k = check_k5("degraded_32k", deg_rows, 32768, args.seed + 14, card)
+    k5_4k = check_k5("degraded_4k", deg_rows, 4096, args.seed + 15, card)
     k4 = check_crc(args.seed + 2, card)
     k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
     k2_dec = check_gf_batch("decode4", gf256.decode_rows(matrix, survivors, lost),
@@ -1839,6 +2488,11 @@ def main() -> int:
     log(f"K4 sweep over rows 1..300, ragged lane counts, vector and scalar variants, "
         f"final and raw forms: {swept} calls byte-exact vs plain and the host shim "
         f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    swept = sweep_k5(args.seed + 16)
+    log(f"K5 sweep over random (C, R) in 1..16, ragged and unaligned byte counts, "
+        f"batches of 1..3: {swept} calls byte-exact vs plain "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
@@ -1851,20 +2505,31 @@ def main() -> int:
         runs.update(run_store_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_server_", dir=root)
+    try:
+        runs.update(run_server_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
     try:
         runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                     None, card))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(f"encode and rebuild walls on {card}: through the server's verbs "
+        f"{runs['server_encode']['wall_s']:.4f} / {runs['server_rebuild4']['wall_s']:.4f} s, "
+        f"direct ec_files calls of the store phase {runs['store_encode']['wall_s']:.4f} / "
+        f"{runs['store_rebuild4']['wall_s']:.4f} s (volumes of the same size mix)")
 
     paths = ("encode", "rebuild1", "rebuild4", "degraded", "repair_piggyback",
              "repair_parity", "store_encode", "store_rebuild4", "store_serve", "store_tier",
-             "batch_encode", "batch_rebuild", "batch_verify")
+             "server_encode", "server_rebuild4", "server_serve", "server_k5",
+             "server_concurrent", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
-        f"reads, batch encode, rebuild and verify) on {card}: "
+        f"reads, the server's encode, rebuild, degraded GETs with and without the tile "
+        f"cache and concurrent encodes, batch encode, rebuild and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]
@@ -1885,6 +2550,11 @@ def main() -> int:
                  ("decode (0, 5)", survivors, (0, 5)),
                  ("decode (10, 13)", tuple(range(10)), (10, 13)))}
     names[np.ascontiguousarray(matrix[10:], dtype=np.uint8).tobytes()] = "encode"
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    for label, srv, tg in (("decode (0,)", survivors, (0,)), ("decode (5,)", survivors, (5,))):
+        names[codec_cuda.gf_matrix_to_bits(gf256.decode_rows(matrix, srv, tg)).tobytes()] = (
+            label)
     t0 = time.perf_counter()
     sigs = check_signatures(runs, paths, names, args.seed + 13, card)
     log(f"launch signatures checked and timed in {time.perf_counter() - t0:.2f} s")
@@ -1898,13 +2568,14 @@ def main() -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in checks),
                 "ms": first["ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-                "library_ms": None}
+                "library_ms": first.get("library_ms")}
 
     kernels = [
         row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1, k1_tile, k1_run),
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
         row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4),
+        row("gf_bits", K5_SOURCE, K5_REPLACES, k5_32k, k5_4k),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

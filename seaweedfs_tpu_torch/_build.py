@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 CC_FLAGS = ("-O2", "-shared", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
-CUDA_SOURCES = ("gf_apply.cu", "gf_verify.cu", "crc32c_rows.cu")
+CUDA_SOURCES = ("gf_apply.cu", "gf_verify.cu", "crc32c_rows.cu", "gf_bits.cu")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

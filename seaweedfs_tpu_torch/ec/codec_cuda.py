@@ -1,5 +1,6 @@
 """CUDA backend of the RS codec: the GF(2^8) matrix apply (K1), its
-batched form (K2) and the fused parity verify (K3).
+batched form (K2), the fused parity verify (K3) and the GF(2)
+bit-matrix apply (K5) that serves streams under 64 KiB.
 
 The counterpart of seaweedfs_tpu/ec/codec_tpu.py. Streams are u32
 lanes (4 stream bytes per lane, little-endian: numpy
@@ -15,8 +16,9 @@ SWAR arithmetic the kernels use.
 
 Encode uses the parity rows of the code matrix; reconstruct uses rows
 from gf256.decode_rows (the survivor-matrix inversion stays on the
-host). The device never needs a second kernel for small streams: the
-reference's bit-matmul branch and 64 KiB minimum do not carry over.
+host). `cuda_apply_matrix`, the codec backend, splits streams as the
+reference's tpu_apply_matrix does: a size bucket under 64 KiB takes K5
+(`apply_matrix_bits`, csrc/gf_bits.cu), a larger one K1.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from seaweedfs_tpu_torch.ec.codec import register_backend
 LAUNCHES = _build.LaunchCounter("gf_apply")
 BATCH_LAUNCHES = _build.LaunchCounter("gf_apply_batch")
 VERIFY_LAUNCHES = _build.LaunchCounter("gf_verify_batch")
+BITS_LAUNCHES = _build.LaunchCounter("gf_bits")
 _MAX_K = 16  # csrc/gf_swar.cuh GF_MAX_K / GF_MAX_ROWS
 _MAX_ROWS = 16
 
@@ -112,6 +115,11 @@ _ARGTYPES = {
         "gf_apply_u32": (_PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR),
         "gf_apply_u32_batch": (
             _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR, _PTR,
+        ),
+    },
+    "gf_bits.cu": {
+        "gf_bits_apply": (
+            _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR,
         ),
     },
     "gf_verify.cu": {
@@ -290,6 +298,156 @@ def gf_verify_u32_batch(
     return counts
 
 
+# --- K5: GF(2) bit-matrix apply --------------------------------------------
+
+# Streams whose size bucket is under this take K5, larger ones K1: the
+# split of the reference's tpu_apply_matrix (codec_tpu._SWAR_MIN_BYTES).
+SWAR_MIN_BYTES = 64 * 1024
+
+
+def gf_matrix_to_bits(matrix: np.ndarray) -> np.ndarray:
+    """Expand a GF(2^8) coefficient matrix [R, C] to its GF(2)
+    bit-matrix [R*8, C*8] int8 of 8x8 blocks B(m[r, c]), B(c)[i, j] =
+    bit i of c * 2^j (codec_tpu.gf_matrix_to_bits)."""
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    r, c = matrix.shape
+    pow2 = (1 << np.arange(8)).astype(np.uint8)
+    prods = gf256.MUL_TABLE[matrix.reshape(-1)[:, None], pow2[None, :]]
+    bits = (prods[None, :, :] >> np.arange(8)[:, None, None]) & 1  # [8, R*C, 8]
+    blocks = bits.transpose(1, 0, 2).reshape(r, c, 8, 8)  # [R, C, i, j]
+    return blocks.transpose(0, 2, 1, 3).reshape(r * 8, c * 8).astype(np.int8)
+
+
+def bit_masks(a_bits: np.ndarray) -> np.ndarray:
+    """K5's matrix argument: each bit-matrix row as 4 uint32 words,
+    column 8c + j at bit (8c + j) % 32 of word (8c + j) // 32
+    ([R*8, 4] uint32; columns past C*8 are 0)."""
+    a_bits = np.asarray(a_bits, dtype=np.int8)
+    r8, c8 = a_bits.shape
+    padded = np.zeros((r8, 128), dtype=np.uint8)
+    padded[:, :c8] = a_bits & 1
+    return np.ascontiguousarray(
+        np.packbits(padded, axis=1, bitorder="little").view("<u4")
+    ).astype(np.uint32)
+
+
+def _check_bits(a_bits: np.ndarray, cols: int, what: str) -> tuple[int, int]:
+    a_bits = np.asarray(a_bits)
+    r8, c8 = a_bits.shape
+    if r8 % 8 or c8 != cols * 8:
+        raise ValueError(
+            f"{what}: bit-matrix {a_bits.shape} does not fit {cols} input rows"
+        )
+    return r8 // 8, cols
+
+
+def gf_bits_plain(a_bits: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """[B, C, N] uint8 -> [B, R, N] uint8: unpack LSB-first bit-planes,
+    one float32 product with the bit-matrix (exact: a sum is at most
+    C*8 <= 128), & 1, pack."""
+    b, c, n = x.shape
+    r, _ = _check_bits(a_bits, c, "gf_bits_plain")
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    planes = ((x[:, :, None, :] >> shifts[None, None, :, None]) & 1).reshape(b, c * 8, n)
+    a = torch.from_numpy(np.asarray(a_bits, dtype=np.float32)).to(x.device)
+    acc = torch.matmul(a, planes.to(torch.float32)).to(torch.int32) & 1
+    weights = (1 << torch.arange(8, dtype=torch.int32, device=x.device))[None, None, :, None]
+    return (acc.reshape(b, r, 8, n) * weights).sum(dim=2).to(torch.uint8)
+
+
+def apply_matrix_bits_batch(
+    a_bits: np.ndarray, inputs: torch.Tensor, masks: np.ndarray | None = None
+) -> torch.Tensor:
+    """[B, C, N] uint8 -> [B, R, N] uint8, out[b][r] = XOR_c M[r, c] *
+    inputs[b][c] with `a_bits` = gf_matrix_to_bits(M). Launches K5 once
+    for the batch on a CUDA tensor (current stream; `masks` is
+    bit_masks(a_bits), precomputed by callers that reuse a matrix);
+    runs the plain version on a CPU tensor."""
+    if inputs.dtype != torch.uint8 or inputs.dim() != 3:
+        raise ValueError(
+            f"apply_matrix_bits takes [B, C, N] uint8, got "
+            f"{tuple(inputs.shape)} {inputs.dtype}"
+        )
+    b, c, n = inputs.shape
+    r, _ = _check_bits(a_bits, c, "apply_matrix_bits")
+    if not inputs.is_cuda:
+        if inputs.device.type != "cpu":
+            raise ValueError(f"apply_matrix_bits: unsupported device {inputs.device}")
+        return gf_bits_plain(a_bits, inputs)
+    if not 1 <= c <= _MAX_K or not 1 <= r <= _MAX_ROWS:
+        raise ValueError(f"apply_matrix_bits takes at most {_MAX_K}x{_MAX_ROWS} matrices")
+    out = torch.empty((b, r, n), dtype=torch.uint8, device=inputs.device)
+    if b == 0 or n == 0:
+        return out
+    x = inputs.contiguous()
+    m = masks if masks is not None else bit_masks(a_bits)
+    lib = _kernel("gf_bits.cu")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.gf_bits_apply(
+        x.data_ptr(), out.data_ptr(), b, c, r, n, c * n, r * n,
+        m.ctypes.data, stream,
+    )
+    _build.check(err, "gf_bits launch")
+    BITS_LAUNCHES.inc((r, c, n, b, np.asarray(a_bits, dtype=np.int8).tobytes()))
+    return out
+
+
+def apply_matrix_bits(
+    a_bits: np.ndarray, inputs: torch.Tensor, masks: np.ndarray | None = None
+) -> torch.Tensor:
+    """[C, N] uint8 -> [R, N] uint8 (apply_matrix_bits_batch, B = 1)."""
+    if inputs.dim() != 2:
+        raise ValueError(f"apply_matrix_bits takes [C, N], got {tuple(inputs.shape)}")
+    return apply_matrix_bits_batch(a_bits, inputs[None], masks)[0]
+
+
+def apply_matrix_bits_u32_batch(
+    a_bits: np.ndarray, inputs_u32: torch.Tensor, masks: np.ndarray | None = None
+) -> torch.Tensor:
+    """[B, k, n32] int32 lanes -> [B, R, n32]: K5 on the lanes' bytes
+    (a view, no copy), byte-identical to K2 on the same lanes."""
+    if inputs_u32.dtype != torch.int32 or inputs_u32.dim() != 3:
+        raise ValueError(
+            f"apply_matrix_bits_u32_batch takes [B, k, n32] int32, got "
+            f"{tuple(inputs_u32.shape)} {inputs_u32.dtype}"
+        )
+    b, k, n32 = inputs_u32.shape
+    u8 = inputs_u32.contiguous().view(torch.uint8).reshape(b, k, n32 * 4)
+    out = apply_matrix_bits_batch(a_bits, u8, masks)
+    return out.view(torch.int32).reshape(b, out.shape[1], n32)
+
+
+def apply_matrix_bits_u32(
+    a_bits: np.ndarray, inputs_u32: torch.Tensor, masks: np.ndarray | None = None
+) -> torch.Tensor:
+    """[k, n32] int32 lanes -> [R, n32] (apply_matrix_bits_u32_batch,
+    B = 1)."""
+    if inputs_u32.dim() != 2:
+        raise ValueError(
+            f"apply_matrix_bits_u32 takes [k, n32], got {tuple(inputs_u32.shape)}"
+        )
+    return apply_matrix_bits_u32_batch(a_bits, inputs_u32[None], masks)[0]
+
+
+_BITS_CACHE: dict[bytes, tuple[np.ndarray, np.ndarray]] = {}
+
+
+def _cached_bits(matrix: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(bit-matrix, masks) of a GF matrix, memoized: a decode calls the
+    backend with one of a few matrices many times."""
+    key = matrix.tobytes() + bytes(matrix.shape)
+    with _lib_lock:
+        got = _BITS_CACHE.get(key)
+    if got is None:
+        a_bits = gf_matrix_to_bits(matrix)
+        got = (a_bits, bit_masks(a_bits))
+        with _lib_lock:
+            if len(_BITS_CACHE) > 512:
+                _BITS_CACHE.clear()  # bound, rarely hit
+            _BITS_CACHE[key] = got
+    return got
+
+
 # --- host interop backend ---------------------------------------------------
 
 
@@ -318,13 +476,19 @@ def cuda_apply_matrix(
 ) -> np.ndarray:
     """Backend for codec.ReedSolomon: numpy [C, N] uint8 in, [R, N]
     uint8 out. Zero-pads the stream to a size bucket (GF math is
-    positionwise, so padding never changes the first N bytes), runs K1
-    on `device` (default: the card) and returns the first N bytes."""
+    positionwise, so padding never changes the first N bytes), runs K5
+    for a bucket under SWAR_MIN_BYTES and K1 from there up, on `device`
+    (default: the card), and returns the first N bytes."""
     dev = resolve_device(device)
+    matrix = np.asarray(matrix, dtype=np.uint8)
     n = inputs.shape[1]
     nb = _bucket_len(n)
     padded = np.zeros((inputs.shape[0], nb), dtype=np.uint8)
     padded[:, :n] = inputs
+    if nb < SWAR_MIN_BYTES:
+        a_bits, masks = _cached_bits(matrix)
+        out = apply_matrix_bits(a_bits, torch.from_numpy(padded).to(dev), masks)
+        return out.cpu().numpy()[:, :n]
     x = torch.from_numpy(padded.view(np.int32)).to(dev)
     out = gf_apply_u32(matrix, x)
     return out.cpu().numpy().view(np.uint8)[:, :n]

@@ -468,3 +468,147 @@ def test_store_on_the_card(card, tmp_path):
         assert bytes(store.find_ec_volume(3).read_needle(nid).data) == data
     assert codec_cuda.LAUNCHES.value > before
     store.close()
+
+
+# --- K5: the GF(2) bit-matrix apply ------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [1, 7, 1024, 4099, 32768, 65535])
+@pytest.mark.parametrize("c", [10, 6, 16])
+@pytest.mark.parametrize("r", [1, 2, 4, 16])
+def test_k5_equals_plain_and_tallies_its_signature(card, r, c, n, b):
+    rng = np.random.default_rng(r * 1000 + c * 10 + b)
+    a_bits = codec_cuda.gf_matrix_to_bits(rng.integers(0, 256, (r, c), dtype=np.uint8))
+    g = torch.Generator(device=card).manual_seed(n)
+    x = torch.randint(0, 256, (b, c, n), dtype=torch.uint8, device=card, generator=g)
+    sig = (r, c, n, b, a_bits.tobytes())
+    before = codec_cuda.BITS_LAUNCHES.by_signature().get(sig, 0)
+    got = codec_cuda.apply_matrix_bits_batch(a_bits, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, codec_cuda.gf_bits_plain(a_bits, x))
+    assert codec_cuda.BITS_LAUNCHES.by_signature()[sig] == before + 1
+
+
+def test_k5_unaligned_and_lane_forms(card):
+    """A byte view one off alignment (the scalar variant), and the u32
+    lane wrappers equal to K1 and K2 on the same lanes."""
+    rows = gf256.decode_rows(MATRIX, SURV4, (0,))
+    a_bits = codec_cuda.gf_matrix_to_bits(rows)
+    g = torch.Generator(device=card).manual_seed(3)
+    raw = torch.randint(0, 256, (10 * 4096 + 1,), dtype=torch.uint8, device=card, generator=g)
+    x = raw[1:].view(10, 4096)
+    assert torch.equal(codec_cuda.apply_matrix_bits(a_bits, x),
+                       codec_cuda.gf_bits_plain(a_bits, x[None])[0])
+    lanes = _lanes((3, 10, 2048), 4, card)
+    assert torch.equal(codec_cuda.apply_matrix_bits_u32_batch(a_bits, lanes),
+                       codec_cuda.gf_apply_u32_batch(rows, lanes))
+    assert torch.equal(codec_cuda.apply_matrix_bits_u32(a_bits, lanes[0]),
+                       codec_cuda.gf_apply_u32(rows, lanes[0]))
+
+
+@pytest.mark.parametrize("n, k5", [(100, 1), (32768, 1), (32769, 0), (70000, 0)])
+def test_cuda_apply_matrix_takes_k5_under_64k(card, n, k5):
+    from seaweedfs_tpu_torch.ec.codec import cpu_apply_matrix
+
+    rows = gf256.decode_rows(MATRIX, SURV4, (5,))
+    x = np.random.default_rng(n).integers(0, 256, (10, n), dtype=np.uint8)
+    b0, k0 = codec_cuda.BITS_LAUNCHES.value, codec_cuda.LAUNCHES.value
+    got = codec_cuda.cuda_apply_matrix(rows, x)
+    assert np.array_equal(got, cpu_apply_matrix(rows, x))
+    assert codec_cuda.BITS_LAUNCHES.value - b0 == k5
+    assert codec_cuda.LAUNCHES.value - k0 == 1 - k5
+
+
+# --- the volume server on the card -------------------------------------------
+
+
+def _server(d):
+    import random
+    import socket
+
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    for _ in range(100):
+        port = random.randrange(20000, 50000)
+        try:
+            for p in (port, port + 10000):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        vs = VolumeServer([d], port=port, ec_codec="cuda", scrub_interval=0)
+        vs.start()
+        return vs
+    raise RuntimeError("no free port pair")
+
+
+def _post(port, fid, body):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("POST", f"/{fid}", body=body)
+        r = c.getresponse()
+        assert r.status == 201, r.read()
+        r.read()
+    finally:
+        c.close()
+
+
+def test_server_two_generates_at_once_equal_serial(card, tmp_path):
+    """Two VolumeEcShardsGenerate calls at once on the card give the
+    shards and .ecc of the same encodes run one after the other."""
+    import shutil
+    import threading
+
+    from seaweedfs_tpu_torch.ec import ecc_sidecar
+    from seaweedfs_tpu_torch.pb import rpc, volume_pb2 as pb
+
+    d = str(tmp_path / "srv")
+    os.makedirs(d)
+    vs = _server(d)
+    try:
+        with rpc.dial(f"127.0.0.1:{vs.grpc_port}") as ch:
+            stub = rpc.volume_stub(ch)
+            rng = np.random.default_rng(8)
+            for vid in (31, 32):
+                stub.AllocateVolume(pb.AllocateVolumeRequest(volume_id=vid))
+                for i in range(40):
+                    _post(vs.port, f"{vid},{i + 1:x}00001234",
+                          rng.bytes(int(rng.integers(1000, 1 << 20))))
+                stub.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=vid))
+            serial = str(tmp_path / "serial")
+            os.makedirs(serial)
+            for vid in (31, 32):
+                for ext in (".dat", ".idx"):
+                    shutil.copyfile(os.path.join(d, f"{vid}{ext}"),
+                                    os.path.join(serial, f"{vid}{ext}"))
+            errors: list = []
+
+            def gen(vid):
+                try:
+                    stub.VolumeEcShardsGenerate(
+                        pb.VolumeEcShardsGenerateRequest(volume_id=vid), timeout=300)
+                except Exception as e:  # noqa: BLE001
+                    errors.append(e)
+
+            before = codec_cuda.LAUNCHES.value
+            threads = [threading.Thread(target=gen, args=(v,)) for v in (31, 32)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            assert not errors and not any(t.is_alive() for t in threads)
+            assert codec_cuda.LAUNCHES.value > before
+        rs = new_encoder(backend="cuda")
+        for vid in (31, 32):
+            base = os.path.join(serial, str(vid))
+            st: dict = {}
+            ec_files.write_ec_files(base, rs=rs, want_crcs=True, durable=True, stats=st)
+            ecc_sidecar.write_sidecar(base, st["shard_crcs"])
+            for ext in [ec_files.to_ext(i) for i in range(14)] + [".ecc"]:
+                with open(base + ext, "rb") as a, open(os.path.join(d, f"{vid}{ext}"), "rb") as b:
+                    assert a.read() == b.read(), (vid, ext)
+    finally:
+        vs.stop()
