@@ -71,6 +71,16 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      both must launch); last, two VolumeEcShardsGenerate calls at once
      on two 64 MiB volumes, equal to the same encodes run one after the
      other; after stop() no thread the server started may be left;
+ 3e. the cluster (run_cluster_phase): a master and three volume servers
+     booted by availability.start_cluster on the card in this process;
+     one volume grown through the master on server A and filled with
+     1 GiB through /dir/assign; VolumeEcShardsGenerate on A (K1 + K4),
+     spread as ec.balance would (A 0-3, B 4-8, C 9-13, by
+     VolumeEcShardsCopy); every needle GET through B healthy, then with
+     A stopped, tile cache on (K1) and off (K5 and K1), each body equal
+     to its payload's SHA-256; B rebuilds 0-3 reading 9-13 off C (K1 +
+     K4), byte-identical to A's shards, CRCs equal to the .ecc; after
+     stop() no thread may be left, and grpc's grace thread must be seen;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -101,6 +111,7 @@ Without a CUDA device it prints the reason and exits 1 before any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
 import json
 import os
@@ -111,6 +122,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -182,8 +194,10 @@ def _kernel_ms(fn, iters: int = 64, replays: int = 5) -> float:
     """Mean device ms per kernel call: `iters` calls of fn(i) captured
     in one CUDA graph and replayed, so the host's per-launch cost
     (Python checks, ctypes) stays out of the kernel's time. The warm-up
-    call runs on the capture stream: a stream's first K4 call makes its
-    ticket buffer, which no capture may do."""
+    call runs on the capture stream, outside the capture, and builds and
+    caches what the wrapper keeps. A captured K4 call takes ticket
+    counters of its own, zero-filled in the graph ahead of the kernel:
+    _k4_ms takes that fill out."""
     import torch
 
     stream = torch.cuda.Stream()
@@ -204,6 +218,23 @@ def _kernel_ms(fn, iters: int = 64, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def _k4_ms(xs: list, iters: int) -> tuple[float, float]:
+    """(K4's device ms a call as the paths launch it, the captured ms):
+    `iters` captured calls over the [rows, n32] tiles `xs`, less the
+    [rows] ticket-counter fill each captured call adds ahead of its
+    kernel (an uncaptured call reuses its stream's counters), timed
+    alone in a graph of `iters` such fills."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import crc_kernel
+
+    rows, dev = xs[0].shape[0], xs[0].device
+    captured = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]), iters=iters)
+    fill = _kernel_ms(lambda i: torch.zeros(rows, dtype=torch.int32, device=dev),
+                      iters=iters)
+    return captured - fill, captured
 
 
 def _max_abs_err(a, b) -> int:
@@ -474,19 +505,70 @@ def check_crc(seed: int, card: str) -> dict:
     if [crc32c(host[i]) for i in range(rows)] != [
             int(v) for v in got.cpu().numpy().view(np.uint32)]:
         raise AssertionError(f"K4 crc32c_rows [{rows},{LANES}] disagrees with the host CRC-32C")
-    ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]), iters=len(xs))
+    ms, captured_ms = _k4_ms(xs, len(xs))
     eager_ms = _time_ms(lambda i: crc_kernel.crc32c_rows(xs[i % 4]), 200)
     plain_ms = _time_ms(lambda i: crc_kernel.crc32c_rows_plain(xs[i % 4]), 2, warm=1)
     nbytes = rows * 4 * LANES + rows * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"K4 crc32c_rows [{rows},{LANES}] on {card}: byte-exact vs plain, host shim and raw "
         f"form (max_abs_err 0); kernel {ms:.4f} ms over {len(xs)} distinct inputs "
-        f"({nbytes / ms / 1e6:.1f} GB/s; {eager_ms:.4f} ms a call launched eagerly from "
-        f"Python), plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.3f} "
-        f"of it)")
+        f"({nbytes / ms / 1e6:.1f} GB/s; {captured_ms:.4f} ms captured with its counters' "
+        f"fill; {eager_ms:.4f} ms a call launched eagerly from Python), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms (bytes; {bound / ms:.3f} of it)")
     del pool, xs
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "max_abs_err": err, "eager_ms": eager_ms}
+            "max_abs_err": err, "eager_ms": eager_ms, "captured_ms": captured_ms}
+
+
+def check_k4_graph_streams(seed: int, card: str, rounds: int = 8) -> dict:
+    """K4 captured in CUDA graphs and replayed beside other launches
+    (tests/test_torch_cuda.py holds the same check): two graphs of 8
+    launches each on [14, 65536] tiles, both captured on one stream,
+    replayed at once on two other streams while 8 uncaptured launches
+    run on the capture stream, `rounds` times with the inputs rewritten.
+    Each captured launch owns its ticket counters, so every result must
+    equal the plain version."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec import crc_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (3, 8, 14, 65536)
+    xs = torch.randint(-(2**31), 2**31 - 1, shape, dtype=torch.int32, device="cuda",
+                       generator=g)
+    crc_kernel.crc32c_rows(xs[0, 0])  # the geometry's tables, outside any capture
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    graphs, outs = [], []
+    for j in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=cap):
+            outs.append([crc_kernel.crc32c_rows(xs[j, i]) for i in range(8)])
+        graphs.append(graph)
+    replay = [torch.cuda.Stream(), torch.cuda.Stream()]
+    err = 0
+    for rnd in range(rounds):
+        xs.copy_(torch.randint(-(2**31), 2**31 - 1, shape, dtype=torch.int32, device="cuda",
+                               generator=g))
+        for st in replay + [cap]:
+            st.wait_stream(torch.cuda.current_stream())
+        for graph, st in zip(graphs, replay):
+            with torch.cuda.stream(st):
+                graph.replay()
+        with torch.cuda.stream(cap):
+            direct = [crc_kernel.crc32c_rows(xs[2, i]) for i in range(8)]
+        torch.cuda.synchronize()
+        for j, got in enumerate(outs + [direct]):
+            for i in range(8):
+                want = crc_kernel.crc32c_rows_plain(xs[j, i])
+                err = max(err, _max_abs_err(got[i], want))
+                if not torch.equal(got[i], want):
+                    raise AssertionError(f"K4 graph replay round {rnd}: graph {j} launch "
+                                         f"{i} disagrees with its plain version")
+    log(f"K4 in CUDA graphs on {card}: two graphs of 8 launches captured on one stream, "
+        f"replayed at once on two streams beside 8 uncaptured launches on the capture "
+        f"stream, {rounds} rounds: byte-exact vs plain (max_abs_err {err})")
+    return {"max_abs_err": err, "rounds": rounds}
 
 
 def _sig_inputs(pool, rows: int, n32: int) -> list:
@@ -573,8 +655,7 @@ def check_signatures(runs: dict, paths, names: dict, seed: int, card: str) -> di
                         int(v) for v in got.cpu().numpy().view(np.uint32)]:
                     raise AssertionError(f"K4 [{r},{n32}]: kernel disagrees with its plain "
                                          f"version, raw form or the host shim")
-                ms = _kernel_ms(lambda i: crc_kernel.crc32c_rows(xs[i % len(xs)]),
-                                iters=min(SIG_MAX_INPUTS, max(64, len(xs))))
+                ms, _ = _k4_ms(xs, min(SIG_MAX_INPUTS, max(64, len(xs))))
                 nbytes = r * 4 * n32 + r * 4
                 shape = f"[{r},{n32}]"
             bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -998,16 +1079,16 @@ def _pct(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) * 1e3 if xs else float("nan")
 
 
-def _lost_intervals(ev, off: int, size: int) -> list:
+def _lost_intervals(ev, off: int, size: int, lost=LOST) -> list:
     """(shard, shard offset, length) of a .dat span's intervals that lie
-    on a lost shard."""
+    on a shard of `lost`."""
     from seaweedfs_tpu_torch.ec import locate
 
     out = []
     for iv in locate.locate_data(locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE,
                                  ev.dat_file_size(), off, size):
         sid, soff = iv.to_shard_id_and_offset()
-        if sid in LOST:
+        if sid in lost:
             out.append((sid, soff, iv.size))
     return out
 
@@ -1727,17 +1808,22 @@ def _http(conn, method: str, path: str, body: bytes | None = None, headers=None)
     return resp.status, dict(resp.getheaders()), resp.read()
 
 
-def _load_client(port: int, op: str, items: list, workdir: str) -> dict:
-    """Run `op` ("post" or "get") over `items`, [fid, seed, nid, size]
-    each, from SERVER_THREADS keep-alive connections of a load generator
-    in a process of its own (this script with --http-client), so that
-    the client's work (payloads, digests, HTTP parsing) does not share
-    the server's interpreter lock. Returns its {"wall_s", "results":
-    [[fid, seconds, eTag or None], ...]} in item order."""
+def _load_client(port: int, op: str, items: list, workdir: str, query: str = "") -> dict:
+    """Run `op` over `items`, [fid, seed, nid, size] each, from
+    SERVER_THREADS keep-alive connections of a load generator in a
+    process of its own (this script with --http-client), so that the
+    client's work (payloads, digests, HTTP parsing) does not share the
+    servers' interpreter lock. "post" and "get" address a volume server
+    at `port`; "assign" asks the master at `port` for a fid
+    (/dir/assign?`query`) and POSTs the payload to the server it names,
+    `fid` then only keys the payload. Returns its {"wall_s", "results":
+    [[fid, seconds, eTag or None(, url)], ...]} in item order: an
+    assign's fid and url are the master's."""
     job = os.path.join(workdir, "client_job.json")
     out = os.path.join(workdir, "client_out.json")
     with open(job, "w") as f:
-        json.dump({"port": port, "op": op, "threads": SERVER_THREADS, "items": items}, f)
+        json.dump({"port": port, "op": op, "threads": SERVER_THREADS, "items": items,
+                   "query": query}, f)
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--http-client", job, out],
         capture_output=True, text=True, timeout=900,
@@ -1763,15 +1849,41 @@ def http_client(job_path: str, out_path: str) -> int:
         job = json.load(f)
     op = job["op"]
     items = [tuple(x) for x in job["items"]]
-    if op == "post":
+    if op in ("post", "assign"):
         made = {fid: _store_payload(s, nid, 0, size) for fid, s, nid, size in items}
     else:
         made = {fid: hashlib.sha256(_store_payload(s, nid, 0, size)).digest()
                 for fid, s, nid, size in items}
+    # "assign": `port` is a master; each thread keeps a keep-alive
+    # connection to every volume server its assigns name
+    local = threading.local()
+    opened: list = []
+
+    def volume_conn(url: str):
+        import http.client
+
+        conns = getattr(local, "conns", None)
+        if conns is None:
+            conns = local.conns = {}
+        if url not in conns:
+            host, _, port = url.partition(":")
+            conns[url] = http.client.HTTPConnection(host, int(port), timeout=120)
+            opened.append(conns[url])
+        return conns[url]
 
     def work(conn, item):
         fid = item[0]
         t0 = time.perf_counter()
+        if op == "assign":
+            status, _, body = _http(conn, "GET", f"/dir/assign?{job['query']}")
+            if status != 200:
+                raise AssertionError(f"assign: {status} {body[:200]!r}")
+            a = json.loads(body)
+            status, _, body = _http(volume_conn(a["url"]), "POST", f"/{a['fid']}", made[fid])
+            dt = time.perf_counter() - t0
+            if status != 201:
+                raise AssertionError(f"POST {a['fid']}: {status} {body[:200]!r}")
+            return [a["fid"], dt, json.loads(body)["eTag"], a["url"]]
         if op == "post":
             status, _, body = _http(conn, "POST", f"/{fid}", made[fid])
             dt = time.perf_counter() - t0
@@ -1786,7 +1898,11 @@ def http_client(job_path: str, out_path: str) -> int:
         return [fid, dt, None]
 
     t0 = time.perf_counter()
-    results = _fan(job["port"], job["threads"], items, work)
+    try:
+        results = _fan(job["port"], job["threads"], items, work)
+    finally:
+        for c in opened:
+            c.close()
     wall = time.perf_counter() - t0
     with open(out_path, "w") as f:
         json.dump({"wall_s": wall, "results": results}, f)
@@ -1816,6 +1932,22 @@ def _pinned_live() -> dict:
             storage = obj.untyped_storage()
             held[storage.data_ptr()] = storage.nbytes()
     return {"storages": len(held), "bytes": sum(held.values())}
+
+
+@contextlib.contextmanager
+def _threads_started(names: list):
+    """Append to `names` the name of every thread started in the block."""
+    start = threading.Thread.start
+
+    def record(t):
+        names.append(t.name)
+        return start(t)
+
+    threading.Thread.start = record
+    try:
+        yield names
+    finally:
+        threading.Thread.start = start
 
 
 def _server_leftovers(before: set, pinned_start: dict | None) -> dict:
@@ -2114,6 +2246,276 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
            f"{left['pinned_after_gc']}" if on_card else ""))
     if left["threads_left"]:
         raise AssertionError(f"threads outlived VolumeServer.stop(): {left['threads_left']}")
+    return runs
+
+
+# --- phase 3e: the cluster ---------------------------------------------------
+
+CLUSTER_ROOM = 5 << 30  # the cluster phase's peak in its directory (about 3.6 GiB)
+# SeaweedFS's default -volumeSizeLimitMB (30 GiB) cut to the least round
+# size that holds the phase's 1 GiB volume with its needle headers
+CLUSTER_LIMIT_MB = 1152
+CLUSTER_B = tuple(range(4, 9))  # B's shards; A keeps 0-3, C gets 9-13
+CLUSTER_C = tuple(range(9, 14))
+CLUSTER_A = tuple(range(4))
+
+
+def run_cluster_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                      card: str = "", smi: str = "") -> dict:
+    """The port's master tier and three volume servers on `device` (None:
+    the card), all in this process, booted by availability.start_cluster
+    on two racks (rack0, rack1, rack0), heartbeating every 0.2 s: one
+    volume grown through the master and filled with about `volume_bytes`
+    through /dir/assign from a load generator in a process of its own;
+    its server is A, B the other rack's (or the first other when A holds
+    rack1) and C the third; generated on A (K1 + K4) and spread as
+    ec.balance would (A keeps 0-3, B gets 4-8 and C 9-13 by
+    VolumeEcShardsCopy with the .ecx); every needle read through B,
+    healthy (0-3 from A, 9 from C); A stopped, its shards dropped by
+    the master, every needle read through B with the tile cache on (K1)
+    and off (K5 under 64 KiB, K1 above), each lost interval decoded
+    from B's 5 shards and 5 pulled from C; then B rebuilds 0-3 reading
+    9-13 off C (K1 + K4), byte-identical to A's generated shards, CRCs
+    equal to the .ecc. Raises on any fault; returns per-run stats,
+    launches and signature tallies: cluster_encode, cluster_healthy,
+    cluster_serve, cluster_k5, cluster_rebuild."""
+    from seaweedfs_tpu_torch import trace
+    from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as pb
+    from seaweedfs_tpu_torch.storage.needle import get_actual_size
+    from seaweedfs_tpu_torch.util.availability import start_cluster
+
+    _check_room(workdir, CLUSTER_ROOM if volume_bytes >= 1 << 30 else 5 * volume_bytes,
+                "the cluster phase")
+    on_card = device is None
+    before = set(threading.enumerate())
+    pinned_start = _pinned_live() if on_card else None
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    for d in dirs:
+        os.mkdir(d)
+    master, servers = start_cluster(dirs, volume_size_limit_mb=CLUSTER_LIMIT_MB,
+                                    ec_codec="cuda", device=device, scrub_interval=0)
+    stopped: list = []
+    started: list = []  # names of the threads the teardown starts
+    runs: dict = {}
+    channels: list = []
+
+    def wait(cond, what: str, timeout: float = 60.0) -> float:
+        t0 = time.monotonic()
+        while not cond():
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"cluster: {what} not seen within {timeout} s")
+            time.sleep(0.02)
+        return time.monotonic() - t0
+
+    def stub(i: int):
+        ch = rpc.dial(f"127.0.0.1:{servers[i].grpc_port}")
+        channels.append(ch)
+        return rpc.volume_stub(ch)
+
+    def ec_locations(vid: int) -> dict:
+        ch = rpc.dial(f"127.0.0.1:{master.grpc_port}")
+        try:
+            resp = rpc.master_stub(ch).LookupEcVolume(
+                master_pb2.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+        finally:
+            ch.close()
+        return {e.shard_id: [loc.url for loc in e.locations] for e in resp.shard_id_locations}
+
+    try:
+        # --- write: one volume grown through the master, filled through /dir/assign ---
+        with urllib.request.urlopen(f"http://127.0.0.1:{master.port}/vol/grow"
+                                    f"?collection=ec&count=1", timeout=60) as r:
+            grown = json.loads(r.read())
+        if grown.get("count") != 1:
+            raise AssertionError(f"cluster: /vol/grow answered {grown}")
+        rng = np.random.default_rng((seed, 7))
+        sizes, total = [], 0
+        while total < volume_bytes:
+            sizes.append(int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20)))))
+            total += sizes[-1]
+        keys = [[f"n{nid}", seed + 7, nid, size] for nid, size in enumerate(sizes, 1)]
+        got = _load_client(master.port, "assign", keys, workdir, query="collection=ec")
+        post_s = got["wall_s"]
+        fids = [fid for fid, _, _, _ in got["results"]]
+        urls = {url for _, _, _, url in got["results"]}
+        vids = {int(fid.split(",")[0]) for fid in fids}
+        if len(urls) != 1 or len(vids) != 1:
+            raise AssertionError(f"cluster: assigns landed on {urls}, volumes {vids}")
+        vid = vids.pop()
+        a = next(i for i, vs in enumerate(servers) if f"127.0.0.1:{vs.port}" in urls)
+        b = 1 if a != 1 else 0
+        servers[:] = [servers[a], servers[b], servers[3 - a - b]]
+        a_url, b_url, c_url = (f"127.0.0.1:{vs.port}" for vs in servers)
+        racks = tuple(vs.rack for vs in servers)
+        runs["cluster_write"] = {"post_s": post_s, "bytes": total, "needles": len(fids)}
+        log(f"cluster write on {card}: {len(fids)} needles, {total} bytes, each through "
+            f"/dir/assign on the master and POSTed to the server it named (all to volume "
+            f"{vid} on A; A, B, C on {racks}) from {SERVER_THREADS} keep-alive threads in "
+            f"{post_s:.4f} s "
+            f"({total / post_s / 1e9:.4f} GB/s, {len(fids) / post_s:.1f} req/s)")
+
+        # --- encode on A, spread as ec.balance would ---
+        sa, sb, sc = stub(0), stub(1), stub(2)
+        sa.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=vid), timeout=60)
+        _reset_counts()
+        enc_s, _ = _timed(lambda: sa.VolumeEcShardsGenerate(
+            pb.VolumeEcShardsGenerateRequest(volume_id=vid, collection="ec"), timeout=600))
+        runs["cluster_encode"] = {"wall_s": enc_s, "launches": _read_counts(),
+                                  "sigs": _read_sigs()}
+        base_a = servers[0].store.find_volume(vid).base_name
+        dat_size = os.path.getsize(base_a + ".dat")
+        t0 = time.perf_counter()
+        for s_, sids in ((sb, CLUSTER_B), (sc, CLUSTER_C)):
+            s_.VolumeEcShardsCopy(pb.VolumeEcShardsCopyRequest(
+                volume_id=vid, collection="ec", shard_ids=list(sids), copy_ecx_file=True,
+                source_data_node=a_url), timeout=600)
+            s_.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+                volume_id=vid, collection="ec", shard_ids=list(sids)), timeout=60)
+        sa.VolumeEcShardsDelete(pb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, collection="ec", shard_ids=list(CLUSTER_B + CLUSTER_C)), timeout=60)
+        sa.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+            volume_id=vid, collection="ec", shard_ids=list(CLUSTER_A)), timeout=60)
+        sa.VolumeDelete(pb.VolumeDeleteRequest(volume_id=vid), timeout=60)
+        spread_s = time.perf_counter() - t0
+        seen_s = wait(lambda: len(ec_locations(vid)) == 14,
+                      "LookupEcVolume with all 14 shards")
+        locs = ec_locations(vid)
+        want = {**{i: [a_url] for i in CLUSTER_A}, **{i: [b_url] for i in CLUSTER_B},
+                **{i: [c_url] for i in CLUSTER_C}}
+        if locs != want:
+            raise AssertionError(f"cluster: the master's shard map {locs}")
+        shard_len = os.path.getsize(base_a + ec_files.to_ext(0))
+        runs["cluster_encode"].update(spread_s=spread_s, dat_bytes=dat_size)
+        log(f"cluster encode on {card}: VolumeEcShardsGenerate on A of {dat_size} bytes "
+            f"{enc_s:.4f} s ({dat_size / enc_s / 1e9:.3f} GB/s); spread (VolumeEcShardsCopy "
+            f"of {len(CLUSTER_B)} shards of {shard_len} bytes and the .ecx to B and to C, "
+            f"mounts, A's deletes) {spread_s:.4f} s; the master's LookupEcVolume showed the "
+            f"14 shards on A {CLUSTER_A}, B {CLUSTER_B}, C {CLUSTER_C} {seen_s:.2f} s later; "
+            f"launches {runs['cluster_encode']['launches']}")
+
+        # --- GETs through B: healthy, then with A lost ---
+        ev = servers[1].store.find_ec_volume(vid)
+        items = [[fid, seed + 7, nid, size] for fid, (_, _, nid, size) in zip(fids, keys)]
+        on_a, remote = set(), set()
+        for fid, _, nid, _ in items:
+            off, size = ev.locate_needle(int(fid.split(",")[1][:-8], 16))
+            span = get_actual_size(size, ev.version)
+            if _lost_intervals(ev, off, span, CLUSTER_A):
+                on_a.add(fid)
+            if _lost_intervals(ev, off, span, CLUSTER_A + CLUSTER_C):
+                remote.add(fid)
+
+        def serve(label: str, lost: bool) -> dict:
+            _reset_counts()
+            s0 = trace.totals("ec.degraded")
+            r0 = trace.totals("volume.ec_shard_read")
+            got = _load_client(servers[1].port, "get", items, workdir)
+            spans = _span_delta("ec.degraded", s0)
+            reads = _span_delta("volume.ec_shard_read", r0)
+            mark = on_a if lost else remote
+            hit = [dt for fid, dt, _ in got["results"] if fid in mark]
+            rest = [dt for fid, dt, _ in got["results"] if fid not in mark]
+            run = {"wall_s": got["wall_s"], "launches": _read_counts(), "sigs": _read_sigs(),
+                   "needles": len(items), "marked": len(hit),
+                   "p50_ms_marked": _pct(hit, 50), "p99_ms_marked": _pct(hit, 99),
+                   "p50_ms_rest": _pct(rest, 50), "p99_ms_rest": _pct(rest, 99),
+                   "marked_get_s": sum(hit), "decodes": spans["count"],
+                   "decode_s": spans["stages"].get("decode", 0.0),
+                   "gather_s": spans["stages"].get("gather", 0.0),
+                   "shard_reads": reads["count"], "shard_read_bytes": reads["bytes"]}
+            kind = "on a lost shard (0-3)" if lost else "with a remote interval (0-3, 9-13)"
+            log(f"cluster {label} on {card}: {len(items)} needles GET through B from "
+                f"{SERVER_THREADS} threads, each equal to its payload, wall "
+                f"{got['wall_s']:.4f} s; {kind} ({len(hit)}) p50 {run['p50_ms_marked']:.3f} / "
+                f"p99 {run['p99_ms_marked']:.3f} ms, the rest p50 {run['p50_ms_rest']:.3f} / "
+                f"p99 {run['p99_ms_rest']:.3f} ms; B's ec.degraded spans: {run['decodes']} "
+                f"decodes, gather {run['gather_s']:.4f} s, decode {run['decode_s']:.4f} s, "
+                f"against {run['marked_get_s']:.4f} s summed over those GETs; "
+                f"VolumeEcShardRead served {run['shard_reads']} reads of "
+                f"{run['shard_read_bytes']} bytes by A and C; launches {run['launches']}")
+            return run
+
+        runs["cluster_healthy"] = serve("healthy GETs (0-3 from A, 9 from C)", lost=False)
+        if runs["cluster_healthy"]["decodes"]:
+            raise AssertionError("cluster: a healthy GET decoded")
+        servers[0].stop()
+        stopped.append(servers[0])
+        gone_s = wait(lambda: not any(i in ec_locations(vid) for i in CLUSTER_A),
+                      "the master dropping A's shards")
+        log(f"cluster: A stopped; its heartbeat stream's end dropped shards {CLUSTER_A} "
+            f"from the master's map in {gone_s:.2f} s")
+        runs["cluster_serve"] = serve("lost-server GETs (tile cache on)", lost=True)
+        os.environ["WEED_EC_TILE_CACHE"] = "0"
+        try:
+            sb.VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+                volume_id=vid, shard_ids=list(CLUSTER_B)), timeout=60)
+            sb.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+                volume_id=vid, collection="ec", shard_ids=list(CLUSTER_B)), timeout=60)
+            if servers[1].store.find_ec_volume(vid).tile_cache.capacity_bytes != 0:
+                raise AssertionError("cluster: the remounted EC volume still caches tiles")
+            runs["cluster_k5"] = serve("lost-server GETs (WEED_EC_TILE_CACHE=0)", lost=True)
+        finally:
+            os.environ.pop("WEED_EC_TILE_CACHE", None)
+        if not on_a:
+            raise AssertionError("cluster: no needle lies on shards 0-3")
+
+        # --- rack-gather rebuild on B ---
+        _reset_counts()
+        reb_s, got = _timed(lambda: sb.VolumeEcShardsRebuild(pb.VolumeEcShardsRebuildRequest(
+            volume_id=vid, collection="ec"), timeout=600))
+        runs["cluster_rebuild"] = {"wall_s": reb_s, "launches": _read_counts(),
+                                   "sigs": _read_sigs(), "bytes": len(CLUSTER_A) * shard_len}
+        if tuple(got.rebuilt_shard_ids) != CLUSTER_A:
+            raise AssertionError(f"cluster rebuild: rebuilt {list(got.rebuilt_shard_ids)}")
+        base_b = servers[1].store.find_ec_volume(vid).base_name
+        sidecar = ecc_sidecar.load_sidecar(base_a)["shards"]
+        for i in CLUSTER_A:
+            ext = ec_files.to_ext(i)
+            if not filecmp.cmp(base_a + ext, base_b + ext, shallow=False):
+                raise AssertionError(f"cluster rebuild: B's {ext} differs from A's generate")
+            if _file_crc(base_b + ext) != sidecar[str(i)]["crc"]:
+                raise AssertionError(f"cluster rebuild: B's {ext} CRC differs from the .ecc")
+        log(f"cluster rebuild on {card}: VolumeEcShardsRebuild on B of {CLUSTER_A}, "
+            f"{len(CLUSTER_A) * shard_len} bytes, survivors {CLUSTER_B} local and "
+            f"{CLUSTER_C} read off C through remote_readers, {reb_s:.4f} s "
+            f"({len(CLUSTER_A) * shard_len / reb_s / 1e9:.3f} GB/s rebuilt); byte-identical "
+            f"to A's generated shards, CRCs equal to A's .ecc; launches "
+            f"{runs['cluster_rebuild']['launches']}")
+        if on_card:
+            _must_launch("cluster encode", runs["cluster_encode"]["launches"],
+                         ("gf_apply", "crc32c_rows"))
+            _must_launch("cluster serve", runs["cluster_serve"]["launches"], ("gf_apply",))
+            _must_launch("cluster K5 pass", runs["cluster_k5"]["launches"],
+                         ("gf_bits", "gf_apply"))
+            _must_launch("cluster rebuild", runs["cluster_rebuild"]["launches"],
+                         ("gf_apply", "crc32c_rows"))
+        phase = {k: sum(runs[r]["launches"][k] for r in
+                        ("cluster_encode", "cluster_healthy", "cluster_serve", "cluster_k5",
+                         "cluster_rebuild"))
+                 for k in ("gf_apply", "crc32c_rows", "gf_bits")}
+        log(f"cluster launches on {card}: {phase} (K1 gf_apply, K4 crc32c_rows, "
+            f"K5 gf_bits)")
+    finally:
+        for ch in channels:
+            ch.close()
+        with _threads_started(started):
+            for vs in servers:
+                if vs not in stopped:
+                    vs.stop()
+            master.stop()
+    if not any(rpc.GRACE_THREAD in n for n in started):
+        raise AssertionError(f"cluster stop: grpc started no {rpc.GRACE_THREAD} thread "
+                             f"(started {started}), so stop_server joined none")
+    left = _server_leftovers(before, pinned_start)
+    runs["cluster_stop"] = left
+    log(f"cluster stop: threads left {left['threads_left']}"
+        + (f"; pinned host memory held by live tensors at the phase's start "
+           f"{left['pinned_at_start']}, after stop() {left['pinned_before_gc']}, after a "
+           f"full collection {left['pinned_after_gc']}" if on_card else ""))
+    if left["threads_left"]:
+        raise AssertionError(f"threads outlived the cluster's stop(): {left['threads_left']}")
     return runs
 
 
@@ -2475,6 +2877,7 @@ def main() -> int:
     k5_32k = check_k5("degraded_32k", deg_rows, 32768, args.seed + 14, card)
     k5_4k = check_k5("degraded_4k", deg_rows, 4096, args.seed + 15, card)
     k4 = check_crc(args.seed + 2, card)
+    k4_graphs = check_k4_graph_streams(args.seed + 17, card)
     k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
     k2_dec = check_gf_batch("decode4", gf256.decode_rows(matrix, survivors, lost),
                             args.seed + 4, card)
@@ -2510,6 +2913,11 @@ def main() -> int:
         runs.update(run_server_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cluster_", dir=root)
+    try:
+        runs.update(run_cluster_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
     try:
         runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
@@ -2524,12 +2932,16 @@ def main() -> int:
     paths = ("encode", "rebuild1", "rebuild4", "degraded", "repair_piggyback",
              "repair_parity", "store_encode", "store_rebuild4", "store_serve", "store_tier",
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
-             "server_concurrent", "batch_encode", "batch_rebuild", "batch_verify")
+             "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
+             "cluster_k5", "cluster_rebuild", "batch_encode", "batch_rebuild",
+             "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
         f"reads, the server's encode, rebuild, degraded GETs with and without the tile "
-        f"cache and concurrent encodes, batch encode, rebuild and verify) on {card}: "
+        f"cache and concurrent encodes, the cluster's encode, healthy and lost-server GETs "
+        f"with and without the tile cache and rack-gather rebuild, batch encode, rebuild "
+        f"and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]
@@ -2555,6 +2967,13 @@ def main() -> int:
     for label, srv, tg in (("decode (0,)", survivors, (0,)), ("decode (5,)", survivors, (5,))):
         names[codec_cuda.gf_matrix_to_bits(gf256.decode_rows(matrix, srv, tg)).tobytes()] = (
             label)
+    # the cluster phase: shards 0-3 from the survivors 4-13
+    cluster_srv = CLUSTER_B + CLUSTER_C
+    for tg in [(i,) for i in CLUSTER_A] + [CLUSTER_A]:
+        rows = gf256.decode_rows(matrix, cluster_srv, tg)
+        names[rows.astype(np.uint8).tobytes()] = f"cluster decode {tg}"
+        if len(tg) == 1:
+            names[codec_cuda.gf_matrix_to_bits(rows).tobytes()] = f"cluster decode {tg}"
     t0 = time.perf_counter()
     sigs = check_signatures(runs, paths, names, args.seed + 13, card)
     log(f"launch signatures checked and timed in {time.perf_counter() - t0:.2f} s")
@@ -2574,7 +2993,7 @@ def main() -> int:
         row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1, k1_tile, k1_run),
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
-        row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4),
+        row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4, k4_graphs),
         row("gf_bits", K5_SOURCE, K5_REPLACES, k5_32k, k5_4k),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

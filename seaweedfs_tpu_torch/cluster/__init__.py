@@ -1,4 +1,5 @@
-"""The node-health pieces the volume server builds: the disk watchdog
-that flips a node into lame-duck mode, and the gray-failure detector
-state it reports (health.py). The raft master tier of
-seaweedfs_tpu/cluster/ is not part of the port yet (ROADMAP item 7)."""
+"""The cluster tier: raft among masters (raft.py) and the node-health
+plane (health.py: the master's phi-accrual scoring and the volume
+server's disk watchdog)."""
+
+from seaweedfs_tpu_torch.cluster.raft import RaftNode  # noqa: F401

@@ -183,7 +183,8 @@ _lib_lock = threading.Lock()
 _lib = None
 _TICKETS = 65535  # ticket counters a stream keeps: a grid's most rows
 # per device: byte table; per (device, span, run): Z columns; per
-# (device, stream): ticket counters, zero between launches
+# (device, stream): ticket counters, zero between launches (a launch
+# inside a CUDA graph capture gets counters of its own instead)
 _tables: dict[torch.device, torch.Tensor] = {}
 _zcols_dev: dict[tuple[torch.device, int, int], torch.Tensor] = {}
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
@@ -210,28 +211,43 @@ def _u32_tensor(words, device: torch.device) -> torch.Tensor:
 
 
 def _device_state(device: torch.device, rows: int, n32: int, stream: int):
-    """(geometry, byte table, Z columns, ticket counters) for a launch,
-    each made once and kept: the tables per device, the Z columns per
-    (device, span, run), the counters per (device, stream). Counters are
-    zeroed on their stream at its first call, which therefore must not
-    be inside a CUDA graph capture."""
+    """(geometry, byte table, Z columns, ticket counters) for a launch:
+    the tables per device and the Z columns per (device, span, run),
+    each made once and kept, by a first call at the geometry outside any
+    CUDA graph capture (they are copied from host memory). An
+    uncaptured launch takes its stream's
+    counters, made and zeroed at the stream's first uncaptured call: a
+    stream runs its launches in order, and each launch leaves them
+    zero. A launch inside a CUDA graph capture gets [rows] counters of
+    its own, allocated in the capture, so from the graph's private pool
+    with their zero-fill captured ahead of the kernel: a graph owns its
+    counters, and neither replays of several graphs on several streams
+    at once nor uncaptured launches on the capture's stream can share
+    them. (One graph never runs beside itself: CUDA orders the launches
+    of a graph.)"""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     span, nchunks, run = geometry(rows, n32, sms)
+    capturing = torch.cuda.is_current_stream_capturing()
     with _lib_lock:
+        if capturing and (device not in _tables or (device, span, run) not in _zcols_dev):
+            # they are copied from host memory, which a capture forbids
+            raise RuntimeError(
+                "crc32c_rows: the first call at a tile geometry copies its tables "
+                "to the device and cannot be captured; call it once at this shape "
+                "outside the capture first")
         table = _tables.get(device)
         if table is None:  # each entry four times: one 16-byte load a slot
             table = _tables[device] = _u32_tensor(np.repeat(byte_table(), 4), device)
         zc = _zcols_dev.get((device, span, run))
         if zc is None:
             zc = _zcols_dev[(device, span, run)] = _u32_tensor(kernel_zcols(span, run), device)
-        tickets = _tickets.get((device, stream))
-        if tickets is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "crc32c_rows: a stream's first call makes its ticket counters "
-                    "and cannot be captured; call it once on the stream first")
-            tickets = _tickets[(device, stream)] = torch.zeros(
-                _TICKETS, dtype=torch.int32, device=device)
+        if capturing:
+            tickets = torch.zeros(rows, dtype=torch.int32, device=device)
+        else:
+            tickets = _tickets.get((device, stream))
+            if tickets is None:
+                tickets = _tickets[(device, stream)] = torch.zeros(
+                    _TICKETS, dtype=torch.int32, device=device)
     return (span, nchunks, run), table, zc, tickets
 
 

@@ -173,6 +173,12 @@ class EcVolume:
         resolve_backend(backend, device)
         self._rs: ReedSolomon | None = None
         self.version = 3
+        # health-tiered shard-location cache (store_ec.go:218-259):
+        # the serving layer fills this from the master's LookupEcVolume
+        # and forgets locations whose reads fail
+        self.shard_locations: dict[int, list[str]] = {}
+        self.shard_locations_lock = threading.Lock()
+        self.shard_locations_refresh_time = 0.0
         # serializes quarantine decisions so only one thread verifies
         # and unmounts a suspect shard
         self._quarantine_lock = threading.Lock()

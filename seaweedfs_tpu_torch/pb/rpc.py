@@ -98,6 +98,28 @@ def add_port(server: grpc.Server, addr: str) -> None:
         server.add_insecure_port(addr)
 
 
+# grpc's Server.stop(grace) starts a thread that cancels the calls left
+# after `grace`; Python names a thread after its target
+GRACE_THREAD = "cancel_all_calls_after_grace"
+
+
+def stop_server(server: grpc.Server, pool, grace: float = 0.5) -> None:
+    """Stop `server` and end every thread it ran: its executor `pool`'s
+    workers (grpc's stop leaves them alive) and the GRACE_THREAD this
+    stop starts, which sets the stop event a moment before it ends.
+    Only threads that appear during this stop are joined, so another
+    server's shutdown in the same process is not waited for."""
+    before = set(threading.enumerate())
+    stopped = server.stop(grace)
+    # the grace thread waits on `stopped`, so it is alive here
+    cancels = [t for t in threading.enumerate()
+               if t not in before and GRACE_THREAD in t.name]
+    stopped.wait()
+    for t in cancels:
+        t.join(grace + 5)
+    pool.shutdown(wait=True)
+
+
 UNARY_UNARY = "unary_unary"
 UNARY_STREAM = "unary_stream"
 STREAM_UNARY = "stream_unary"

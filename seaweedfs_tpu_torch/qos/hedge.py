@@ -18,7 +18,13 @@ class _AttemptPool:
     task and then PARKS (up to `_MAX_IDLE`; beyond that it exits). A
     task never queues behind a busy worker — the fresh-thread fallback
     keeps the fire latency of a new thread while the steady state
-    recycles the same few threads."""
+    recycles the same few threads.
+
+    Unlike the reference's pool, a worker drops its task (and the
+    closure's captures: an EcVolume, staging buffers) before it parks,
+    and close_idle() ends the parked workers at once: a volume server's
+    stop() calls it, so no attempt worker outlives the servers that
+    used it."""
 
     _MAX_IDLE = 8
     _IDLE_S = 30.0
@@ -26,6 +32,7 @@ class _AttemptPool:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._idle: list[queue.SimpleQueue] = []
+        self._threads: dict[queue.SimpleQueue, threading.Thread] = {}
         self.spawned = 0  # lifetime thread count (leak-baseline tests)
 
     def submit(self, fn, *args) -> None:
@@ -36,36 +43,63 @@ class _AttemptPool:
             return
         q = queue.SimpleQueue()
         q.put((fn, args))
-        with self._lock:
-            self.spawned += 1
-        threading.Thread(
+        t = threading.Thread(
             target=self._worker, args=(q,), daemon=True,
             name="weed-hedge-worker",
-        ).start()
+        )
+        with self._lock:
+            self.spawned += 1
+            self._threads[q] = t
+        t.start()
 
     def _worker(self, q: "queue.SimpleQueue") -> None:
-        while True:
-            try:
-                fn, args = q.get(timeout=self._IDLE_S)
-            except queue.Empty:
-                with self._lock:
-                    if q in self._idle:
-                        self._idle.remove(q)
-                        return
-                # a submitter claimed this queue between the timeout
-                # and the lock: its task is (or is about to be) queued
-                fn, args = q.get()
-            try:
-                fn(*args)
-            except BaseException:  # noqa: BLE001 — attempts report via out_q
-                pass
-            with self._lock:
-                if len(self._idle) >= self._MAX_IDLE:
+        try:
+            while True:
+                try:
+                    task = q.get(timeout=self._IDLE_S)
+                except queue.Empty:
+                    with self._lock:
+                        if q in self._idle:
+                            self._idle.remove(q)
+                            return
+                    # a submitter claimed this queue between the timeout
+                    # and the lock: its task is (or is about to be) queued
+                    task = q.get()
+                if task is None:  # close_idle()
                     return
-                self._idle.append(q)
+                try:
+                    task[0](*task[1])
+                except BaseException:  # noqa: BLE001 — attempts report via out_q
+                    pass
+                del task  # nothing of the task stays alive while parked
+                with self._lock:
+                    if len(self._idle) >= self._MAX_IDLE:
+                        return
+                    self._idle.append(q)
+        finally:
+            with self._lock:
+                self._threads.pop(q, None)
+
+    def close_idle(self, timeout: float = 10.0) -> None:
+        """End every parked worker and wait for it. Busy workers finish
+        their task first and then park or exit as usual; a later
+        submit() starts a fresh worker."""
+        with self._lock:
+            idle, self._idle = self._idle, []
+            threads = [self._threads.get(q) for q in idle]
+        for q in idle:
+            q.put(None)
+        for t in threads:
+            if t is not None:
+                t.join(timeout)
 
 
 _ATTEMPTS = _AttemptPool()
+
+
+def close_idle() -> None:
+    """End the shared pool's parked attempt workers (_AttemptPool.close_idle)."""
+    _ATTEMPTS.close_idle()
 
 
 def gather_first_k(tasks: dict, k: int, timeout: float = 30.0) -> dict:

@@ -1,23 +1,30 @@
 """Volume server: the data plane, on the port's store and EC codec.
 
-The port of seaweedfs_tpu/server/volume_server.py as a standalone
-server (no master): the HTTP blob path (POST, GET/HEAD with Range,
-ETag and 304, DELETE), the status and metrics routes, the volume admin
+The port of seaweedfs_tpu/server/volume_server.py: the HTTP blob path
+(POST with replica fan-out, GET/HEAD with Range, ETag and 304, redirects
+to a holder, DELETE), the status and metrics routes, the volume admin
 verbs and the EC verb set over gRPC, with EC encode, rebuild and
 degraded-read decodes on the card (`ec_codec="cuda"`, the default, on
-`device`; "cpu" or "native" name a host codec).
+`device`; "cpu" or "native" name a host codec). With `master` it
+heartbeats its inventory (volume_grpc_client_to_master.go), follows the
+leader hint, learns peers from the master for redirects, replica
+fan-out and chunk fetches, gathers EC survivors from the servers that
+hold them (degraded GETs through EcVolume's `fetch` seam, rebuilds
+through `remote_readers`) and copies EC shards from a peer
+(VolumeEcShardsCopy over CopyFile).
 
 What needs a part of the reference that the port does not have yet
 raises NotImplementedError naming its ROADMAP item, at construction for
 a parameter and at the call for a verb; it never silently does less:
-the master (heartbeat, lookups, replica fan-out, redirects, remote
-shard gathers; item 7), the scrub engine (item 9), the -workers
-internal listener and write sharding (item 8), tier-move verbs
-(item 9), the verbs that copy from peers (item 10), the batch EC verbs
-(item 8) and Query (item 11). The reference's C serving core and C
-POST path wait for items 5 and 8: requests run on the threaded mini
-loop and the Python write path, the reference's own byte-identical
-arms.
+the scrub engine (item 9), the -workers internal listener and write
+sharding (item 8), tier-move verbs (item 9), the volume copy and tail
+verbs (item 10), the batch EC verbs (item 8) and Query (item 11). The
+hinted-handoff spool waits for item 10: until then a replica's failure
+fails the write (the reference's WEED_HANDOFF=0 contract), so no write
+is acknowledged with fewer copies than its placement asks for. The
+reference's C serving core and C POST path wait for items 5 and 8:
+requests run on the threaded mini loop and the Python write path, the
+reference's own byte-identical arms.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ import grpc
 from seaweedfs_tpu_torch import qos, trace
 from seaweedfs_tpu_torch.scrub.arbiter import get_arbiter
 from seaweedfs_tpu_torch.stats.metrics import VOLUME_READS
+from seaweedfs_tpu_torch.util import deadline as _op_deadline
 from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.ec import ec_files
 from seaweedfs_tpu_torch.ec.ec_volume import NotEnoughShards
-from seaweedfs_tpu_torch.pb import rpc, volume_pb2 as pb
+from seaweedfs_tpu_torch.pb import master_pb2, rpc, volume_pb2 as pb
 from seaweedfs_tpu_torch.util.httpd import (
     JSON_HDR as _JSON_HDR,
     FastHandler,
@@ -136,11 +144,6 @@ class VolumeServer:
     ):
         # the planes the port does not have yet refuse up front, with
         # the reference's defaults kept (so scrub_interval must be 0)
-        if master:
-            raise NotImplementedError(
-                "master: heartbeats, lookups and replica fan-out need the "
-                "master tier (ROADMAP item 7)"
-            )
         if scrub_interval > 0:
             raise NotImplementedError(
                 "scrub_interval > 0: the scrub engine is not ported yet "
@@ -151,22 +154,13 @@ class VolumeServer:
                 "internal_port / shard_writes: the -workers processes are "
                 "not ported yet (ROADMAP item 8)"
             )
-        # what describes this node to a master and its peers, or runs
         # more writer processes: a value other than the reference's
         # default is refused, not ignored
-        for name, value, default, plane in (
-            ("public_url", public_url, "", "the master tier (ROADMAP item 7)"),
-            ("data_center", data_center, "", "the master tier (ROADMAP item 7)"),
-            ("rack", rack, "", "the master tier (ROADMAP item 7)"),
-            ("announce", announce, "", "the master tier (ROADMAP item 7)"),
-            ("heartbeat_interval", heartbeat_interval, 2.0,
-             "the master tier (ROADMAP item 7)"),
-            ("read_redirect", read_redirect, False, "the master tier (ROADMAP item 7)"),
-            ("n_writers", n_writers, 1,
-             "the -workers processes, not ported yet (ROADMAP item 8)"),
-        ):
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r} needs {plane}")
+        if n_writers != 1:
+            raise NotImplementedError(
+                f"n_writers={n_writers!r} needs the -workers processes, "
+                "not ported yet (ROADMAP item 8)"
+            )
         if storage_backends and "s3" in storage_backends:
             raise NotImplementedError(
                 "storage backend s3: the s3api client is not ported yet "
@@ -199,8 +193,45 @@ class VolumeServer:
         self.host = host
         self.port = port
         self.grpc_port = port + 10000
+        # seed masters (comma-separated); self.master tracks the one we
+        # currently talk to and follows leader hints from heartbeats
+        # (volume_grpc_client_to_master.go:34-53)
+        self.seed_masters = [m.strip() for m in master.split(",") if m.strip()] if master else []
+        self.master = self.seed_masters[0] if self.seed_masters else master
+        self._master_rr = 0
+        self.public_url = public_url or f"{host}:{port}"
+        # advertised INTERNAL address (heartbeat ip/port → the url every
+        # peer, repair verb, and replica fan-out dials): differs from
+        # the bind address when the cluster must reach this server
+        # through a proxy or NAT hop. Self-identity checks go through
+        # _self_urls(), which matches BOTH the bind and the announced
+        # address.
+        self.announce_host, self.announce_port = host, port
+        if announce:
+            a_host, _, a_port = announce.partition(":")
+            self.announce_host, self.announce_port = a_host, int(a_port)
+        self.data_center = data_center
+        self.rack = rack
+        self.heartbeat_interval = heartbeat_interval
+        self.read_redirect = read_redirect
         self.guard = guard  # security.Guard; None = security off
         self.fix_jpg_orientation = fix_jpg_orientation
+        self.volume_size_limit = 30 * 1024 * 1024 * 1024
+        self._stop = threading.Event()
+        self._force_full_heartbeat = threading.Event()
+        # set by Store.notify_change on any inventory change: wakes the
+        # heartbeat generator so the delta beat goes out NOW instead of
+        # on the next tick (mount-before-delete ordering stays visible
+        # to the master in order)
+        self._hb_wake = threading.Event()
+        self.store.notify_change = self._hb_wake.set
+        self._hb_thread: threading.Thread | None = None
+        self._metrics_push: threading.Thread | None = None
+        self._metrics_cfg: tuple | None = None
+        # vid -> (expires, [urls]); keeps the master off the per-write
+        # hot path (the reference's wdclient vidMap role)
+        self._location_cache: dict[int, tuple[float, list[str]]] = {}
+        self._location_cache_ttl = 10.0
         self._grpc_server: grpc.Server | None = None
         self._grpc_pool: futures.ThreadPoolExecutor | None = None
         self._profiling = False
@@ -236,13 +267,14 @@ class VolumeServer:
         # master's pick-for-write can weigh nodes by live load
         self.load = qos.LoadTracker()
         # weedguard (docs/HEALTH.md): the local disk watchdog flips the
-        # node into read-only lame-duck mode on repeated EIO/ENOSPC (new
-        # writes shed with 503), and SIGTERM sets `draining` (graceful
-        # drain — see drain()). The hinted-handoff spool comes with the
-        # replica fan-out that fills it (ROADMAP item 10).
+        # node into read-only lame-duck mode on repeated EIO/ENOSPC
+        # (announced on the next forced beat; new writes shed with
+        # 503), and SIGTERM sets `draining` (graceful drain — see
+        # drain()). The hinted-handoff spool waits for ROADMAP item 10.
         from seaweedfs_tpu_torch.cluster.health import DiskWatchdog
 
         self.watchdog = DiskWatchdog()
+        self.watchdog.on_trip = self._hb_wake.set
         self.draining = False
         # per-client admission control (token bucket + in-flight cap);
         # None = accept everything, today's behavior
@@ -284,12 +316,220 @@ class VolumeServer:
         return status_page(
             "SeaweedFS-TPU Volume",
             f"Volume Server {self.host}:{self.port}",
-            "master: (none) &middot; "
+            f"master: {_html.escape(self.master or '(none)')} &middot; "
             f"ec codec: {self.ec_codec or 'auto'}",
             ["Id", "Collection", "Size", "Files", "Deleted", "Mode"],
             "".join(rows),
             ["/status", "/metrics"],
         )
+
+    # ------------------------------------------------------------------
+    # heartbeat client (volume_grpc_client_to_master.go)
+    # full beats every Nth cycle keep master state authoritative; the
+    # cycles between send only volume-set changes so steady-state
+    # chatter is O(changes), not O(volumes) (master.proto:43-44
+    # new_volumes/deleted_volumes delta beats)
+    _FULL_HEARTBEAT_EVERY = 10
+
+    @staticmethod
+    def _add_vol_stats(field, infos) -> None:
+        for v in infos:
+            field.add(
+                id=v.id,
+                size=v.size,
+                collection=v.collection,
+                file_count=v.file_count,
+                delete_count=v.delete_count,
+                deleted_byte_count=v.deleted_byte_count,
+                read_only=v.read_only,
+                replica_placement=v.replica_placement,
+                version=v.version,
+                ttl=v.ttl,
+            )
+
+    def _heartbeat_requests(self):
+        last_vids: dict[int, object] | None = None  # None => send full
+        last_full_infos: dict[int, object] = {}
+        beat = 0
+        while not self._stop.is_set():
+            # clear BEFORE collecting: a change landing mid-collect
+            # re-sets the event and triggers another immediate beat
+            # rather than being absorbed into this one and lost
+            self._hb_wake.clear()
+            if self._force_full_heartbeat.is_set():
+                # master asked for the full inventory (it lost our
+                # state to a liveness sweep or a leader change)
+                self._force_full_heartbeat.clear()
+                last_vids = None
+            hb = self.store.collect_heartbeat()
+            req = master_pb2.HeartbeatRequest(
+                ip=self.announce_host,
+                port=self.announce_port,
+                public_url=self.public_url,
+                max_volume_count=sum(
+                    loc.max_volume_count for loc in self.store.locations
+                ),
+                max_file_key=hb.max_file_key,
+                data_center=self.data_center,
+                rack=self.rack,
+                has_no_ec_shards=not hb.ec_shards,
+                # QoS plane: live load for queue-depth-aware assignment
+                # (master pick_for_write power-of-two-choices)
+                in_flight_requests=self.load.inflight(),
+                write_queue_depth=(
+                    self.group_commit.depth()
+                    if self.group_commit is not None
+                    else 0
+                ),
+                # health plane (docs/HEALTH.md): graceful-degradation
+                # flags + cumulative error counters for the master's
+                # per-node EWMAs
+                lame_duck=self.watchdog.lame_duck,
+                draining=self.draining,
+                io_errors=self.watchdog.io_errors,
+                request_errors=self.load.errors(),
+            )
+
+            # signature catches in-place changes (growth past the size
+            # limit, read-only flips, delete counts) so they propagate
+            # on the next delta beat, not only on the Nth full beat
+            def sig(v):
+                return (v.size, v.file_count, v.delete_count, v.read_only)
+
+            current = {v.id: v for v in hb.volumes}
+            full = last_vids is None or beat % self._FULL_HEARTBEAT_EVERY == 0
+            if full:
+                req.has_no_volumes = not hb.volumes
+                self._add_vol_stats(req.volumes, hb.volumes)
+            else:
+                new = [
+                    v
+                    for vid, v in current.items()
+                    if vid not in last_vids or last_vids[vid] != sig(v)
+                ]
+                gone = [
+                    hb_v
+                    for vid, hb_v in last_full_infos.items()
+                    if vid not in current
+                ]
+                self._add_vol_stats(req.new_volumes, new)
+                self._add_vol_stats(req.deleted_volumes, gone)
+            last_vids = {vid: sig(v) for vid, v in current.items()}
+            last_full_infos = current
+            beat += 1
+            for s in hb.ec_shards:
+                req.ec_shards.add(
+                    id=s.id, collection=s.collection, ec_index_bits=s.ec_index_bits
+                )
+            for row in self._collect_scrub_stats():
+                req.scrub_stats.add(**row)
+            yield req
+            # next beat on the tick, on an inventory change, or on stop
+            # — whichever comes first
+            self._hb_wake.wait(self.heartbeat_interval)
+
+    def _collect_scrub_stats(self) -> list[dict]:
+        """ScrubStat heartbeat rows from the store's quarantine registry
+        (foreground reads quarantine truncated shards; the scrub engine,
+        whose sweep rows the reference merges in, waits for ROADMAP item
+        9). Complete snapshot every beat; the master overwrites."""
+        return [
+            {
+                "volume_id": vid,
+                "is_ec": True,
+                "last_sweep_unix": 0,
+                "scanned_bytes": 0,
+                "corruptions_found": 0,
+                "quarantined_shard_bits": self.store.quarantined_shard_bits(vid),
+                "last_error": "; ".join(
+                    f"shard {sid}: {why}" for sid, why in sorted(per_vid.items())
+                )[:300],
+            }
+            for vid, per_vid in list(self.store.quarantined.items())
+        ]
+
+    def _heartbeat_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                with rpc.dial(self._master_grpc()) as ch:
+                    stub = rpc.master_stub(ch)
+                    for resp in stub.Heartbeat(self._heartbeat_requests()):
+                        if resp.volume_size_limit:
+                            self.volume_size_limit = resp.volume_size_limit
+                        if resp.request_full_heartbeat:
+                            self._force_full_heartbeat.set()
+                        if resp.metrics_address:
+                            # master ships the pushgateway config in the
+                            # heartbeat response (master_grpc_server.go:80);
+                            # a NEW address/interval (e.g. from a new
+                            # leader) replaces the running loop
+                            cfg = (
+                                resp.metrics_address,
+                                resp.metrics_interval_seconds or 15,
+                            )
+                            if cfg != self._metrics_cfg:
+                                self._start_metrics_push(cfg)
+                        if resp.leader and resp.leader != self.master:
+                            # follow the leader hint: reconnect there
+                            self.master = resp.leader
+                            break
+                        if self._stop.is_set():
+                            return
+                    else:
+                        # stream ended cleanly (e.g. a leaderless
+                        # follower redirecting to itself): back off so
+                        # election windows don't become a reconnect storm
+                        self._stop.wait(0.2)
+            except grpc.RpcError:
+                # rotate through the seed masters until one answers
+                if len(self.seed_masters) > 1:
+                    self._master_rr = (self._master_rr + 1) % len(self.seed_masters)
+                    self.master = self.seed_masters[self._master_rr]
+                self._stop.wait(0.2 if len(self.seed_masters) > 1 else 1.0)
+
+    def _start_metrics_push(self, cfg: tuple) -> None:
+        """(Re)start the pushgateway loop for (address, interval). Only
+        the heartbeat thread calls this, so the swap needs no lock."""
+        from seaweedfs_tpu_torch.stats.metrics import start_push_loop
+
+        self._stop_metrics_push()
+        self._metrics_cfg = cfg
+        self._metrics_push = start_push_loop(
+            f"http://{cfg[0]}",
+            job=f"volume_{self.host}_{self.port}",
+            interval_sec=cfg[1],
+            stop_event=threading.Event(),
+        )
+
+    def _stop_metrics_push(self) -> None:
+        if self._metrics_push is not None:
+            self._metrics_push.stop_event.set()
+            self._metrics_push.join(timeout=10)
+            self._metrics_push = None
+
+    def _master_grpc(self) -> str:
+        host, _, port = self.master.partition(":")
+        return f"{host}:{int(port) + 10000}"
+
+    def _lookup_locations(self, vid: int) -> list[str] | None:
+        """Replica urls for a vid via the master, cached briefly. None
+        when the master is unreachable and nothing is cached."""
+        cached = self._location_cache.get(vid)
+        now = time.time()
+        if cached and cached[0] > now:
+            return cached[1]
+        try:
+            with rpc.dial(self._master_grpc()) as ch:
+                resp = rpc.master_stub(ch).LookupVolume(
+                    master_pb2.LookupVolumeRequest(vids=[str(vid)]), timeout=5
+                )
+        except grpc.RpcError:
+            return cached[1] if cached else None
+        urls = [
+            l.url for entry in resp.vid_locations for l in entry.locations
+        ]
+        self._location_cache[vid] = (now + self._location_cache_ttl, urls)
+        return urls
 
     # ------------------------------------------------------------------
     # gRPC admin servicer
@@ -396,10 +636,21 @@ class VolumeServer:
         )
 
     def CopyFile(self, req: pb.CopyFileRequest, context):
-        raise NotImplementedError(
-            "CopyFile serves the peer-copy verbs, which need the client "
-            "and master (ROADMAP item 10)"
-        )
+        """Stream one of this volume's files (.dat, .idx, .ecNN, .ecx,
+        .ecj) to a peer in COPY_CHUNK pieces (volume_grpc_copy.go)."""
+        base = self._base_name(req.collection, req.volume_id)
+        path = base + req.ext
+        if not os.path.exists(path):
+            context.abort(grpc.StatusCode.NOT_FOUND, f"no file {path}")
+        stop = req.stop_offset or os.path.getsize(path)
+        with open(path, "rb") as f:
+            sent = 0
+            while sent < stop:
+                chunk = f.read(min(COPY_CHUNK, stop - sent))
+                if not chunk:
+                    break
+                sent += len(chunk)
+                yield pb.CopyFileResponse(file_content=chunk)
 
     def VolumeIncrementalCopy(self, req, context):
         v = self.store.find_volume(req.volume_id)
@@ -506,9 +757,12 @@ class VolumeServer:
         )
 
     def VolumeEcShardsRebuild(self, req, context):
-        """Regenerate missing shard files from the local survivors (the
-        reference also gathers survivors mounted on other servers, which
-        needs the master: ROADMAP item 7)."""
+        """Regenerate missing shard files. With every survivor local
+        this is the classic local-file rebuild; when survivors are
+        missing locally but mounted elsewhere (the rack-gather case),
+        the pipelined ec_stream driver reads those shards straight off
+        their holders tile by tile, decoding on the card as they
+        arrive."""
         with trace.span(
             "volume.ec_rebuild",
             header=trace.header_from_grpc_context(context),
@@ -519,17 +773,166 @@ class VolumeServer:
             return self._ec_shards_rebuild(req, context)
 
     def _ec_shards_rebuild(self, req, context):
-        """Every survivor is local on a standalone server: the classic
-        local-file rebuild (the reference's no-master arm; gathering
-        survivors from their holders needs the master, ROADMAP item 7)."""
         base = self._base_name(req.collection, req.volume_id)
-        st: dict = {}
-        rebuilt = ec_files.rebuild_ec_files(
-            base, rs=self._new_rs(), durable=True, stats=st,
-            want_crcs=True,
+        present, missing = ec_files.shard_presence(base)
+        if not missing or not self.master:
+            st: dict = {}
+            rebuilt = ec_files.rebuild_ec_files(
+                base, rs=self._new_rs(), durable=True, stats=st,
+                want_crcs=True,
+            )
+            self._log_rebuild_crcs(req.volume_id, base, st)
+            return pb.VolumeEcShardsRebuildResponse(rebuilt_shard_ids=rebuilt)
+        # with a master, always learn which "missing" shards are in
+        # fact mounted elsewhere: they serve as remote survivors and
+        # are EXCLUDED from the rebuild targets — even a rebuilder
+        # holding >= 10 local shards must not regenerate (and later
+        # double-mount) shards the cluster still has
+        readers, close_readers = self._remote_rebuild_readers(
+            req.volume_id, {i for i, p in enumerate(present) if p}
         )
-        self._log_rebuild_crcs(req.volume_id, base, st)
+        try:
+            if not readers:
+                st = {}
+                rebuilt = ec_files.rebuild_ec_files(
+                    base, rs=self._new_rs(), durable=True, stats=st,
+                    want_crcs=True,
+                )
+                self._log_rebuild_crcs(req.volume_id, base, st)
+            else:
+                from seaweedfs_tpu_torch.ec import ec_stream, repair_session
+
+                rs = self._new_rs()
+                rebuild_fn = fetch_fn = None
+                if not ec_files._use_stream_driver(rs):
+                    # a host codec: its matrix apply in the writer pool
+                    rebuild_fn, fetch_fn = ec_stream.local_rebuild_fns(
+                        rs, want_crcs=True
+                    )
+                # repair piggyback (docs/SCRUB.md): degraded GETs of
+                # this volume donate the tiles they decode while the
+                # session is open, and tiles already decoded for past
+                # degraded reads seed it — the driver then gathers
+                # survivors only for the gaps
+                targets = [i for i in missing if i not in readers]
+                sess = repair_session.open_session(req.volume_id, targets)
+                try:
+                    # inside the try: a raise here must still unregister
+                    # the session, or every later degraded read donates
+                    # into a dead one
+                    ev = self.store.find_ec_volume(req.volume_id)
+                    if ev is not None:
+                        ev.donate_cached_tiles(sess)
+                    st = {}
+                    rebuilt = ec_stream.stream_rebuild_ec_files(
+                        base,
+                        rebuild_fn=rebuild_fn,
+                        fetch_fn=fetch_fn,
+                        remote_readers=readers,
+                        session=sess,
+                        durable=True,
+                        stats=st,
+                        want_crcs=True,
+                        device=rs.device,
+                    )
+                    self._log_rebuild_crcs(req.volume_id, base, st)
+                except ValueError as e:
+                    context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+                finally:
+                    repair_session.close_session(sess)
+        finally:
+            close_readers()
         return pb.VolumeEcShardsRebuildResponse(rebuilt_shard_ids=rebuilt)
+
+    def _remote_rebuild_readers(self, vid: int, skip: set[int]):
+        """(readers, closer): shard id → fetch(offset, size) callables
+        over VolumeEcShardRead against holders learned from the master,
+        for survivors not in `skip` (the locally-present set). One
+        cached channel per holder — the stream driver's reader pool
+        calls these concurrently, and grpc channels are thread-safe."""
+        if not self.master:
+            return {}, (lambda: None)
+        try:
+            with rpc.dial(self._master_grpc()) as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid),
+                    timeout=5,
+                )
+        except grpc.RpcError:
+            return {}, (lambda: None)
+        me = self._self_urls()
+        locations: dict[int, list[str]] = {}
+        for entry in resp.shard_id_locations:
+            urls = [l.url for l in entry.locations if l.url not in me]
+            if urls and entry.shard_id not in skip:
+                locations[entry.shard_id] = urls
+        channels: dict[str, grpc.Channel] = {}
+        channels_lock = threading.Lock()
+
+        def channel(url: str) -> grpc.Channel:
+            with channels_lock:
+                ch = channels.get(url)
+                if ch is None:
+                    host, _, port = url.partition(":")
+                    ch = channels[url] = rpc.dial(f"{host}:{int(port) + 10000}")
+                return ch
+
+        # capture the trace context and the ambient deadline NOW: the
+        # stream driver's reader pool calls these from its own threads,
+        # where neither is ambient; each read's timeout shrinks to what
+        # remains of the caller's budget
+        md = trace.grpc_metadata()
+        factory_dl = _op_deadline.current()
+
+        def make_reader(sid: int, urls: list[str]):
+            def read(offset: int, size: int) -> bytes:
+                # rebuild traffic pays the bandwidth arbiter before
+                # pulling remote bytes, yielding to foreground serving
+                get_arbiter().take("rebuild", size, stop=self._stop)
+                last: Exception | None = None
+                t_o = 30 if factory_dl is None else factory_dl.cap(30)
+                call_md = md
+                if factory_dl is not None:
+                    call_md = tuple(md or ()) + (
+                        (_op_deadline.DEADLINE_HEADER,
+                         factory_dl.header_value()),
+                    )
+                for url in urls:
+                    try:
+                        data = b"".join(
+                            r.data
+                            for r in rpc.volume_stub(channel(url)).VolumeEcShardRead(
+                                pb.VolumeEcShardReadRequest(
+                                    volume_id=vid,
+                                    shard_id=sid,
+                                    offset=offset,
+                                    size=size,
+                                ),
+                                timeout=t_o,
+                                metadata=call_md,
+                            )
+                        )
+                    except grpc.RpcError as e:
+                        last = e
+                        continue
+                    if len(data) == size:
+                        return data
+                    last = ValueError(
+                        f"shard {sid}@{url} returned {len(data)} of {size} "
+                        f"bytes at {offset}"
+                    )
+                raise last or ValueError(f"no holder for ec shard {sid}")
+
+            return read
+
+        def closer() -> None:
+            for ch in channels.values():
+                ch.close()
+
+        return (
+            {sid: make_reader(sid, urls) for sid, urls in locations.items()},
+            closer,
+        )
 
     def VolumeEcShardsBatchRebuild(self, req, context):
         raise NotImplementedError(
@@ -574,10 +977,33 @@ class VolumeServer:
             self._publish_ecc(base, dict(crcs))
 
     def VolumeEcShardsCopy(self, req: pb.VolumeEcShardsCopyRequest, context):
-        raise NotImplementedError(
-            "VolumeEcShardsCopy pulls shards from a peer through the client "
-            "and master (ROADMAP item 10)"
-        )
+        """Pull shard files (and with copy_ecx_file the .ecx and the
+        optional .ecj) from the source node via its CopyFile stream."""
+        target_dir = self.store.locations[0].directory
+        base = volume_base_name(target_dir, req.collection, req.volume_id)
+        host, _, port = req.source_data_node.partition(":")
+        with rpc.dial(f"{host}:{int(port) + 10000}") as ch:
+            stub = rpc.volume_stub(ch)
+            exts = [ec_files.to_ext(sid) for sid in req.shard_ids]
+            if req.copy_ecx_file:
+                exts += [".ecx", ".ecj"]
+            for ext in exts:
+                try:
+                    with open(base + ext, "wb") as f:
+                        for resp in stub.CopyFile(
+                            pb.CopyFileRequest(
+                                volume_id=req.volume_id,
+                                collection=req.collection,
+                                ext=ext,
+                                is_ec_volume=True,
+                            )
+                        ):
+                            f.write(resp.file_content)
+                except grpc.RpcError:
+                    os.remove(base + ext)
+                    if ext != ".ecj":  # .ecj is optional
+                        raise
+        return pb.VolumeEcShardsCopyResponse()
 
     def VolumeEcShardsDelete(self, req, context):
         base = self._base_name(req.collection, req.volume_id)
@@ -726,6 +1152,129 @@ class VolumeServer:
         raise NotImplementedError(
             "VolumeTierMoveDatFromRemote needs the tier engine (ROADMAP item 9)"
         )
+
+    # ------------------------------------------------------------------
+    # remote shard fetches for degraded reads (store_ec.go:211-359)
+    _EC_LOC_TTL_UNHEALTHY = 11.0
+    _EC_LOC_TTL_DEGRADED = 7 * 60.0
+    _EC_LOC_TTL_FULL = 37 * 60.0
+
+    def _cached_lookup_ec_locations(self, ev) -> None:
+        """Refresh ev.shard_locations from the master when stale
+        (cachedLookupEcShardLocations, store_ec.go:218-259)."""
+        now = time.time()
+        with ev.shard_locations_lock:
+            count = len(ev.shard_locations)
+            age = now - ev.shard_locations_refresh_time
+            if count >= 14:
+                ttl = self._EC_LOC_TTL_FULL
+            elif count >= 10:
+                ttl = self._EC_LOC_TTL_DEGRADED
+            else:
+                ttl = self._EC_LOC_TTL_UNHEALTHY
+            if age < ttl:
+                return
+        if not self.master:
+            return
+        try:
+            with rpc.dial(self._master_grpc()) as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=ev.volume_id),
+                    timeout=5,
+                )
+        except grpc.RpcError:
+            return
+        with ev.shard_locations_lock:
+            for entry in resp.shard_id_locations:
+                ev.shard_locations[entry.shard_id] = [
+                    l.url for l in entry.locations
+                ]
+            ev.shard_locations_refresh_time = time.time()
+
+    @staticmethod
+    def _forget_shard_id(ev, shard_id: int) -> None:
+        """Drop a shard's cached locations after a failed read; the
+        refresh clock is zeroed so the NEXT fetch re-learns them from
+        the master (forgetShardId, store_ec.go:211-216) instead of one
+        dropped connection blinding every reconstruction for a TTL."""
+        with ev.shard_locations_lock:
+            ev.shard_locations.pop(shard_id, None)
+            ev.shard_locations_refresh_time = 0.0
+
+    def _remote_shard_fetcher(self, ev):
+        """fetch(shard_id, offset, size) against the EC volume's cached
+        shard locations, forgetting locations whose reads fail: the
+        `fetch` seam of EcVolume.read_needle. Safe to call concurrently
+        (the reconstruction fan-out runs one fetch per missing shard in
+        parallel)."""
+        # refresh once up front: the reconstruction fan-out calls
+        # fetch() from up to 13 threads at once, and each doing its own
+        # cold-cache LookupEcVolume would hammer the master
+        self._cached_lookup_ec_locations(ev)
+        # the fan-out threads have no ambient span or deadline: capture
+        # both here so each remote read parents under this request and
+        # times out within what remains of its budget
+        md = trace.grpc_metadata()
+        factory_dl = _op_deadline.current()
+
+        def read_from(url: str, shard_id: int, offset: int, size: int):
+            host, _, port = url.partition(":")
+            try:
+                t_o = 10 if factory_dl is None else factory_dl.cap(10)
+            except _op_deadline.DeadlineExceeded:
+                return None  # budget spent: the gather fails, fast
+            call_md = md
+            if factory_dl is not None:
+                call_md = tuple(md or ()) + (
+                    (_op_deadline.DEADLINE_HEADER,
+                     factory_dl.header_value()),
+                )
+            # two tries per holder: a flaky link kills individual
+            # connections, and a fresh dial usually succeeds
+            for attempt in range(2):
+                try:
+                    with rpc.dial(f"{host}:{int(port) + 10000}") as ch:
+                        chunks = [
+                            r.data
+                            for r in rpc.volume_stub(ch).VolumeEcShardRead(
+                                pb.VolumeEcShardReadRequest(
+                                    volume_id=ev.volume_id,
+                                    shard_id=shard_id,
+                                    offset=offset,
+                                    size=size,
+                                ),
+                                timeout=t_o,
+                                metadata=call_md,
+                            )
+                        ]
+                    return b"".join(chunks)
+                except grpc.RpcError:
+                    continue
+            return None
+
+        def fetch(shard_id: int, offset: int, size: int):
+            me = self._self_urls()
+            for round_ in range(2):
+                with ev.shard_locations_lock:
+                    urls = list(ev.shard_locations.get(shard_id, []))
+                attempted = False
+                for url in urls:
+                    if url in me:
+                        continue
+                    attempted = True
+                    data = read_from(url, shard_id, offset, size)
+                    if data is not None:
+                        return data
+                if attempted:
+                    self._forget_shard_id(ev, shard_id)
+                if round_ == 0:
+                    # forgetting zeroed the refresh clock: re-learn the
+                    # holders from the master NOW and give the shard one
+                    # more chance inside this same request
+                    self._cached_lookup_ec_locations(ev)
+            return None
+
+        return fetch
 
     # ------------------------------------------------------------------
     # HTTP data path
@@ -934,14 +1483,24 @@ class VolumeServer:
                     else:
                         ev = server.store.find_ec_volume(fid.volume_id)
                         if ev is None:
-                            # not local, and no master to redirect to
-                            # (the reference's no-owner answer)
+                            # not local: redirect the reader to an owning
+                            # node (volume_server_handlers_read.go:60-77)
+                            target = server._redirect_target(fid.volume_id)
+                            if target:
+                                return _staged_exit(
+                                    302,
+                                    b"",
+                                    {"Location": f"http://{target}{self.path}"},
+                                )
                             return _staged_exit(
                                 404, obj={"error": "volume not found"}
                             )
-                        # lost shards are decoded from the local
-                        # survivors (peer fetch needs the master)
-                        n = ev.read_needle(fid.key)
+                        # intervals on shards held elsewhere are fetched
+                        # from their holders; lost ones are decoded from
+                        # local and fetched survivors on the card
+                        n = ev.read_needle(
+                            fid.key, fetch=server._remote_shard_fetcher(ev)
+                        )
                         if n.cookie != fid.cookie:
                             raise CookieMismatch("cookie mismatch")
                 except NeedleNotFound:
@@ -1145,7 +1704,7 @@ class VolumeServer:
                 if self.command == "HEAD":
                     return
                 for c in chunks:
-                    piece = server._local_fid(c["fid"])
+                    piece = server._fetch_fid(c["fid"])
                     if piece is None:
                         # headers already sent; truncate the connection so
                         # the client sees a short read, not silent corruption
@@ -1240,9 +1799,10 @@ class VolumeServer:
                     stages["reply"] = time.perf_counter() - t_reply
                 if stages:
                     req_span.add_stages(stages)
-                # replica fan-out learns its peers from the master
-                # (ROADMAP item 7): a standalone server, the reference's
-                # included, has none to write to
+                if q.get("type") != "replicate":
+                    err = server._replicate(fid, q, "POST", body, self.headers)
+                    if err:
+                        return self._json({"error": err}, 500)
                 self._reply(201, reply, _JSON_HDR)
 
             def do_DELETE(self):
@@ -1264,7 +1824,10 @@ class VolumeServer:
                         if ev is None:
                             return self._json({"error": "volume not found"}, 404)
                         # same cookie gate as the normal-volume branch
-                        existing = ev.read_needle(fid.key)
+                        existing = ev.read_needle(
+                            fid.key,
+                            fetch=server._remote_shard_fetcher(ev),
+                        )
                         if existing.cookie != fid.cookie:
                             raise CookieMismatch("cookie mismatch")
                         ev.delete_needle(fid.key)
@@ -1277,56 +1840,148 @@ class VolumeServer:
                     # cascade: delete every chunk the manifest points at
                     # (volume_server_handlers_write.go DeleteHandler)
                     for c in _parse_manifest_chunks(_needle_manifest_bytes(existing)) or []:
-                        server._delete_local_fid(c["fid"])
+                        server._delete_fid(c["fid"])
+                if q.get("type") != "replicate":
+                    err = server._replicate(
+                        fid, q, "DELETE", b"", self.headers
+                    )
+                    if err:
+                        return self._json({"error": err}, 500)
                 self._json({"size": size}, 202)
 
         return Handler
 
-    def _local_fid(self, fid_str: str) -> bytes | None:
-        """A chunk fid's bytes from the local store (the reference also
-        asks the master for a peer holder: ROADMAP item 7)."""
+    def _self_urls(self) -> set[str]:
+        """Every address the master may report THIS server under: the
+        bind address and (with `announce`) the advertised one.
+        Self-exclusion checks must match both, or an announced primary
+        would replicate every write to itself through its own hop."""
+        me = {f"{self.host}:{self.port}"}
+        me.add(f"{self.announce_host}:{self.announce_port}")
+        return me
+
+    def _redirect_target(self, vid: int) -> str | None:
+        """Another server that can serve this vid: a replica holder, or
+        any EC shard holder learned from the master."""
+        if not self.master:
+            # standalone: no one to ask (the reference's server raises
+            # in its handler here and drops the connection; the port
+            # answers its no-owner 404)
+            return None
+        me = self._self_urls()
+        for url in self._lookup_locations(vid) or []:
+            if url not in me:
+                return url
+        try:
+            with rpc.dial(self._master_grpc()) as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid)
+                )
+            for entry in resp.shard_id_locations:
+                for loc in entry.locations:
+                    if loc.url != me:
+                        return loc.url
+        except grpc.RpcError:
+            pass
+        return None
+
+    def _fetch_fid(self, fid_str: str) -> bytes | None:
+        """Resolve a chunk fid (local store first, then master lookup +
+        HTTP GET from the owning peer)."""
+        import urllib.request
+
         try:
             fid = FileId.parse(fid_str)
         except ValueError:
             return None
         v = self.store.find_volume(fid.volume_id)
-        if v is None:
-            return None
-        try:
-            n = v.read_needle(fid.key, cookie=fid.cookie)
-        except (NeedleNotFound, CookieMismatch):
-            return None
-        if n.is_gzipped():
-            from seaweedfs_tpu_torch.util.compression import try_gunzip
+        if v is not None:
+            try:
+                n = v.read_needle(fid.key, cookie=fid.cookie)
+            except (NeedleNotFound, CookieMismatch):
+                return None
+            if n.is_gzipped():
+                from seaweedfs_tpu_torch.util.compression import try_gunzip
 
-            return try_gunzip(bytes(n.data))
-        return n.data
+                return try_gunzip(bytes(n.data))
+            return n.data
+        if not self.master:
+            return None
+        for url in self._lookup_locations(fid.volume_id) or []:
+            try:
+                # weedlint: ignore[no-deadline] — single bounded 10 s replica hop, as the reference's chunk fetch
+                with urllib.request.urlopen(f"http://{url}/{fid_str}", timeout=10) as r:
+                    return r.read()
+            except OSError:
+                continue
+        return None
 
-    def _delete_local_fid(self, fid_str: str) -> None:
-        """Cascade-delete one chunk fid through this server's own HTTP
-        DELETE path (the reference also reaches the chunk's replicas
-        through the master: ROADMAP item 7)."""
+    def _delete_fid(self, fid_str: str) -> None:
+        """Cascade-delete one chunk fid through the HTTP DELETE path so
+        the handler's replication fan-out reaches every replica (a
+        local-only store delete would orphan replica copies)."""
         import urllib.request
 
         try:
             fid = FileId.parse(fid_str)
         except ValueError:
             return
-        if self.store.find_volume(fid.volume_id) is None:
-            return
-        req = urllib.request.Request(
-            f"http://{self.host}:{self.port}/{fid_str}", method="DELETE"
-        )
-        if self.guard is not None and self.guard.signing_key:
-            # server-initiated cascade: sign our own write token
-            req.add_header(
-                "Authorization", f"BEARER {self.guard.sign_write(fid_str)}"
+        mine = self._self_urls()
+        urls = []
+        if self.master:
+            urls = [u for u in (self._lookup_locations(fid.volume_id) or [])
+                    if u not in mine]
+        if self.store.find_volume(fid.volume_id) is not None:
+            # dial ourselves by the BIND address, never the announced
+            # hop (and never twice)
+            urls = [f"{self.host}:{self.port}"] + urls
+        for url in urls:
+            try:
+                req = urllib.request.Request(f"http://{url}/{fid_str}", method="DELETE")
+                if self.guard is not None and self.guard.signing_key:
+                    # server-initiated cascade: sign our own write token
+                    req.add_header(
+                        "Authorization", f"BEARER {self.guard.sign_write(fid_str)}"
+                    )
+                # weedlint: ignore[no-deadline] — single bounded 10 s replica-delete hop; the cascade itself is the retry surface
+                urllib.request.urlopen(req, timeout=10).read()
+                return
+            except OSError:
+                continue
+
+    def _replicate(self, fid: FileId, q: dict, method: str, body: bytes, headers) -> str | None:
+        """Fan the write to replica peers (store_replicate.go:44-80):
+        all-or-error. A peer that fails fails the write, and the client
+        gets the error, never an acknowledgement with fewer copies than
+        the volume's placement asks for. (The reference spools such a
+        write as a handoff hint unless WEED_HANDOFF=0; the spool waits
+        for ROADMAP item 10, so the port always takes the WEED_HANDOFF=0
+        arm.)
+
+        Fewer holders than the placement's copy count also fail the
+        write, as SeaweedFS's store_replicate.go does ("replicating
+        operations [n] is less than volume replication copy count"):
+        once the master has dropped a dead peer, the reference's Python
+        server acknowledges the write with the copies that are left."""
+        v = self.store.find_volume(fid.volume_id)
+        if v is None:
+            return None
+        copies = v.super_block.replica_placement.copy_count
+        if copies <= 1 or not self.master:
+            return None
+        all_locations = self._lookup_locations(fid.volume_id)
+        if all_locations is None:
+            return "replication lookup failed"
+        mine = self._self_urls()
+        locations = [u for u in dict.fromkeys(all_locations) if u not in mine]
+        if len(locations) + 1 < copies:
+            return (
+                f"replicating operations [{len(locations) + 1}] is less than "
+                f"volume {fid.volume_id} replication copy count [{copies}]"
             )
-        try:
-            # weedlint: ignore[no-deadline] — single bounded 10 s local hop, as the reference's cascade
-            urllib.request.urlopen(req, timeout=10).read()
-        except OSError:
-            pass
+        return write_path.replicate_to_peers(
+            fid, q, method, body, headers, locations
+        )
 
     def start(self) -> None:
         self._grpc_pool = futures.ThreadPoolExecutor(max_workers=32)
@@ -1353,6 +2008,11 @@ class VolumeServer:
         self._http_server.load_tracker = self.load
         self._http_server.admission = self.admission
         threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
+        if self.master:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, daemon=True, name="volume-heartbeat"
+            )
+            self._hb_thread.start()
         # telemetry plane: continuous sampling profiler behind
         # /debug/profile (WEED_PROF=0 opts out)
         from seaweedfs_tpu_torch.telemetry import profiler
@@ -1360,35 +2020,53 @@ class VolumeServer:
         self._profiling = profiler.ensure_started()
 
     def drain(self, timeout: float = 30.0) -> None:
-        """SIGTERM graceful drain (docs/HEALTH.md runbook): shed new
-        writes with 503, let in-flight requests finish (bounded by
-        `timeout`), then stop(). (The reference also announces
-        `draining` to the master on a beat: ROADMAP item 7.)"""
+        """SIGTERM graceful drain (docs/HEALTH.md runbook): announce
+        `draining` on an immediate beat — the master excludes this node
+        from write assignment — shed new writes with 503, let in-flight
+        requests finish (bounded by `timeout`), then stop(): the
+        heartbeat stream teardown deregisters the node cleanly."""
         self.draining = True
+        self._hb_wake.set()  # the flag rides the NEXT beat, now
         wlog.warning(
             "volume %s:%d draining: writes shed, waiting for %d "
             "in-flight request(s)", self.host, self.port,
             self.load.inflight(),
         )
         deadline = time.time() + timeout
+        if self.master:
+            # one beat RTT so the master sees the flag before we exit
+            time.sleep(min(2 * self.heartbeat_interval, 2.0))
         while time.time() < deadline and self.load.inflight() > 0:
             time.sleep(0.05)
         self.stop()
 
     def stop(self) -> None:
         """Stop serving and close the store. Every thread start() made
-        has ended when this returns: the listeners, the gRPC workers
-        (grpc's own stop leaves its executor's threads alive) and this
-        server's hold on the sampling profiler."""
+        has ended when this returns: the listeners, the heartbeat stream
+        (its end is what unregisters this node at the master) and the
+        metrics push loop, the gRPC workers (grpc's own stop leaves its
+        executor's threads alive), this server's hold on the sampling
+        profiler, and the parked workers of the degraded gathers' pool."""
+        self._stop.set()
+        self._hb_wake.set()  # unblock the heartbeat generator's wait
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=30)
+            self._hb_thread = None
+        self._stop_metrics_push()
         if self._http_server:
             self._http_server.shutdown()
             self._http_server.server_close()
         if self._grpc_server:
-            self._grpc_server.stop(grace=0.5).wait()
-            self._grpc_pool.shutdown(wait=True)
+            rpc.stop_server(self._grpc_server, self._grpc_pool)
         if self._profiling:
             from seaweedfs_tpu_torch.telemetry import profiler
 
             profiler.release()
             self._profiling = False
+        # the degraded gathers' attempt workers park between tasks; the
+        # pool is the process's, so end the parked ones here (a server
+        # still serving starts fresh ones on demand)
+        from seaweedfs_tpu_torch.qos import hedge
+
+        hedge.close_idle()
         self.store.close()

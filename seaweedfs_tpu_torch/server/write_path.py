@@ -1,12 +1,14 @@
-"""The shared blob write path: request → Needle, and the write auth gate.
+"""The shared blob write path: request → Needle, replica fan-out, and
+the write auth gate.
 
 The volume server's POST handler builds needles here with the exact
 semantics of the reference — multipart forms (needle.go:85 ParseUpload),
 mime/name flags, JPEG orientation fixing, transparent + pre-gzipped
-compression, chunk-manifest flag, Seaweed-* pairs, ts=/ttl= params. The
-reference's one-pass C POST loop (native/post.c) and its replica fan-out
-(store_replicate.go:44-80, which learns peers from the master) wait for
-ROADMAP items 8 and 7.
+compression, chunk-manifest flag, Seaweed-* pairs, ts=/ttl= params —
+and fans each write out to the replica peers the master names
+(store_replicate.go:44-80), all-or-error. The reference's one-pass C
+POST loop (native/post.c) waits for ROADMAP item 8, and the
+hinted-handoff seam of its fan-out for item 10.
 """
 
 from __future__ import annotations
@@ -125,6 +127,70 @@ def build_upload_needle(
     if stages is not None:
         stages["assemble"] = time.perf_counter() - t0
     return n, fname, None
+
+
+def replicate_to_peers(
+    fid: FileId,
+    q: dict,
+    method: str,
+    body: bytes,
+    headers,
+    locations: list[str],
+) -> str | None:
+    """Fan the original write to the replica `locations` (already
+    excluding the sender) with type=replicate so peers store without
+    re-fanning (store_replicate.go:44-80). Returns an error message or
+    None; all-or-error like the reference with WEED_HANDOFF=0: a replica
+    that fails at the transport level or answers anything but 2xx fails
+    the write. (The reference's `on_fail` seam, which spools such a hop
+    as a hinted-handoff record, waits for server/handoff.py, ROADMAP
+    item 10.)"""
+    import urllib.error
+    import urllib.request
+    from urllib.parse import urlencode
+
+    from seaweedfs_tpu_torch import trace
+
+    params = {k: v for k, v in q.items() if k != "type"}
+    params["type"] = "replicate"
+    # replica fan-out is an internal hop: the peer's span must parent
+    # under THIS server's span, not the client's original header
+    trace_hdr = trace.header_value()
+    path_q = f"/{fid}?{urlencode(params)}"
+    for url in locations:
+        try:
+            req = urllib.request.Request(
+                f"http://{url}{path_q}",
+                data=body if method == "POST" else None,
+                method=method,
+            )
+            if trace_hdr:
+                req.add_header(trace.TRACE_HEADER, trace_hdr)
+            # FastHeaders stores keys lowercased; look up both
+            # spellings so a plain-dict caller keeps working too
+            ct = headers.get("Content-Type") or headers.get("content-type")
+            if ct:
+                req.add_header("Content-Type", ct)
+            ce = headers.get("Content-Encoding") or headers.get(
+                "content-encoding"
+            )
+            if ce:  # pre-gzipped uploads must stay flagged on replicas
+                req.add_header("Content-Encoding", ce)
+            for hk, hv in headers.items():
+                if hk.lower().startswith("seaweed-"):
+                    req.add_header(hk, hv)  # pairs replicate too
+            auth = headers.get("Authorization") or headers.get("authorization")
+            if auth:  # keep the write jwt valid on the replica hop
+                req.add_header("Authorization", auth)
+            # weedlint: ignore[no-deadline] — one bounded 10 s replica hop inside the already-deadlined POST dispatch
+            with urllib.request.urlopen(req, timeout=10) as r:
+                if r.status >= 300:
+                    return f"replica {url} returned {r.status}"
+        except urllib.error.HTTPError as e:
+            return f"replica {url} returned {e.code}"
+        except OSError as e:
+            return f"replica {url} failed: {e}"
+    return None
 
 
 def check_write_auth(guard, path: str, headers, client_ip: str) -> str | None:

@@ -3,13 +3,14 @@ text exposition.
 
 The port carries the families its modules name (the EC pipelines, the
 degraded read, the store, the volume server, its mini loop and write
-path); the reference's master, telemetry, scrub-engine, tier and
-replication families come with those planes.
+path, the master's health plane, the client's retries and the push
+loop); the reference's telemetry, scrub-engine, tier and replication
+families come with those planes.
 
 A Registry renders Prometheus text format 0.0.4 so any scraper
 understands it (weed/stats/metrics.go:14-60). The push loop to a
-pushgateway is configured by the master's heartbeat reply, and comes
-with the master (ROADMAP item 7).
+pushgateway (start_push_loop) is configured by the master's heartbeat
+reply.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import bisect
 import os
 import threading
 import time
+import urllib.request
 
 DEFAULT_BUCKETS = (
     0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0
@@ -368,6 +370,15 @@ COMMIT_FLUSHES = DEFAULT_REGISTRY.counter(
 )
 
 # --- robustness plane: unified retries + deadlines (docs/CHAOS.md) ----------
+RETRY_TOTAL = DEFAULT_REGISTRY.counter(
+    "weed_retry_total",
+    "retries granted by the unified RetryPolicy, by call-site label",
+    ("site",),
+)
+RETRY_BUDGET_EXHAUSTED = DEFAULT_REGISTRY.counter(
+    "weed_retry_budget_exhausted_total",
+    "retries refused because the process-wide retry budget ran dry",
+)
 DEADLINE_REJECTED = DEFAULT_REGISTRY.counter(
     "weed_deadline_rejected_total",
     "requests 504-fast-rejected at dispatch: X-Weed-Deadline already expired",
@@ -400,3 +411,86 @@ ARBITER_WAIT_SECONDS = DEFAULT_REGISTRY.counter(
     "seconds background claimants spent blocked on their share",
     ("claimant",),
 )
+
+# --- master push loop and health plane ---------------------------------------
+PUSH_LAST_SUCCESS = DEFAULT_REGISTRY.gauge(
+    "weed_metrics_push_last_success_unix",
+    "unix time of the last successful pushgateway POST",
+    ("job",),
+)
+PUSH_UP = DEFAULT_REGISTRY.gauge(
+    "weed_metrics_push_up",
+    "1 when the most recent pushgateway POST succeeded, else 0",
+    ("job",),
+)
+PUSH_FAILURES = DEFAULT_REGISTRY.counter(
+    "weed_metrics_push_failures_total",
+    "pushgateway POSTs that failed",
+    ("job",),
+)
+HEALTH_TRANSITIONS = DEFAULT_REGISTRY.counter(
+    "weed_health_transitions_total",
+    "node health-state transitions observed by the master, by new state",
+    ("state",),
+)
+
+
+# textual push-loop health (gauges can't carry the error STRING): job
+# -> {"last_success_unix", "last_error"}
+_push_status: dict[str, dict] = {}
+_push_status_lock = threading.Lock()
+
+
+def push_status() -> dict[str, dict]:
+    """Per-job push-loop health rows for operator surfaces."""
+    with _push_status_lock:
+        return {job: dict(row) for job, row in _push_status.items()}
+
+
+def start_push_loop(
+    gateway_url: str,
+    job: str,
+    interval_sec: float,
+    registry: Registry = DEFAULT_REGISTRY,
+    stop_event: threading.Event | None = None,
+) -> threading.Thread:
+    """Push registry text to a pushgateway URL every interval
+    (stats/metrics.go LoopPushingMetric; interval and address arrive in
+    the master HeartbeatResponse). The thread ends once `stop_event`
+    (its `.stop_event`) is set."""
+    stop = stop_event or threading.Event()
+    with _push_status_lock:
+        _push_status[job] = {"last_success_unix": 0.0, "last_error": ""}
+
+    def loop():
+        while not stop.is_set():
+            try:
+                body = registry.render_text().encode()
+                req = urllib.request.Request(
+                    gateway_url.rstrip("/") + f"/metrics/job/{job}",
+                    data=body,
+                    method="POST",
+                    headers={"Content-Type": "text/plain; version=0.0.4"},
+                )
+                urllib.request.urlopen(req, timeout=5).read()
+                PUSH_LAST_SUCCESS.set(time.time(), job)
+                PUSH_UP.set(1.0, job)
+                with _push_status_lock:
+                    _push_status[job] = {
+                        "last_success_unix": round(time.time(), 3),
+                        "last_error": "",
+                    }
+            except OSError as e:
+                # a push gateway being down must not hurt the server,
+                # but it stays visible: /metrics carries the loop's own
+                # health and push_status() keeps the error string
+                PUSH_UP.set(0.0, job)
+                PUSH_FAILURES.labels(job).inc()
+                with _push_status_lock:
+                    _push_status[job]["last_error"] = str(e)[:300]
+            stop.wait(interval_sec)
+
+    t = threading.Thread(target=loop, daemon=True, name="metrics-push")
+    t.stop_event = stop
+    t.start()
+    return t

@@ -288,6 +288,12 @@ class Store:
         self._update_quarantine_gauge()
         self.notify_change()
 
+    def quarantined_shard_bits(self, vid: int) -> int:
+        bits = 0
+        for sid in self.quarantined.get(vid, ()):
+            bits |= 1 << sid
+        return bits
+
     def clear_quarantine(self, vid: int, shard_id: int) -> None:
         per_vid = self.quarantined.get(vid)
         if per_vid and per_vid.pop(shard_id, None) is not None:

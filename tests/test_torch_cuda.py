@@ -184,6 +184,41 @@ def test_k4_graph_replays(card):
             assert torch.equal(outs[i], crc_kernel.crc32c_rows_plain(xs[i])), (seed, i)
 
 
+def test_k4_graphs_on_two_streams_beside_an_uncaptured_launch(card):
+    """Two graphs of 8 K4 launches each, both captured on one stream,
+    replayed at once on two other streams while 8 uncaptured K4 calls
+    run on the capture stream, four rounds with the inputs rewritten:
+    each graph owns the ticket counters it captured, so no two launches
+    in flight share them and every result equals the plain version."""
+    xs = _lanes((3, 8, 14, 65536), 26, card)
+    crc_kernel.crc32c_rows(xs[0, 0])  # the geometry's tables, outside any capture
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    graphs, outs = [], []
+    for g in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=cap):
+            outs.append([crc_kernel.crc32c_rows(xs[g, i]) for i in range(8)])
+        graphs.append(graph)
+    replay_streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for rnd in range(4):
+        xs.copy_(_lanes(xs.shape, 27 + rnd, card))
+        for s in replay_streams + [cap]:
+            s.wait_stream(torch.cuda.current_stream())
+        for graph, s in zip(graphs, replay_streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+        with torch.cuda.stream(cap):
+            direct = [crc_kernel.crc32c_rows(xs[2, i]) for i in range(8)]
+        torch.cuda.synchronize()
+        for g in range(2):
+            for i in range(8):
+                assert torch.equal(outs[g][i], crc_kernel.crc32c_rows_plain(xs[g, i])), (
+                    rnd, g, i)
+        for i in range(8):
+            assert torch.equal(direct[i], crc_kernel.crc32c_rows_plain(xs[2, i])), (rnd, i)
+
+
 # 2**21 + 3 lanes over 3 rows: 513 chunks of 16 KiB, so the row fold
 # takes runs of 4 chunks
 @pytest.mark.parametrize("n32", [1, 5, 4095, 4097, 70001, (1 << 21) + 3])
@@ -612,3 +647,104 @@ def test_server_two_generates_at_once_equal_serial(card, tmp_path):
                     assert a.read() == b.read(), (vid, ext)
     finally:
         vs.stop()
+
+
+def test_cluster_rebuild_beside_degraded_gets_equals_serial(card, tmp_path):
+    """Three servers and a master on one card, booted by start_cluster: A
+    (the server the one grown volume lands on) generates and spreads (B
+    4-8, C 9-13), A stops; 8 HammerReaders GET every needle through B
+    (decodes from B's and C's survivors on per-call streams) while B
+    rebuilds 0-3 reading 9-13 off C (K4 on its stage stream), and go on
+    reading after it. Every body equals its payload and B's rebuilt
+    shards equal A's generated ones, as when the GETs and the rebuild
+    run one after the other. (A never mounts its shards: it only sources
+    the copies.)"""
+    import json
+    import time
+    import urllib.request
+
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc, volume_pb2 as pb
+    from seaweedfs_tpu_torch.util.availability import (
+        HammerReader,
+        run_with_readers,
+        start_cluster,
+    )
+
+    def wait(cond, timeout=60.0):
+        deadline = time.time() + timeout
+        while not cond():
+            assert time.time() < deadline
+            time.sleep(0.02)
+
+    dirs = [str(tmp_path / f"vs{i}") for i in range(3)]
+    for d in dirs:
+        os.makedirs(d)
+    master, servers = start_cluster(dirs, volume_size_limit_mb=256, ec_codec="cuda",
+                                    scrub_interval=0)
+    stubs = []
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{master.port}/vol/grow"
+                               f"?collection=ec&count=1", timeout=60).read()
+        rng = np.random.default_rng(31)
+        bodies = {}
+        for _ in range(48):
+            with urllib.request.urlopen(f"http://127.0.0.1:{master.port}/dir/assign"
+                                        f"?collection=ec", timeout=30) as r:
+                assign = json.loads(r.read())
+            body = rng.bytes(int(np.exp(rng.uniform(np.log(1024), np.log(1 << 20)))))
+            _post(int(assign["url"].rsplit(":", 1)[1]), assign["fid"], body)
+            bodies[assign["fid"]] = body
+        vid = int(next(iter(bodies)).split(",")[0])
+        a_url = assign["url"]
+        a = next(i for i, vs in enumerate(servers) if f"127.0.0.1:{vs.port}" == a_url)
+        servers[:] = [servers[a]] + [vs for i, vs in enumerate(servers) if i != a]
+        for vs in servers:
+            ch = rpc.dial(f"127.0.0.1:{vs.grpc_port}")
+            stubs.append((ch, rpc.volume_stub(ch)))
+        sa, sb, sc = (s for _, s in stubs)
+        sa.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=vid))
+        sa.VolumeEcShardsGenerate(pb.VolumeEcShardsGenerateRequest(volume_id=vid,
+                                                                   collection="ec"))
+        for s, sids in ((sb, list(range(4, 9))), (sc, list(range(9, 14)))):
+            s.VolumeEcShardsCopy(pb.VolumeEcShardsCopyRequest(
+                volume_id=vid, collection="ec", shard_ids=sids, copy_ecx_file=True,
+                source_data_node=a_url))
+            s.VolumeEcShardsMount(pb.VolumeEcShardsMountRequest(
+                volume_id=vid, collection="ec", shard_ids=sids))
+        sa.VolumeEcShardsDelete(pb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, collection="ec", shard_ids=list(range(4, 14))))
+        sa.VolumeDelete(pb.VolumeDeleteRequest(volume_id=vid))
+
+        def holders():
+            with rpc.dial(f"127.0.0.1:{master.grpc_port}") as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid))
+            return {e.shard_id for e in resp.shard_id_locations}
+
+        wait(lambda: holders() == set(range(4, 14)))
+        base_a = os.path.join(servers[0].store.locations[0].directory, f"ec_{vid}")
+        servers.pop(0).stop()
+        fids = list(bodies)
+        readers = [HammerReader(f"http://127.0.0.1:{servers[0].port}",
+                                {fid: bodies[fid] for fid in fids[t::8]}, f"reader{t}")
+                   for t in range(8)]
+        before = (codec_cuda.LAUNCHES.value, crc_kernel.LAUNCHES.value)
+        rebuilt = []
+        run_with_readers(readers, lambda: rebuilt.append(sb.VolumeEcShardsRebuild(
+            pb.VolumeEcShardsRebuildRequest(volume_id=vid, collection="ec"), timeout=300)))
+        failures = [f for r in readers for f in r.failures]
+        assert failures == [] and not any(r.is_alive() for r in readers), failures[:5]
+        assert all(r.reads >= len(r.keys) for r in readers), [r.reads for r in readers]
+        assert list(rebuilt[0].rebuilt_shard_ids) == [0, 1, 2, 3]
+        assert codec_cuda.LAUNCHES.value > before[0] and crc_kernel.LAUNCHES.value > before[1]
+        base_b = os.path.join(servers[0].store.locations[0].directory, f"ec_{vid}")
+        for i in range(4):
+            ext = ec_files.to_ext(i)
+            with open(base_a + ext, "rb") as x, open(base_b + ext, "rb") as y:
+                assert x.read() == y.read(), ext
+    finally:
+        for ch, _ in stubs:
+            ch.close()
+        for vs in servers:
+            vs.stop()
+        master.stop()

@@ -207,6 +207,33 @@ class TestFirstKGather:
             assert len(hedge.gather_first_k({0: lambda done: 1}, 1)) == 1
         assert hedge._ATTEMPTS.spawned - before <= 2
 
+    def test_close_idle_ends_parked_workers_and_tasks_are_dropped(self):
+        """A parked worker holds nothing of its last task, close_idle()
+        ends every parked worker (a volume server's stop() calls it), and
+        the next gather starts fresh ones."""
+        import gc
+        import weakref
+
+        class Payload:
+            pass
+
+        held = Payload()
+        ref = weakref.ref(held)
+        assert hedge.gather_first_k({0: lambda done, h=held: 1}, 1) == {0: 1}
+        del held
+        deadline = time.time() + 2.0
+        while time.time() < deadline and ref() is not None:
+            gc.collect()
+            time.sleep(0.01)
+        assert ref() is None
+        pool = hedge._ATTEMPTS
+        with pool._lock:
+            parked = [pool._threads[q] for q in pool._idle]
+        assert parked
+        hedge.close_idle()
+        assert not any(t.is_alive() for t in parked) and not pool._idle
+        assert hedge.gather_first_k({1: lambda done: 2}, 1) == {1: 2}
+
     def test_zero_k_or_no_tasks(self):
         assert hedge.gather_first_k({}, 3) == {}
         assert hedge.gather_first_k({1: lambda done: 1}, 0) == {}

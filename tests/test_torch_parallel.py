@@ -241,7 +241,8 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-# the volume server's slice: every module it added is walked too
+# the volume server's and the master tier's slices: every module they
+# added is walked too
 SERVER_SLICE = (
     "pb/rpc.py", "pb/volume_pb2.py", "pb/master_pb2.py", "pb/filer_pb2.py",
     "pb/raft_pb2.py", "pb/tikv_pb2.py", "util/deadline.py", "util/http_range.py",
@@ -250,6 +251,13 @@ SERVER_SLICE = (
     "qos/admission.py", "qos/group_commit.py", "scrub/arbiter.py", "cluster/health.py",
     "server/write_path.py", "server/volume_server.py",
     "telemetry/profiler.py", "images/__init__.py",
+    # the master tier's slice
+    "stats/duration_counter.py", "stats/__init__.py", "sequence.py",
+    "topology/__init__.py", "topology/node.py", "topology/volume_layout.py",
+    "topology/volume_growth.py", "topology/topology.py", "cluster/__init__.py",
+    "cluster/raft.py", "server/master_server.py", "stats/metrics.py",
+    "util/availability.py", "client/__init__.py", "client/operation.py",
+    "client/retry.py",
 )
 
 

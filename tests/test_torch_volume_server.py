@@ -406,18 +406,20 @@ def _ecc_crcs(d, vid):
         return json.load(f)
 
 
+# item None: the master tier (ROADMAP item 7) is ported, and the
+# parameter that waited for it is now taken as given
 WAITS = [
-    ({"master": "127.0.0.1:9333"}, "ROADMAP item 7"),
+    ({"master": "127.0.0.1:9333"}, None),
     ({"scrub_interval": 600.0}, "ROADMAP item 9"),
     ({"internal_port": 1}, "ROADMAP item 8"),
     ({"shard_writes": True}, "ROADMAP item 8"),
     ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11"),
-    ({"public_url": "10.0.0.1:8080"}, "ROADMAP item 7"),
-    ({"data_center": "dc1"}, "ROADMAP item 7"),
-    ({"rack": "r1"}, "ROADMAP item 7"),
-    ({"announce": "10.0.0.1:8080"}, "ROADMAP item 7"),
-    ({"heartbeat_interval": 5.0}, "ROADMAP item 7"),
-    ({"read_redirect": True}, "ROADMAP item 7"),
+    ({"public_url": "10.0.0.1:8080"}, None),
+    ({"data_center": "dc1"}, None),
+    ({"rack": "r1"}, None),
+    ({"announce": "10.0.0.1:8080"}, None),
+    ({"heartbeat_interval": 5.0}, None),
+    ({"read_redirect": True}, None),
     ({"n_writers": 4}, "ROADMAP item 8"),
 ]
 
@@ -425,8 +427,19 @@ WAITS = [
 @pytest.mark.parametrize("kw, item", WAITS, ids=[next(iter(k)) for k, _ in WAITS])
 def test_waiting_parameters_raise(tmp_path, kw, item):
     args = {"scrub_interval": 0, **kw}
-    with pytest.raises(NotImplementedError, match=item):
-        PortServer([str(tmp_path)], port=free_port(), device="cpu", **args)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            PortServer([str(tmp_path)], port=free_port(), device="cpu", **args)
+        return
+    vs = PortServer([str(tmp_path)], port=free_port(), device="cpu", **args)
+    try:
+        (name, value), = kw.items()
+        if name == "announce":
+            assert f"{vs.announce_host}:{vs.announce_port}" == value
+        else:
+            assert getattr(vs, name) == value
+    finally:
+        vs.store.close()
 
 
 def test_the_reference_default_scrub_interval_raises(tmp_path):
@@ -441,8 +454,10 @@ VERBS = [
     ("VolumeCopy", pb.VolumeCopyRequest(), "ROADMAP item 10"),
     ("VolumeTailSender", pb.VolumeTailSenderRequest(), "ROADMAP item 10"),
     ("VolumeTailReceiver", pb.VolumeTailReceiverRequest(), "ROADMAP item 10"),
-    ("VolumeEcShardsCopy", pb.VolumeEcShardsCopyRequest(), "ROADMAP item 10"),
-    ("CopyFile", pb.CopyFileRequest(), "ROADMAP item 10"),
+    # ported with the master tier (ROADMAP item 7): they serve the request
+    ("VolumeEcShardsCopy", pb.VolumeEcShardsCopyRequest(source_data_node="127.0.0.1:1"),
+     None),
+    ("CopyFile", pb.CopyFileRequest(volume_id=VID, ext=".dat"), None),
     ("VolumeEcShardsBatchGenerate", pb.VolumeEcShardsBatchGenerateRequest(), "ROADMAP item 8"),
     ("VolumeEcShardsBatchRebuild", pb.VolumeEcShardsBatchGenerateRequest(), "ROADMAP item 8"),
 ]
@@ -452,8 +467,27 @@ VERBS = [
 def test_waiting_verbs_raise(tmp_path, verb, req, item):
     vs = PortServer([str(tmp_path)], port=free_port(), device="cpu", scrub_interval=0)
     try:
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(vs, verb)(req, None)
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=item):
+                getattr(vs, verb)(req, None)
+            return
+        # a copy of nothing answers empty; CopyFile of a file that is
+        # not there aborts NOT_FOUND, as the reference's does
+        aborted = []
+
+        class Context:
+            def abort(self, code, message):
+                aborted.append(code)
+                raise grpc.RpcError(message)
+
+        try:
+            got = getattr(vs, verb)(req, Context())
+            if verb == "CopyFile":
+                got = list(got)
+        except grpc.RpcError:
+            got = None
+        assert (aborted, got) == (([grpc.StatusCode.NOT_FOUND], None) if verb == "CopyFile"
+                                  else ([], pb.VolumeEcShardsCopyResponse()))
     finally:
         vs.store.close()
 
@@ -475,20 +509,32 @@ def test_server_runs_the_card_unless_asked(tmp_path, monkeypatch):
         vs.store.close()
 
 
-def test_stop_ends_every_thread_start_made(tmp_path):
+def test_stop_ends_every_thread_start_made(tmp_path, monkeypatch):
     """stop() leaves no thread of the server running: the listeners, the
-    gRPC workers and the sampling profiler's thread all end (a thread
-    that outlived it could still drive the card or hold its buffers)."""
+    gRPC workers, grpc's grace thread and the sampling profiler's thread
+    all end (a thread that outlived it could still drive the card or
+    hold its buffers). The grace thread must be seen by its name, which
+    stop_server joins by: a grpc that named it otherwise fails here."""
+    from seaweedfs_tpu_torch.pb import rpc as port_rpc
     from seaweedfs_tpu_torch.telemetry import profiler
 
     before = set(threading.enumerate())
     vs = _start("port", str(tmp_path))
+    started, start = [], threading.Thread.start
+
+    def record(t):
+        started.append(t.name)
+        return start(t)
+
     try:
         assert profiler.running() == profiler._ENABLED
         _both({"port": vs}, "AllocateVolume", pb.AllocateVolumeRequest(volume_id=VID))
         assert _raw(vs.port, _req("GET", "/status")).startswith(b"HTTP/1.1 200")
     finally:
+        monkeypatch.setattr(threading.Thread, "start", record)
         vs.stop()
+        monkeypatch.undo()
+    assert any(port_rpc.GRACE_THREAD in n for n in started), started
     left = [t.name for t in threading.enumerate()
             if t not in before and t.name != "trace-drain"]
     assert left == [] and not profiler.running()
