@@ -10,12 +10,16 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      each kernel at the main path's shapes (K1 with the encode, 4-shard
      and 1-shard decode matrices, and the degraded read's 1-row decode
      at one tile and one 32-tile run; K4 at the encode's [14, 262144]
-     tile; K5 with the degraded read's 1-row decode at the 4 KiB and
-     32 KiB buckets of an exact interval), hold it byte-exact against its
-     plain PyTorch version on the card, time both with CUDA events, and
-     compute its bound on this card; then, untimed, hold K1, K2 and K3
-     against their plain versions over random (k, rows) matrices, and K4
-     over random row counts and ragged, unaligned rows;
+     tile; K5 with the degraded read's 1-row decode at the 32 KiB, 4 KiB
+     and 1 KiB buckets of an exact interval and a 4-row decode at 32 KiB),
+     hold it byte-exact against its plain PyTorch version on the card,
+     time both with CUDA events, and compute its bound on this card; K5's
+     tensor-core kernel is timed in turns with the ALU kernel it replaced
+     (old, new, new, old) beside the harness's own floor (a one-element
+     fill_ in the same CUDA-graph harness); then, untimed, hold K1, K2
+     and K3 against their plain versions over random (k, rows) matrices,
+     K4 over random row counts and ragged, unaligned rows, and K5 over
+     random (C, R) on both arms of its dispatch;
   3. the single-volume path: write one sealed volume (default 1 GiB)
      with the port's storage code, EC-encode it through
      ec_files.write_ec_files on the cuda backend (fused shard CRCs,
@@ -68,7 +72,8 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      shards, drop the .dat volume, lose the four again and GET every
      live needle (tile-cache decodes: K1), then again with
      WEED_EC_TILE_CACHE=0 (exact intervals: K5 under 64 KiB, K1 above,
-     both must launch); last, two VolumeEcShardsGenerate calls at once
+     both must launch, and every K5 launch on K5's tensor-core arm); last,
+     two VolumeEcShardsGenerate calls at once
      on two 64 MiB volumes, equal to the same encodes run one after the
      other; after stop() no thread the server started may be left;
  3e. the cluster (run_cluster_phase): a master and three volume servers
@@ -77,9 +82,9 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      1 GiB through /dir/assign; VolumeEcShardsGenerate on A (K1 + K4),
      spread as ec.balance would (A 0-3, B 4-8, C 9-13, by
      VolumeEcShardsCopy); every needle GET through B healthy, then with
-     A stopped, tile cache on (K1) and off (K5 and K1), each body equal
-     to its payload's SHA-256; B rebuilds 0-3 reading 9-13 off C (K1 +
-     K4), byte-identical to A's shards, CRCs equal to the .ecc; after
+     A stopped, tile cache on (K1) and off (K5, on its tensor-core arm,
+     and K1), each body equal to its payload's SHA-256; B rebuilds 0-3
+     reading 9-13 off C (K1 + K4), byte-identical to A's shards, CRCs equal to the .ecc; after
      stop() no thread may be left, and grpc's grace thread must be seen;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
@@ -331,58 +336,127 @@ def time_apply_matrix(rows, lanes: int, seed: int, card: str, reps: int = 20) ->
     return {"ms": ms, "steps_ms": steps}
 
 
+def k5_shapes() -> list:
+    """(label, GF rows, bytes) of K5's timed shapes: the degraded read's
+    1-row decode (shard 0 from the survivors of LOST) at the largest
+    exact-interval bucket under 64 KiB, at 4 KiB and at 1 KiB, and the
+    4-row decode of LOST at 32 KiB."""
+    from seaweedfs_tpu_torch.ec import gf256
+
+    matrix = gf256.build_code_matrix(10, 14)
+    survivors = tuple(i for i in range(14) if i not in LOST)
+    one = gf256.decode_rows(matrix, survivors, (0,))
+    return [("degraded_32k", one, 32768), ("degraded_4k", one, 4096),
+            ("degraded_1k", one, 1024),
+            ("decode4_32k", gf256.decode_rows(matrix, survivors, LOST), 32768)]
+
+
+def k5_pool(k: int, n: int, seed: int) -> tuple[list, int]:
+    """Distinct [1, k, n] uint8 inputs of at least 128 MiB in all (beyond
+    the 50 MB L2), and the launches a timing graph takes over them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = max(8, (128 << 20) // (k * n))
+    pool = torch.randint(0, 256, (sets, 1, k, n), dtype=torch.uint8, device="cuda",
+                         generator=g)
+    return list(pool), max(64, min(sets, 1024))
+
+
+def k5_alu(a_bits, x, args):
+    """K5's ALU kernel (the first design, gf_bits_apply) on [B, C, n] x,
+    called past the wrapper, which takes it only for the shapes the
+    tensor-core kernel cannot: the old design timed beside the new one.
+    No launch counter moves."""
+    import torch
+
+    from seaweedfs_tpu_torch import _build
+    from seaweedfs_tpu_torch.ec import codec_cuda
+
+    b, c, n = x.shape
+    r = a_bits.shape[0] // 8
+    out = torch.empty((b, r, n), dtype=torch.uint8, device=x.device)
+    err = codec_cuda._kernel("gf_bits.cu").gf_bits_apply(
+        x.data_ptr(), out.data_ptr(), b, c, r, n, c * n, r * n, args.masks.ctypes.data,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gf_bits (ALU kernel) launch")
+    return out
+
+
+def floor_ms(iters: int) -> float:
+    """_kernel_ms's own per-launch floor: a one-element fill_ captured and
+    timed by the same harness, `iters` launches a graph."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return _kernel_ms(lambda i: one.fill_(1.0), iters=iters)
+
+
 def check_k5(name: str, rows, n: int, seed: int, card: str) -> dict:
     """K5 with GF rows `rows` over a [k, n] uint8 stream (one bucket of an
-    exact-interval decode): byte-exact against its plain version, then
-    timed over distinct inputs of at least 128 MiB in all, beside the
-    library yardstick: the same GF(2) product as one float32 torch.matmul
-    of the bit-matrix with the input's bit-planes (exact: a sum is at most
-    k * 8), the unpack and the pack excluded."""
+    exact-interval decode): byte-exact against its plain version on the
+    tensor-core arm, then timed over distinct inputs of at least 128 MiB
+    in all in turns with the ALU kernel it replaced (old, new, new, old),
+    beside the harness floor and the library yardstick: the same GF(2)
+    product as one float32 torch.matmul of the bit-matrix with the
+    input's bit-planes (exact: a sum is at most k * 8), the unpack and
+    the pack excluded."""
     import torch
 
     from seaweedfs_tpu_torch.ec import codec_cuda
 
     k, r = rows.shape[1], rows.shape[0]
     a_bits = codec_cuda.gf_matrix_to_bits(rows)
-    masks = codec_cuda.bit_masks(a_bits)
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    sets = max(8, (128 << 20) // (k * n))
-    pool = torch.randint(0, 256, (sets, 1, k, n), dtype=torch.uint8, device="cuda",
-                         generator=g)
-    got = codec_cuda.apply_matrix_bits_batch(a_bits, pool[0], masks)
-    want = codec_cuda.gf_bits_plain(a_bits, pool[0])
+    args = codec_cuda.bit_args(a_bits)
+    xs, iters = k5_pool(k, n, seed)
+    arm0 = codec_cuda.BITS_MMA_LAUNCHES.value
+    got = codec_cuda.apply_matrix_bits_batch(a_bits, xs[0], args)
+    want = codec_cuda.gf_bits_plain(a_bits, xs[0])
     torch.cuda.synchronize()
+    if codec_cuda.BITS_MMA_LAUNCHES.value != arm0 + 1:
+        raise AssertionError(f"K5 {name}: the call did not take the tensor-core arm")
     err = _max_abs_err(got, want)
-    if err or not torch.equal(got, want):
-        raise AssertionError(f"K5 {name}: kernel disagrees with its plain version")
-    ms = _kernel_ms(lambda i: codec_cuda.apply_matrix_bits_batch(
-        a_bits, pool[i % sets], masks), iters=max(64, min(sets, 1024)))
-    plain_ms = _time_ms(lambda i: codec_cuda.gf_bits_plain(a_bits, pool[i % sets]), 20)
+    if err or not torch.equal(got, want) or not torch.equal(k5_alu(a_bits, xs[0], args),
+                                                             want):
+        raise AssertionError(f"K5 {name}: a kernel disagrees with its plain version")
+    sets = len(xs)
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        fn = (codec_cuda.apply_matrix_bits_batch if which == "new" else k5_alu)
+        turns[which].append(_kernel_ms(lambda i: fn(a_bits, xs[i % sets], args),
+                                       iters=iters))
+    ms, old_ms = sum(turns["new"]) / 2, sum(turns["old"]) / 2
+    floor = floor_ms(iters)
+    plain_ms = _time_ms(lambda i: codec_cuda.gf_bits_plain(a_bits, xs[i % sets]), 20)
     a = torch.from_numpy(a_bits.astype(np.float32)).cuda()
-    planes = [((pool[i, 0][:, None, :] >> torch.arange(8, dtype=torch.uint8, device="cuda")
+    planes = [((xs[i][0][:, None, :] >> torch.arange(8, dtype=torch.uint8, device="cuda")
                 [None, :, None]) & 1).reshape(k * 8, n).float() for i in range(8)]
     library_ms = _time_ms(lambda i: torch.matmul(a, planes[i % 8]), 200)
     nbytes = (k + r) * n
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(
         f"K5 gf_bits {name} [{k},{n}]->[{r},{n}] bytes on {card}: byte-exact vs plain "
-        f"(max_abs_err 0); kernel {ms:.4f} ms over {sets} distinct inputs, plain "
+        f"(max_abs_err 0), both designs; in turns over {sets} distinct inputs, old (ALU) "
+        f"{turns['old'][0]:.5f}, new (tensor cores) {turns['new'][0]:.5f} / "
+        f"{turns['new'][1]:.5f}, old {turns['old'][1]:.5f} ms; the harness floor (a "
+        f"one-element fill_, {iters} launches a graph) {floor:.5f} ms; plain "
         f"{plain_ms:.4f} ms, library (float32 matmul of the bit-planes, unpack and pack "
         f"excluded) {library_ms:.4f} ms, bound {bound:.6f} ms (bytes; {bound / ms:.4f} "
         f"of it)"
     )
-    del pool, planes
+    del xs, planes
     return {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "max_abs_err": err, "library_ms": library_ms,
+        "max_abs_err": err, "library_ms": library_ms, "old_ms": old_ms,
+        "floor_ms": floor, "turns": turns,
     }
 
 
 def sweep_k5(seed: int, draws: int = 24) -> int:
     """Untimed exactness sweep of K5 against its plain version: C and R
-    drawn from 1..16, ragged and unaligned byte counts (the scalar
-    variant) and multiples of 4 (the vector one), batches of 1..3.
-    Returns the calls checked."""
+    drawn from 1..16, ragged and unaligned byte counts (the ALU arm's
+    scalar variant) and multiples of 4 (the tensor-core arm), batches of
+    1..3. Returns the calls checked."""
     import torch
 
     from seaweedfs_tpu_torch.ec import codec_cuda
@@ -611,21 +685,22 @@ def check_signatures(runs: dict, paths, names: dict, seed: int, card: str) -> di
             if k5:
                 r, c, n, b, mat = sig
                 a_bits = np.frombuffer(mat, dtype=np.int8).reshape(r * 8, c * 8)
-                masks = codec_cuda.bit_masks(a_bits)
+                k5_args = codec_cuda.bit_args(a_bits)
                 flat = pool.view(torch.uint8)
                 per = b * c * n
                 xs = [flat[i * per:(i + 1) * per].view(b, c, n)
                       for i in range(min(SIG_MAX_INPUTS, flat.numel() // per))]
                 label = names.get(mat, f"{r}x{c} bit-matrix")
-                if not torch.equal(codec_cuda.apply_matrix_bits_batch(a_bits, xs[0], masks),
+                if not torch.equal(codec_cuda.apply_matrix_bits_batch(a_bits, xs[0], k5_args),
                                    codec_cuda.gf_bits_plain(a_bits, xs[0])):
                     raise AssertionError(f"K5 [{b},{c},{n}] ({label}): kernel disagrees "
                                          f"with its plain version")
+                iters = min(SIG_MAX_INPUTS, max(64, len(xs)))
                 ms = _kernel_ms(lambda i: codec_cuda.apply_matrix_bits_batch(
-                    a_bits, xs[i % len(xs)], masks),
-                    iters=min(SIG_MAX_INPUTS, max(64, len(xs))))
+                    a_bits, xs[i % len(xs)], k5_args), iters=iters)
                 nbytes = (c + r) * n * b
-                shape = f"[{b},{c},{n}]->[{b},{r},{n}] bytes ({label})"
+                shape = (f"[{b},{c},{n}]->[{b},{r},{n}] bytes ({label}; the harness floor "
+                         f"{floor_ms(iters):.5f} ms)")
             elif k1:
                 r, k, n32, mat = sig
                 rows = np.frombuffer(mat, dtype=np.uint8).reshape(r, k)
@@ -819,6 +894,8 @@ def _counts() -> dict:
         "gf_verify_batch": codec_cuda.VERIFY_LAUNCHES,
         "crc32c_rows": crc_kernel.LAUNCHES,
         "gf_bits": codec_cuda.BITS_LAUNCHES,
+        "gf_bits_mma": codec_cuda.BITS_MMA_LAUNCHES,  # K5's arms, each counted
+        "gf_bits_alu": codec_cuda.BITS_ALU_LAUNCHES,  # beside gf_bits's total
     }
 
 
@@ -858,6 +935,15 @@ def _must_launch(label: str, launches: dict, names) -> None:
     for kname in names:
         if launches[kname] <= 0:
             raise AssertionError(f"{label}: kernel {kname} was never launched")
+
+
+def _must_take_mma(label: str, launches: dict) -> None:
+    """Every K5 launch of a serving pass took the tensor-core arm: its
+    buckets are powers of two on fresh allocations."""
+    if launches["gf_bits_mma"] != launches["gf_bits"] or launches["gf_bits_alu"]:
+        raise AssertionError(f"{label}: K5 launches {launches['gf_bits']}, of them "
+                             f"{launches['gf_bits_mma']} on the tensor-core arm and "
+                             f"{launches['gf_bits_alu']} on the ALU arm")
 
 
 def profile_encode(kind: str, bases: list, workdir: str, card: str,
@@ -2171,7 +2257,8 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
             os.environ.pop("WEED_EC_TILE_CACHE", None)
         k5_runs = runs["server_k5"]["launches"]
         log(f"server K5 pass on {card}: K5 launches {k5_runs['gf_bits']} (decodes under "
-            f"64 KiB), K1 launches {k5_runs['gf_apply']} (64 KiB and up)")
+            f"64 KiB; tensor-core arm {k5_runs['gf_bits_mma']}, ALU arm "
+            f"{k5_runs['gf_bits_alu']}), K1 launches {k5_runs['gf_apply']} (64 KiB and up)")
         if on_card:
             _must_launch("server encode", runs["server_encode"]["launches"],
                          ("gf_apply", "crc32c_rows"))
@@ -2179,6 +2266,7 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
                          ("gf_apply", "crc32c_rows"))
             _must_launch("server serve", runs["server_serve"]["launches"], ("gf_apply",))
             _must_launch("server K5 pass", k5_runs, ("gf_bits", "gf_apply"))
+            _must_take_mma("server K5 pass", k5_runs)
 
         # --- two generates at once, against the same encodes one by one ---
         conc = {}
@@ -2489,6 +2577,7 @@ def run_cluster_phase(workdir: str, volume_bytes: int, seed: int, device=None,
             _must_launch("cluster serve", runs["cluster_serve"]["launches"], ("gf_apply",))
             _must_launch("cluster K5 pass", runs["cluster_k5"]["launches"],
                          ("gf_bits", "gf_apply"))
+            _must_take_mma("cluster K5 pass", runs["cluster_k5"]["launches"])
             _must_launch("cluster rebuild", runs["cluster_rebuild"]["launches"],
                          ("gf_apply", "crc32c_rows"))
         phase = {k: sum(runs[r]["launches"][k] for r in
@@ -2872,10 +2961,10 @@ def main() -> int:
     k1_run = check_gf("degraded_run", deg_rows, args.seed + 10, card, lanes=DEG_RUN_LANES)
     apply_tile = time_apply_matrix(deg_rows, DEG_TILE_LANES, args.seed + 11, card)
     apply_run = time_apply_matrix(deg_rows, DEG_RUN_LANES, args.seed + 12, card, reps=5)
-    # K5 at the degraded read's exact-interval buckets under 64 KiB: the
-    # largest (32 KiB) and a 4 KiB one
-    k5_32k = check_k5("degraded_32k", deg_rows, 32768, args.seed + 14, card)
-    k5_4k = check_k5("degraded_4k", deg_rows, 4096, args.seed + 15, card)
+    # K5 at the degraded read's exact-interval buckets under 64 KiB (the
+    # largest, 4 KiB and 1 KiB) and a 4-row decode, old and new design in turns
+    k5 = [check_k5(label, rows, n, args.seed + seed, card)
+          for (label, rows, n), seed in zip(k5_shapes(), (14, 15, 18, 19))]
     k4 = check_crc(args.seed + 2, card)
     k4_graphs = check_k4_graph_streams(args.seed + 17, card)
     k2_enc = check_gf_batch("encode", matrix[10:], args.seed + 3, card)
@@ -2994,7 +3083,7 @@ def main() -> int:
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
         row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4, k4_graphs),
-        row("gf_bits", K5_SOURCE, K5_REPLACES, k5_32k, k5_4k),
+        row("gf_bits", K5_SOURCE, K5_REPLACES, *k5),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,7 +38,9 @@ from seaweedfs_tpu_torch.ec.codec import register_backend
 LAUNCHES = _build.LaunchCounter("gf_apply")
 BATCH_LAUNCHES = _build.LaunchCounter("gf_apply_batch")
 VERIFY_LAUNCHES = _build.LaunchCounter("gf_verify_batch")
-BITS_LAUNCHES = _build.LaunchCounter("gf_bits")
+BITS_LAUNCHES = _build.LaunchCounter("gf_bits")  # K5, both arms, by signature
+BITS_MMA_LAUNCHES = _build.LaunchCounter("gf_bits_mma")  # K5's tensor-core arm
+BITS_ALU_LAUNCHES = _build.LaunchCounter("gf_bits_alu")  # K5's ALU arm
 _MAX_K = 16  # csrc/gf_swar.cuh GF_MAX_K / GF_MAX_ROWS
 _MAX_ROWS = 16
 
@@ -119,6 +122,9 @@ _ARGTYPES = {
     },
     "gf_bits.cu": {
         "gf_bits_apply": (
+            _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR,
+        ),
+        "gf_bits_apply_mma": (
             _PTR, _PTR, _I64, _I64, _I64, _I64, _I64, _I64, _PTR, _PTR,
         ),
     },
@@ -319,8 +325,8 @@ def gf_matrix_to_bits(matrix: np.ndarray) -> np.ndarray:
 
 
 def bit_masks(a_bits: np.ndarray) -> np.ndarray:
-    """K5's matrix argument: each bit-matrix row as 4 uint32 words,
-    column 8c + j at bit (8c + j) % 32 of word (8c + j) // 32
+    """K5's ALU arm's matrix argument: each bit-matrix row as 4 uint32
+    words, column 8c + j at bit (8c + j) % 32 of word (8c + j) // 32
     ([R*8, 4] uint32; columns past C*8 are 0)."""
     a_bits = np.asarray(a_bits, dtype=np.int8)
     r8, c8 = a_bits.shape
@@ -329,6 +335,44 @@ def bit_masks(a_bits: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(
         np.packbits(padded, axis=1, bitorder="little").view("<u4")
     ).astype(np.uint32)
+
+
+def bit_frags(a_bits: np.ndarray) -> np.ndarray:
+    """K5's tensor-core arm's matrix argument, in the order the warps
+    read it: the B fragment word of each (output row r, lane 4g + t),
+    bit 8q + j = A[8r + g][8(4q + t) + j], i.e. output bit g of row r
+    against bit j of input row 4q + t ([R, 32] uint32; rows past C are
+    0). csrc/gf_bits.cu's note gives the layout."""
+    a_bits = np.asarray(a_bits, dtype=np.int8)
+    r8, c8 = a_bits.shape
+    padded = np.zeros((r8, 128), dtype=np.uint8)
+    padded[:, :c8] = a_bits & 1
+    # column 8c + j with c = 4q + t: [r, g, q, t, j] -> [r, g, t, q, j]
+    lanes = padded.reshape(r8 // 8, 8, 4, 4, 8).transpose(0, 1, 3, 2, 4)
+    words = np.packbits(lanes.reshape(r8 // 8, 32, 32), axis=2, bitorder="little")
+    return np.ascontiguousarray(words.view("<u4").reshape(r8 // 8, 32)).astype(np.uint32)
+
+
+class BitArgs(NamedTuple):
+    """K5's matrix argument for both arms, built once per matrix."""
+
+    masks: np.ndarray  # bit_masks: the ALU arm's
+    frags: np.ndarray  # bit_frags: the tensor-core arm's
+
+
+def bit_args(a_bits: np.ndarray) -> BitArgs:
+    return BitArgs(bit_masks(a_bits), bit_frags(a_bits))
+
+
+K5_GRANULE = 4  # the tensor-core arm's word loads and stores
+K5_GRID_Y = 65535  # batch items a tensor-core launch takes (the grid's y)
+
+
+def k5_takes_mma(in_ptr: int, out_ptr: int, n: int) -> bool:
+    """K5's dispatch, by shape only: the tensor-core arm takes 4-byte
+    aligned input and output with n a multiple of 4 (every row and batch
+    item then starts on 4 bytes); the ALU arm takes the rest."""
+    return in_ptr % K5_GRANULE == 0 and out_ptr % K5_GRANULE == 0 and n % K5_GRANULE == 0
 
 
 def _check_bits(a_bits: np.ndarray, cols: int, what: str) -> tuple[int, int]:
@@ -356,13 +400,14 @@ def gf_bits_plain(a_bits: np.ndarray, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_matrix_bits_batch(
-    a_bits: np.ndarray, inputs: torch.Tensor, masks: np.ndarray | None = None
+    a_bits: np.ndarray, inputs: torch.Tensor, args: BitArgs | None = None
 ) -> torch.Tensor:
     """[B, C, N] uint8 -> [B, R, N] uint8, out[b][r] = XOR_c M[r, c] *
-    inputs[b][c] with `a_bits` = gf_matrix_to_bits(M). Launches K5 once
-    for the batch on a CUDA tensor (current stream; `masks` is
-    bit_masks(a_bits), precomputed by callers that reuse a matrix);
-    runs the plain version on a CPU tensor."""
+    inputs[b][c] with `a_bits` = gf_matrix_to_bits(M). Launches K5 on a
+    CUDA tensor (current stream), on the arm k5_takes_mma picks: once
+    for the batch, or on the tensor-core arm once for each K5_GRID_Y
+    items. `args` is bit_args(a_bits), precomputed by callers that
+    reuse a matrix. Runs the plain version on a CPU tensor."""
     if inputs.dtype != torch.uint8 or inputs.dim() != 3:
         raise ValueError(
             f"apply_matrix_bits takes [B, C, N] uint8, got "
@@ -380,29 +425,43 @@ def apply_matrix_bits_batch(
     if b == 0 or n == 0:
         return out
     x = inputs.contiguous()
-    m = masks if masks is not None else bit_masks(a_bits)
     lib = _kernel("gf_bits.cu")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.gf_bits_apply(
-        x.data_ptr(), out.data_ptr(), b, c, r, n, c * n, r * n,
-        m.ctypes.data, stream,
-    )
-    _build.check(err, "gf_bits launch")
-    BITS_LAUNCHES.inc((r, c, n, b, np.asarray(a_bits, dtype=np.int8).tobytes()))
+    key = np.asarray(a_bits, dtype=np.int8).tobytes()
+    if k5_takes_mma(x.data_ptr(), out.data_ptr(), n):
+        frags = args.frags if args is not None else bit_frags(a_bits)
+        for b0 in range(0, b, K5_GRID_Y):
+            part = min(K5_GRID_Y, b - b0)
+            err = lib.gf_bits_apply_mma(
+                x.data_ptr() + b0 * c * n, out.data_ptr() + b0 * r * n, part, c, r, n,
+                c * n, r * n, frags.ctypes.data, stream,
+            )
+            _build.check(err, "gf_bits (tensor-core arm) launch")
+            BITS_MMA_LAUNCHES.inc()
+            BITS_LAUNCHES.inc((r, c, n, part, key))
+    else:
+        masks = args.masks if args is not None else bit_masks(a_bits)
+        err = lib.gf_bits_apply(
+            x.data_ptr(), out.data_ptr(), b, c, r, n, c * n, r * n,
+            masks.ctypes.data, stream,
+        )
+        _build.check(err, "gf_bits (ALU arm) launch")
+        BITS_ALU_LAUNCHES.inc()
+        BITS_LAUNCHES.inc((r, c, n, b, key))
     return out
 
 
 def apply_matrix_bits(
-    a_bits: np.ndarray, inputs: torch.Tensor, masks: np.ndarray | None = None
+    a_bits: np.ndarray, inputs: torch.Tensor, args: BitArgs | None = None
 ) -> torch.Tensor:
     """[C, N] uint8 -> [R, N] uint8 (apply_matrix_bits_batch, B = 1)."""
     if inputs.dim() != 2:
         raise ValueError(f"apply_matrix_bits takes [C, N], got {tuple(inputs.shape)}")
-    return apply_matrix_bits_batch(a_bits, inputs[None], masks)[0]
+    return apply_matrix_bits_batch(a_bits, inputs[None], args)[0]
 
 
 def apply_matrix_bits_u32_batch(
-    a_bits: np.ndarray, inputs_u32: torch.Tensor, masks: np.ndarray | None = None
+    a_bits: np.ndarray, inputs_u32: torch.Tensor, args: BitArgs | None = None
 ) -> torch.Tensor:
     """[B, k, n32] int32 lanes -> [B, R, n32]: K5 on the lanes' bytes
     (a view, no copy), byte-identical to K2 on the same lanes."""
@@ -413,12 +472,12 @@ def apply_matrix_bits_u32_batch(
         )
     b, k, n32 = inputs_u32.shape
     u8 = inputs_u32.contiguous().view(torch.uint8).reshape(b, k, n32 * 4)
-    out = apply_matrix_bits_batch(a_bits, u8, masks)
+    out = apply_matrix_bits_batch(a_bits, u8, args)
     return out.view(torch.int32).reshape(b, out.shape[1], n32)
 
 
 def apply_matrix_bits_u32(
-    a_bits: np.ndarray, inputs_u32: torch.Tensor, masks: np.ndarray | None = None
+    a_bits: np.ndarray, inputs_u32: torch.Tensor, args: BitArgs | None = None
 ) -> torch.Tensor:
     """[k, n32] int32 lanes -> [R, n32] (apply_matrix_bits_u32_batch,
     B = 1)."""
@@ -426,21 +485,21 @@ def apply_matrix_bits_u32(
         raise ValueError(
             f"apply_matrix_bits_u32 takes [k, n32], got {tuple(inputs_u32.shape)}"
         )
-    return apply_matrix_bits_u32_batch(a_bits, inputs_u32[None], masks)[0]
+    return apply_matrix_bits_u32_batch(a_bits, inputs_u32[None], args)[0]
 
 
-_BITS_CACHE: dict[bytes, tuple[np.ndarray, np.ndarray]] = {}
+_BITS_CACHE: dict[bytes, tuple[np.ndarray, BitArgs]] = {}
 
 
-def _cached_bits(matrix: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """(bit-matrix, masks) of a GF matrix, memoized: a decode calls the
-    backend with one of a few matrices many times."""
+def _cached_bits(matrix: np.ndarray) -> tuple[np.ndarray, BitArgs]:
+    """(bit-matrix, K5's matrix argument) of a GF matrix, memoized: a
+    decode calls the backend with one of a few matrices many times."""
     key = matrix.tobytes() + bytes(matrix.shape)
     with _lib_lock:
         got = _BITS_CACHE.get(key)
     if got is None:
         a_bits = gf_matrix_to_bits(matrix)
-        got = (a_bits, bit_masks(a_bits))
+        got = (a_bits, bit_args(a_bits))
         with _lib_lock:
             if len(_BITS_CACHE) > 512:
                 _BITS_CACHE.clear()  # bound, rarely hit
@@ -486,8 +545,8 @@ def cuda_apply_matrix(
     padded = np.zeros((inputs.shape[0], nb), dtype=np.uint8)
     padded[:, :n] = inputs
     if nb < SWAR_MIN_BYTES:
-        a_bits, masks = _cached_bits(matrix)
-        out = apply_matrix_bits(a_bits, torch.from_numpy(padded).to(dev), masks)
+        a_bits, args = _cached_bits(matrix)
+        out = apply_matrix_bits(a_bits, torch.from_numpy(padded).to(dev), args)
         return out.cpu().numpy()[:, :n]
     x = torch.from_numpy(padded.view(np.int32)).to(dev)
     out = gf_apply_u32(matrix, x)

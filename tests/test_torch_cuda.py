@@ -542,6 +542,105 @@ def test_k5_unaligned_and_lane_forms(card):
                        codec_cuda.gf_apply_u32(rows, lanes[0]))
 
 
+def _k5_draws(count: int, seed: int):
+    """(R, C, B, n, offset, arm): R and C over 1..16, B over 1..3, each
+    draw on one arm of the dispatch: aligned word-multiple n (the
+    tensor-core arm, ragged against the 32 columns of a warp half the
+    time), a pointer one byte off, or n not a multiple of 4 (the ALU
+    arm)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        r, c, b = int(rng.integers(1, 17)), int(rng.integers(1, 17)), int(rng.integers(1, 4))
+        kind = ("aligned", "ragged_warp", "unaligned", "ragged_n")[i % 4]
+        n = 4 * int(rng.integers(1, 3000))
+        if kind == "aligned":
+            n = 32 * int(rng.integers(1, 1100))
+        elif kind == "ragged_warp":
+            n = 32 * int(rng.integers(0, 1100)) + 4 * int(rng.integers(1, 8))
+        elif kind == "ragged_n":
+            n += int(rng.integers(1, 4))
+        arm = "mma" if kind in ("aligned", "ragged_warp") else "alu"
+        out.append(pytest.param(r, c, b, n, int(kind == "unaligned"), arm,
+                                id=f"{kind}-R{r}-C{c}-B{b}-n{n}"))
+    return out
+
+
+@pytest.mark.parametrize("r, c, b, n, offset, arm", _k5_draws(32, 77))
+def test_k5_arms_equal_plain(card, r, c, b, n, offset, arm):
+    """Both arms of K5's dispatch against the plain version, each call on
+    the arm its shape picks, as the arm counts show."""
+    rng = np.random.default_rng(r * 1000 + c * 10 + b + n)
+    a_bits = codec_cuda.gf_matrix_to_bits(rng.integers(0, 256, (r, c), dtype=np.uint8))
+    g = torch.Generator(device=card).manual_seed(n)
+    raw = torch.randint(0, 256, (b * c * n + offset,), dtype=torch.uint8, device=card,
+                        generator=g)
+    x = raw[offset:].view(b, c, n)
+    counts = {"mma": codec_cuda.BITS_MMA_LAUNCHES, "alu": codec_cuda.BITS_ALU_LAUNCHES}
+    before = {k: v.value for k, v in counts.items()}
+    got = codec_cuda.apply_matrix_bits_batch(a_bits, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, codec_cuda.gf_bits_plain(a_bits, x))
+    assert {k: v.value - before[k] for k, v in counts.items()} == {
+        k: int(k == arm) for k in counts}
+
+
+def test_k5_batch_past_grid_limit(card):
+    """A batch of more items than a grid's y (65535) takes the
+    tensor-core arm, in two launches, equal to the plain version."""
+    rng = np.random.default_rng(70000)
+    a_bits = codec_cuda.gf_matrix_to_bits(rng.integers(0, 256, (2, 3), dtype=np.uint8))
+    g = torch.Generator(device=card).manual_seed(70000)
+    x = torch.randint(0, 256, (70000, 3, 8), dtype=torch.uint8, device=card, generator=g)
+    arm0 = codec_cuda.BITS_MMA_LAUNCHES.value
+    got = codec_cuda.apply_matrix_bits_batch(a_bits, x)
+    torch.cuda.synchronize()
+    assert codec_cuda.BITS_MMA_LAUNCHES.value == arm0 + 2
+    assert torch.equal(got, codec_cuda.gf_bits_plain(a_bits, x))
+
+
+def test_k5_graphs_on_two_streams_equal_serial(card):
+    """The same K5 calls (the serving path's 1-row decode at 32 KiB and a
+    4-row decode at 4 KiB, tensor-core arm) captured in two CUDA graphs
+    and replayed at once on two streams, three rounds with the inputs
+    rewritten: equal to the calls run one after the other."""
+    rows1 = gf256.decode_rows(MATRIX, SURV4, (0,))
+    rows4 = gf256.decode_rows(MATRIX, SURV4, LOST4)
+    mats = [codec_cuda.gf_matrix_to_bits(rows1), codec_cuda.gf_matrix_to_bits(rows4)]
+    xs = [torch.zeros((8, 1, 10, 32768), dtype=torch.uint8, device=card),
+          torch.zeros((8, 1, 10, 4096), dtype=torch.uint8, device=card)]
+    cap = torch.cuda.Stream()
+    cap.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(cap):  # the library's first call, outside the capture
+        codec_cuda.apply_matrix_bits_batch(mats[0], xs[0][0])
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    arm0 = codec_cuda.BITS_MMA_LAUNCHES.value
+    for a_bits, x in zip(mats, xs):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=cap):
+            outs.append([codec_cuda.apply_matrix_bits_batch(a_bits, x[i]) for i in range(8)])
+        graphs.append(graph)
+    assert codec_cuda.BITS_MMA_LAUNCHES.value == arm0 + 16
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for rnd in range(3):
+        for j, x in enumerate(xs):
+            g = torch.Generator(device=card).manual_seed(100 * rnd + j)
+            x.copy_(torch.randint(0, 256, x.shape, dtype=torch.uint8, device=card,
+                                  generator=g))
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for graph, s in zip(graphs, streams):
+            with torch.cuda.stream(s):
+                graph.replay()
+        torch.cuda.synchronize()
+        for a_bits, x, got in zip(mats, xs, outs):
+            serial = [codec_cuda.apply_matrix_bits_batch(a_bits, x[i]) for i in range(8)]
+            for i in range(8):
+                assert torch.equal(got[i], serial[i]), (rnd, i)
+                assert torch.equal(got[i], codec_cuda.gf_bits_plain(a_bits, x[i])), (rnd, i)
+
+
 @pytest.mark.parametrize("n, k5", [(100, 1), (32768, 1), (32769, 0), (70000, 0)])
 def test_cuda_apply_matrix_takes_k5_under_64k(card, n, k5):
     from seaweedfs_tpu_torch.ec.codec import cpu_apply_matrix
