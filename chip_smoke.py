@@ -86,6 +86,20 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      and K1), each body equal to its payload's SHA-256; B rebuilds 0-3
      reading 9-13 off C (K1 + K4), byte-identical to A's shards, CRCs equal to the .ecc; after
      stop() no thread may be left, and grpc's grace thread must be seen;
+ 3f. the admin plane (run_admin_phase), driven through the port's shell
+     (shell.run_command on a CommandEnv) against a master and three
+     volume servers on the card, 256 sealed 4 MiB volumes written into
+     the first one's directory before it boots: ec.encode of a 1 GiB
+     volume filled through /dir/assign (K1 + K4; shards byte-identical to
+     the native codec's encode of its snapshot, CRCs equal to the .ecc,
+     the source deleted, every needle read back), ec.balance, four shards
+     lost on their holders and ec.rebuild (K1 + K4, rack-gathered,
+     byte-identical to saved copies), ec.batch of the 256 volumes (K2 +
+     K4, byte-identical to native, each serving from EC) and
+     ec.rebuild.batch of two damage signatures over them (K2), a
+     VolumeTailReceiver following appends and volume.move (VolumeCopy,
+     .dat and .idx equal); each step's launches must include its
+     kernels; after stop() no thread may be left;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -118,6 +132,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import filecmp
+import http.client
 import json
 import os
 import re
@@ -2608,6 +2623,413 @@ def run_cluster_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     return runs
 
 
+# --- phase 3f: the admin plane, through the shell ---------------------------
+
+
+ADMIN_ROOM = 7 << 30  # steps 1-3's peak in the admin phase's directory (about 6.2 GiB)
+ADMIN_BATCH_VID0 = 1001  # the batch volumes' ids, written before the servers boot
+ADMIN_MOVE_NEEDLES = 48
+
+
+def run_admin_phase(workdir: str, volume_bytes: int, batch_volumes: int,
+                    batch_volume_bytes: int, seed: int, device=None, card: str = "",
+                    smi: str = "") -> dict:
+    """The admin plane on `device` (None: the card): a master and three
+    volume servers booted by availability.start_cluster on two racks,
+    with `batch_volumes` sealed volumes of about `batch_volume_bytes`
+    written by storage/synthetic.write_volume into the first server's
+    directory before it boots; every step then goes through the port's
+    shell (seaweedfs_tpu_torch.shell.run_command with a CommandEnv on
+    the master), as an operator runs it:
+      1. ec.encode -volumeId V of one volume grown through /vol/grow and
+         filled with about `volume_bytes` through /dir/assign by the load
+         generator (BASELINE.json config 1): the 14 shards, wherever the
+         spread put them, byte-identical to the native host codec's
+         encode of a snapshot of the .dat, each file's CRC equal to the
+         generator's .ecc, the source volume gone from every server and
+         every needle read back over HTTP (K1 + K4);
+      2. ec.balance -force, then shards (0, 5, 10, 13) unmounted and
+         deleted on their holders, copies saved first (no server is
+         stopped: one of three may hold five shards);
+      3. ec.rebuild -volumeId V -force (BASELINE.json config 4): the
+         rebuilder gathers survivors off the other holders; the rebuilt
+         shards equal the saved copies and the generator's .ecc, every
+         needle reads back (K1 + K4);
+      4. ec.batch over the sealed volumes (BASELINE.json config 3,
+         WEED_EC_PIPELINE_BATCH as the batch phase's): every volume's
+         shards equal the native codec's encode of its snapshot, CRCs
+         equal each .ecc, the volume serves from EC (a needle of each
+         read over HTTP) (K2 + K4);
+      5. ec.rebuild.batch over them after losing (3,) on odd volumes and
+         (0, 5, 10, 13) on even ones: byte-identical (K2);
+      6. a VolumeTailReceiver on a second server following appends to a
+         small volume on its source (every needle read back equal), then
+         volume.move of that volume to the third server (VolumeCopy):
+         .dat and .idx equal the source's.
+    Raises on any fault; returns per-step walls, launches and signature
+    tallies: admin_encode, admin_rebuild, admin_batch,
+    admin_rebuild_batch."""
+    from seaweedfs_tpu_torch import trace
+    from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as pb
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.super_block import VERSION3
+    from seaweedfs_tpu_torch.storage.synthetic import write_volume
+    from seaweedfs_tpu_torch.util.availability import start_cluster
+
+    _check_room(workdir, ADMIN_ROOM if volume_bytes >= 1 << 30 else 8 * volume_bytes
+                + 5 * batch_volumes * batch_volume_bytes, "the admin phase")
+    on_card = device is None
+    shard_exts = [ec_files.to_ext(i) for i in range(14)]
+    native = new_encoder(backend="native")
+    before = set(threading.enumerate())
+    pinned_start = _pinned_live() if on_card else None
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    for d in dirs:
+        os.mkdir(d)
+    t0 = time.perf_counter()
+    batch_vids = list(range(ADMIN_BATCH_VID0, ADMIN_BATCH_VID0 + batch_volumes))
+    batch_entries = {}
+    for vid in batch_vids:
+        _, batch_entries[vid] = write_volume(os.path.join(dirs[0], str(vid)),
+                                             batch_volume_bytes, seed * 100003 + vid,
+                                             max_payload=1 << 20)
+    log(f"admin: {batch_volumes} sealed volumes of ~{batch_volume_bytes / 2**20:.2f} MiB "
+        f"written by storage/synthetic.write_volume into the first server's directory "
+        f"before it boots, in {time.perf_counter() - t0:.3f} s")
+    old_limit = os.environ.get("WEED_EC_PIPELINE_BATCH")
+    os.environ["WEED_EC_PIPELINE_BATCH"] = str(BATCH)
+    master, servers = start_cluster(dirs, volume_size_limit_mb=CLUSTER_LIMIT_MB,
+                                    ec_codec="cuda", device=device, scrub_interval=0)
+    env = CommandEnv([f"127.0.0.1:{master.port}"])
+    url_of = {f"127.0.0.1:{vs.port}": vs for vs in servers}
+    started: list = []
+    runs: dict = {}
+
+    def wait(cond, what: str, timeout: float = 60.0) -> float:
+        t0 = time.monotonic()
+        while not cond():
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"admin: {what} not seen within {timeout} s")
+            time.sleep(0.02)
+        return time.monotonic() - t0
+
+    def shell(step: str, line: str, *kernels) -> dict:
+        """`line` through the shell: its wall, the launches it made and
+        the seconds of the EC pipelines' spans inside it (the verbs'
+        device paths)."""
+        pipelines = ("ec_stream.encode", "ec_stream.rebuild", "ec_stream.encode_batch",
+                     "ec_stream.rebuild_batch")
+        spans0 = {name: trace.totals(name) for name in pipelines}
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = run_command(env, line)
+        wall = time.perf_counter() - t0
+        span_s = {name: _span_delta(name, spans0[name])["seconds"] for name in pipelines}
+        run = {"wall_s": wall, "launches": _read_counts(), "sigs": _read_sigs(),
+               "command": line, "pipeline_s": {k: v for k, v in span_s.items() if v}}
+        if on_card:
+            _must_launch(f"admin {step}", run["launches"], kernels)
+        tail = " | ".join(out.strip().splitlines()[-3:])
+        log(f"admin {step} on {card}: `{line}` {wall:.4f} s, of it in the EC pipelines' "
+            f"spans {run['pipeline_s']}; launches {run['launches']}; shell: {tail}")
+        return run
+
+    def registered(vid: int) -> set:
+        locs = master.topology.lookup_ec_shards(vid)
+        return set() if locs is None else {i for i, l in enumerate(locs.locations) if l}
+
+    def holders(vid: int) -> dict:
+        """{shard id: server} of the mounted shards of `vid`."""
+        out = {}
+        for vs in servers:
+            ev = vs.store.find_ec_volume(vid)
+            for sid in (ev.shard_ids() if ev is not None else ()):
+                if sid in out:
+                    raise AssertionError(f"admin: shard {sid} of {vid} mounted twice")
+                out[sid] = vs
+        return out
+
+    def shard_file(vs, vid: int, collection: str, sid: int) -> str:
+        name = f"{collection}_{vid}" if collection else str(vid)
+        return os.path.join(vs.store.locations[0].directory, name + ec_files.to_ext(sid))
+
+    def check_ecc(vid: int, collection: str, gen, where: dict, what: str) -> None:
+        """Each shard's CRC (read back from its holder's file) equals the
+        .ecc the generating server published."""
+        name = f"{collection}_{vid}" if collection else str(vid)
+        sidecar = ecc_sidecar.load_sidecar(
+            os.path.join(gen.store.locations[0].directory, name))["shards"]
+        for sid, vs in where.items():
+            if _file_crc(shard_file(vs, vid, collection, sid)) != sidecar[str(sid)]["crc"]:
+                raise AssertionError(f"admin {what}: shard {sid} of {vid} differs from its "
+                                     f".ecc")
+
+    try:
+        # --- 1. ec.encode of one ~1 GiB volume ---
+        with urllib.request.urlopen(f"http://127.0.0.1:{master.port}/vol/grow"
+                                    f"?collection=admin&count=1", timeout=60) as r:
+            grown = json.loads(r.read())
+        if grown.get("count") != 1:
+            raise AssertionError(f"admin: /vol/grow answered {grown}")
+        rng = np.random.default_rng((seed, 11))
+        sizes, total = [], 0
+        while total < volume_bytes:
+            sizes.append(int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20)))))
+            total += sizes[-1]
+        keys = [[f"a{nid}", seed + 11, nid, size] for nid, size in enumerate(sizes, 1)]
+        got = _load_client(master.port, "assign", keys, workdir, query="collection=admin")
+        fids = [fid for fid, _, _, _ in got["results"]]
+        vids = {int(fid.split(",")[0]) for fid in fids}
+        if len(vids) != 1:
+            raise AssertionError(f"admin: assigns landed on volumes {vids}")
+        vid = vids.pop()
+        src = next(vs for vs in servers if vs.store.find_volume(vid) is not None)
+        base = src.store.find_volume(vid).base_name
+        snap = os.path.join(workdir, "snap")
+        os.mkdir(snap)
+        shutil.copyfile(base + ".dat", os.path.join(snap, "v.dat"))
+        t0 = time.perf_counter()
+        ec_files.write_ec_files(os.path.join(snap, "v"), rs=native)
+        native_s = time.perf_counter() - t0
+        log(f"admin write on {card}: {len(fids)} needles, {total} bytes into volume {vid} "
+            f"through /dir/assign in {got['wall_s']:.4f} s; .dat snapshot encoded by the "
+            f"native host codec in {native_s:.4f} s")
+        items = [[fid, seed + 11, nid, size] for fid, (_, _, nid, size) in zip(fids, keys)]
+        dat_bytes = os.path.getsize(base + ".dat")
+        runs["admin_encode"] = shell("ec.encode", f"ec.encode -volumeId {vid}",
+                                     "gf_apply", "crc32c_rows")
+        runs["admin_encode"].update(dat_bytes=dat_bytes, native_s=native_s)
+        seen_s = wait(lambda: len(registered(vid)) == 14, "the 14 shards registered")
+        if any(vs.store.find_volume(vid) is not None for vs in servers):
+            raise AssertionError(f"admin ec.encode: volume {vid} still on a server")
+        where = holders(vid)
+        if sorted(where) != list(range(14)):
+            raise AssertionError(f"admin ec.encode: mounted shards {sorted(where)}")
+        for sid, vs in where.items():
+            if not filecmp.cmp(shard_file(vs, vid, "admin", sid),
+                               os.path.join(snap, "v" + shard_exts[sid]), shallow=False):
+                raise AssertionError(f"admin ec.encode: shard {sid} differs from native's")
+        check_ecc(vid, "admin", src, where, "ec.encode")
+        reader = max(servers, key=lambda vs: sum(1 for s in where.values() if s is vs))
+        read = _load_client(reader.port, "get", items, workdir)
+        spread = {f"127.0.0.1:{vs.port}": sorted(s for s, h in where.items() if h is vs)
+                  for vs in servers}
+        log(f"admin ec.encode: shards {spread} registered {seen_s:.2f} s after the verb, "
+            f"byte-identical to the native codec's, CRCs equal to the .ecc; every one of "
+            f"{len(items)} needles read back through {reader.port} in "
+            f"{read['wall_s']:.4f} s")
+
+        # --- 2. ec.balance, then lose four shards ---
+        runs["admin_balance"] = shell("ec.balance", "ec.balance -force")
+        wait(lambda: len(registered(vid)) == 14 and len(holders(vid)) == 14,
+             "the balanced shards registered")
+        where = holders(vid)
+        saved = os.path.join(workdir, "saved")
+        os.mkdir(saved)
+        for sid in LOST:
+            vs = where[sid]
+            shutil.copyfile(shard_file(vs, vid, "admin", sid),
+                            os.path.join(saved, shard_exts[sid]))
+            with rpc.dial(f"127.0.0.1:{vs.grpc_port}") as ch:
+                stub = rpc.volume_stub(ch)
+                stub.VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+                    volume_id=vid, shard_ids=[sid]), timeout=60)
+                stub.VolumeEcShardsDelete(pb.VolumeEcShardsDeleteRequest(
+                    volume_id=vid, collection="admin", shard_ids=[sid]), timeout=60)
+        wait(lambda: not registered(vid) & set(LOST), "the master dropping the lost shards")
+        log(f"admin: after ec.balance shards {LOST} were on "
+            f"{[where[s].port for s in LOST]}; saved, unmounted and deleted there")
+
+        # --- 3. ec.rebuild ---
+        runs["admin_rebuild"] = shell("ec.rebuild", f"ec.rebuild -volumeId {vid} -force",
+                                      "gf_apply", "crc32c_rows")
+        wait(lambda: len(registered(vid)) == 14, "the rebuilt shards registered")
+        where = holders(vid)
+        rebuilder = where[LOST[0]]
+        for sid in LOST:
+            if where[sid] is not rebuilder or not filecmp.cmp(
+                    shard_file(rebuilder, vid, "admin", sid),
+                    os.path.join(saved, shard_exts[sid]), shallow=False):
+                raise AssertionError(f"admin ec.rebuild: shard {sid} differs from the saved")
+        check_ecc(vid, "admin", src, {s: where[s] for s in LOST}, "ec.rebuild")
+        read = _load_client(rebuilder.port, "get", items, workdir)
+        runs["admin_rebuild"]["bytes"] = len(LOST) * os.path.getsize(
+            os.path.join(saved, shard_exts[0]))
+        log(f"admin ec.rebuild: {LOST} rebuilt on {rebuilder.port} byte-identical to the "
+            f"saved copies, CRCs equal to the generator's .ecc; every needle read back in "
+            f"{read['wall_s']:.4f} s")
+        shutil.rmtree(snap)
+        shutil.rmtree(saved)
+
+        # --- 4. ec.batch over the sealed volumes ---
+        # the native encodes, the servers' shards (3.5x the .dat each) and
+        # the rebuild's saved copies
+        _check_room(workdir, 8 * batch_volumes * batch_volume_bytes,
+                    "the admin phase's batch steps")
+        host = servers[0]
+        snap = os.path.join(workdir, "batch_snap")
+        os.mkdir(snap)
+        t0 = time.perf_counter()
+        probes = {}  # vid -> (fid, payload) of its middle needle
+        for v in batch_vids:
+            dat = os.path.join(snap, f"{v}.dat")
+            shutil.copyfile(os.path.join(dirs[0], f"{v}.dat"), dat)
+            nid, off, nsize = batch_entries[v][len(batch_entries[v]) // 2]
+            with open(dat, "rb") as f:
+                f.seek(off)
+                n = Needle.from_bytes(f.read(16 + nsize + 4 + 8), VERSION3, nsize)
+            probes[v] = (f"{v},{nid:x}{n.cookie:08x}", n.data)
+            ec_files.write_ec_files(os.path.join(snap, str(v)), rs=native)
+            os.remove(dat)
+        log(f"admin: the {batch_volumes} volumes' snapshots encoded by the native codec "
+            f"in {time.perf_counter() - t0:.3f} s")
+        runs["admin_batch"] = shell(
+            "ec.batch", "ec.batch -volumeIds " + ",".join(map(str, batch_vids)),
+            "gf_apply_batch", "crc32c_rows")
+        runs["admin_batch"]["dat_bytes"] = batch_volumes * batch_volume_bytes
+        for v in batch_vids:
+            b = os.path.join(dirs[0], str(v))
+            for ext in shard_exts:
+                if not filecmp.cmp(b + ext, os.path.join(snap, str(v) + ext), shallow=False):
+                    raise AssertionError(f"admin ec.batch: volume {v} {ext} differs")
+            if host.store.find_volume(v) is not None or host.store.find_ec_volume(v) is None:
+                raise AssertionError(f"admin ec.batch: volume {v} does not serve from EC")
+        for v in batch_vids:
+            check_ecc(v, "", host, {s: host for s in range(14)}, "ec.batch")
+        conn = http.client.HTTPConnection("127.0.0.1", host.port, timeout=60)
+        try:
+            for v, (fid, data) in probes.items():
+                status, _, body = _http(conn, "GET", f"/{fid}")
+                if status != 200 or body != data:
+                    raise AssertionError(f"admin ec.batch: GET of {fid}: {status}")
+        finally:
+            conn.close()
+        log(f"admin ec.batch: {batch_volumes} volumes x 14 shards byte-identical to the "
+            f"native codec's, CRCs equal to each .ecc, each volume serving from EC (one "
+            f"needle of each read over HTTP)")
+
+        # --- 5. ec.rebuild.batch over two damage signatures ---
+        saved = os.path.join(workdir, "batch_saved")
+        os.mkdir(saved)
+        for v in batch_vids:
+            lost = (3,) if v % 2 else LOST
+            with rpc.dial(f"127.0.0.1:{host.grpc_port}") as ch:
+                rpc.volume_stub(ch).VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+                    volume_id=v, shard_ids=list(lost)), timeout=60)
+            for sid in lost:
+                p = os.path.join(dirs[0], str(v) + shard_exts[sid])
+                os.replace(p, os.path.join(saved, os.path.basename(p)))
+        wait(lambda: all(len(registered(v)) == (13 if v % 2 else 10) for v in batch_vids),
+             "the master dropping the batch volumes' lost shards")
+        runs["admin_rebuild_batch"] = shell(
+            "ec.rebuild.batch",
+            "ec.rebuild.batch -force -volumeIds " + ",".join(map(str, batch_vids)),
+            "gf_apply_batch")
+        for name in os.listdir(saved):
+            if not filecmp.cmp(os.path.join(dirs[0], name), os.path.join(saved, name),
+                               shallow=False):
+                raise AssertionError(f"admin ec.rebuild.batch: {name} differs")
+        wait(lambda: all(len(registered(v)) == 14 for v in batch_vids),
+             "the rebuilt batch shards registered")
+        for v in batch_vids:
+            lost = (3,) if v % 2 else LOST
+            check_ecc(v, "", host, {s: host for s in lost}, "ec.rebuild.batch")
+        runs["admin_rebuild_batch"]["bytes"] = sum(
+            os.path.getsize(os.path.join(saved, n)) for n in os.listdir(saved))
+        log(f"admin ec.rebuild.batch: {len(os.listdir(saved))} shard files of "
+            f"{batch_volumes} volumes byte-identical to the saved, CRCs equal to each .ecc")
+        shutil.rmtree(snap)
+        shutil.rmtree(saved)
+
+        # --- 6. a tail receiver, then volume.move ---
+        with urllib.request.urlopen(f"http://127.0.0.1:{master.port}/vol/grow"
+                                    f"?collection=move&count=1", timeout=60) as r:
+            if json.loads(r.read()).get("count") != 1:
+                raise AssertionError("admin: /vol/grow of the move volume failed")
+        mkeys = [[f"m{nid}", seed + 12, nid, 4096 + 997 * nid]
+                 for nid in range(1, ADMIN_MOVE_NEEDLES + 1)]
+        half = ADMIN_MOVE_NEEDLES // 2
+        got = _load_client(master.port, "assign", mkeys[:half], workdir,
+                           query="collection=move")
+        mvid = int(got["results"][0][0].split(",")[0])
+        msrc = url_of[got["results"][0][3]]
+        tailer, dest = [vs for vs in servers if vs is not msrc]
+        with rpc.dial(f"127.0.0.1:{tailer.grpc_port}") as ch:
+            rpc.volume_stub(ch).AllocateVolume(pb.AllocateVolumeRequest(
+                volume_id=mvid, collection="move"), timeout=60)
+        tail_err: list = []
+
+        def follow():
+            try:
+                with rpc.dial(f"127.0.0.1:{tailer.grpc_port}") as ch:
+                    rpc.volume_stub(ch).VolumeTailReceiver(pb.VolumeTailReceiverRequest(
+                        volume_id=mvid, since_ns=0, idle_timeout_seconds=3,
+                        source_volume_server=f"127.0.0.1:{msrc.port}"), timeout=120)
+            except Exception as e:  # noqa: BLE001 — raised below
+                tail_err.append(e)
+
+        th = threading.Thread(target=follow)
+        th.start()
+        more = _load_client(master.port, "assign", mkeys[half:], workdir,
+                            query="collection=move")
+        th.join(120)
+        if th.is_alive() or tail_err:
+            raise AssertionError(f"admin tail: receiver {'hung' if th.is_alive() else tail_err}")
+        mresults = got["results"] + more["results"]
+        if {int(r[0].split(",")[0]) for r in mresults} != {mvid}:
+            raise AssertionError("admin tail: the move volume's assigns spread")
+        mitems = [[fid, seed + 12, nid, size]
+                  for (fid, _, _, _), (_, _, nid, size) in zip(mresults, mkeys)]
+        _load_client(tailer.port, "get", mitems, workdir)
+        log(f"admin tail: VolumeTailReceiver on {tailer.port} followed volume {mvid} on "
+            f"{msrc.port} while {ADMIN_MOVE_NEEDLES - half} of {ADMIN_MOVE_NEEDLES} needles "
+            f"were appended; every needle read back from the receiver equal")
+        mbase = msrc.store.find_volume(mvid).base_name
+        want = {ext: open(mbase + ext, "rb").read() for ext in (".dat", ".idx")}
+        runs["admin_move"] = shell(
+            "volume.move", f"volume.move -from 127.0.0.1:{msrc.port} "
+            f"-to 127.0.0.1:{dest.port} -volumeId {mvid}")
+        moved = dest.store.find_volume(mvid)
+        if moved is None or msrc.store.find_volume(mvid) is not None:
+            raise AssertionError(f"admin volume.move: volume {mvid} did not move")
+        for ext, data in want.items():
+            with open(moved.base_name + ext, "rb") as f:
+                if f.read() != data:
+                    raise AssertionError(f"admin volume.move: {ext} differs from the source")
+        _load_client(dest.port, "get", mitems, workdir)
+        log(f"admin volume.move: volume {mvid} moved {msrc.port} => {dest.port}, .dat and "
+            f".idx equal to the source's, every needle read back from {dest.port}")
+        total = {k: sum(runs[r]["launches"][k] for r in ADMIN_PATHS)
+                 for k in ("gf_apply", "gf_apply_batch", "crc32c_rows")}
+        log(f"admin launches on {card}: {total} (K1 gf_apply, K2 gf_apply_batch, K4 "
+            f"crc32c_rows; each wrapper counts only its kernel's launches on the card, "
+            f"never a plain version's run); {smi}")
+    finally:
+        if old_limit is None:
+            os.environ.pop("WEED_EC_PIPELINE_BATCH", None)
+        else:
+            os.environ["WEED_EC_PIPELINE_BATCH"] = old_limit
+        with _threads_started(started):
+            for vs in servers:
+                vs.stop()
+            master.stop()
+    left = _server_leftovers(before, pinned_start)
+    runs["admin_stop"] = left
+    log(f"admin stop: threads left {left['threads_left']}")
+    if left["threads_left"]:
+        raise AssertionError(f"threads outlived the admin cluster's stop(): "
+                             f"{left['threads_left']}")
+    return runs
+
+
+ADMIN_PATHS = ("admin_encode", "admin_balance", "admin_rebuild", "admin_batch",
+               "admin_rebuild_batch", "admin_move")
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -3007,6 +3429,12 @@ def main() -> int:
         runs.update(run_cluster_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_admin_", dir=root)
+    try:
+        runs.update(run_admin_phase(workdir, STORE_BYTES, BATCH_VOLUMES, BATCH_VOLUME_BYTES,
+                                    args.seed, None, card, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
     try:
         runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
@@ -3016,21 +3444,29 @@ def main() -> int:
     log(f"encode and rebuild walls on {card}: through the server's verbs "
         f"{runs['server_encode']['wall_s']:.4f} / {runs['server_rebuild4']['wall_s']:.4f} s, "
         f"direct ec_files calls of the store phase {runs['store_encode']['wall_s']:.4f} / "
-        f"{runs['store_rebuild4']['wall_s']:.4f} s (volumes of the same size mix)")
+        f"{runs['store_rebuild4']['wall_s']:.4f} s (volumes of the same size mix); through "
+        f"the shell's ec.encode / ec.rebuild {runs['admin_encode']['wall_s']:.4f} / "
+        f"{runs['admin_rebuild']['wall_s']:.4f} s (the cluster's rack-gather rebuild "
+        f"{runs['cluster_rebuild']['wall_s']:.4f} s); ec.batch / ec.rebuild.batch of "
+        f"{BATCH_VOLUMES} volumes {runs['admin_batch']['wall_s']:.4f} / "
+        f"{runs['admin_rebuild_batch']['wall_s']:.4f} s against the batch phase's direct "
+        f"calls {runs['batch_encode']['wall_s']:.4f} / "
+        f"{runs['batch_rebuild']['wall_s']:.4f} s")
 
     paths = ("encode", "rebuild1", "rebuild4", "degraded", "repair_piggyback",
              "repair_parity", "store_encode", "store_rebuild4", "store_serve", "store_tier",
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
-             "cluster_k5", "cluster_rebuild", "batch_encode", "batch_rebuild",
-             "batch_verify")
+             "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + (
+             "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
         f"reads, the server's encode, rebuild, degraded GETs with and without the tile "
         f"cache and concurrent encodes, the cluster's encode, healthy and lost-server GETs "
-        f"with and without the tile cache and rack-gather rebuild, batch encode, rebuild "
-        f"and verify) on {card}: "
+        f"with and without the tile cache and rack-gather rebuild, the shell's ec.encode, "
+        f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, batch "
+        f"encode, rebuild and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]

@@ -17,11 +17,13 @@ What needs a part of the reference that the port does not have yet
 raises NotImplementedError naming its ROADMAP item, at construction for
 a parameter and at the call for a verb; it never silently does less:
 the scrub engine (item 9), the -workers internal listener and write
-sharding (item 8), tier-move verbs (item 9), the volume copy and tail
-verbs (item 10), the batch EC verbs (item 8) and Query (item 11). The
-hinted-handoff spool waits for item 10: until then a replica's failure
-fails the write (the reference's WEED_HANDOFF=0 contract), so no write
-is acknowledged with fewer copies than its placement asks for. The
+sharding (item 8), tier-move verbs (item 9) and Query (item 11). The
+batch EC verbs run the batch arm (K2, with K4 fused into the encode) on
+a one-device mesh of `device`; VolumeCopy and the tail verbs pull from
+a peer over gRPC. The hinted-handoff spool waits for item 10: until
+then a replica's failure fails the write (the reference's
+WEED_HANDOFF=0 contract), so no write is acknowledged with fewer
+copies than its placement asks for. The
 reference's C serving core and C POST path wait for items 5 and 8:
 requests run on the threaded mini loop and the Python write path, the
 reference's own byte-identical arms.
@@ -61,6 +63,7 @@ from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import (
     CookieMismatch,
     NeedleNotFound,
+    Volume,
     VolumeReadOnly,
     volume_base_name,
 )
@@ -630,10 +633,31 @@ class VolumeServer:
 
     # copy/tail (volume_grpc_copy.go, volume_grpc_tail.go)
     def VolumeCopy(self, req: pb.VolumeCopyRequest, context):
-        raise NotImplementedError(
-            "VolumeCopy pulls from a peer through the client and master "
-            "(ROADMAP item 10)"
-        )
+        """Replicate a whole volume from another node by pulling its
+        .dat/.idx over the CopyFile stream (volume_grpc_copy.go:25)."""
+        if self.store.has_volume(req.volume_id):
+            context.abort(
+                grpc.StatusCode.ALREADY_EXISTS,
+                f"volume {req.volume_id} already exists",
+            )
+        loc = self.store.locations[0]
+        base = volume_base_name(loc.directory, req.collection, req.volume_id)
+        host, _, port = req.source_data_node.partition(":")
+        with rpc.dial(f"{host}:{int(port) + 10000}") as ch:
+            stub = rpc.volume_stub(ch)
+            for ext in (".dat", ".idx"):
+                with open(base + ext, "wb") as f:
+                    for resp in stub.CopyFile(
+                        pb.CopyFileRequest(
+                            volume_id=req.volume_id,
+                            collection=req.collection,
+                            ext=ext,
+                        )
+                    ):
+                        f.write(resp.file_content)
+        v = Volume(loc.directory, req.volume_id, req.collection, create=False)
+        loc.volumes[req.volume_id] = v
+        return pb.VolumeCopyResponse(last_append_at_ns=v.last_append_at_ns)
 
     def CopyFile(self, req: pb.CopyFileRequest, context):
         """Stream one of this volume's files (.dat, .idx, .ecNN, .ecx,
@@ -693,16 +717,71 @@ class VolumeServer:
             offset += record
 
     def VolumeTailSender(self, req, context):
-        raise NotImplementedError(
-            "VolumeTailSender follows a peer through the client and master "
-            "(ROADMAP item 10)"
-        )
+        """Stream needles appended since since_ns as (header, body)
+        pairs; keep following until idle for idle_timeout_seconds
+        (0 = follow forever) (volume_grpc_tail.go:16-54)."""
+        v = self.store.find_volume(req.volume_id)
+        if v is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found"
+            )
+        last_ns = req.since_ns
+        draining = req.idle_timeout_seconds
+        # resume each poll from the previous end-of-file position: the
+        # .dat is append-only, so a follow-forever tail must not rescan
+        # the whole volume every 2 seconds
+        resume_at = 0
+        while not self._stop.is_set():
+            progressed = False
+            for blob, n, end in self._iter_needles_since(v, last_ns, resume_at):
+                yield pb.VolumeTailSenderResponse(
+                    needle_header=blob[:16],
+                    needle_body=blob[16:],
+                    is_last_chunk=False,
+                )
+                last_ns = max(last_ns, n.append_at_ns)
+                resume_at = end
+                progressed = True
+            if req.idle_timeout_seconds == 0:
+                self._stop.wait(2.0)
+                continue
+            if progressed:
+                draining = req.idle_timeout_seconds
+            else:
+                draining -= 1
+                if draining <= 0:
+                    return
+            self._stop.wait(1.0)
 
     def VolumeTailReceiver(self, req, context):
-        raise NotImplementedError(
-            "VolumeTailReceiver pulls from a peer through the client and "
-            "master (ROADMAP item 10)"
-        )
+        """Pull a source server's tail into the local volume
+        (volume_grpc_tail.go:79 VolumeTailReceiver)."""
+        v = self.store.find_volume(req.volume_id)
+        if v is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found"
+            )
+        host, _, port = req.source_volume_server.partition(":")
+        with rpc.dial(f"{host}:{int(port) + 10000}") as ch:
+            for resp in rpc.volume_stub(ch).VolumeTailSender(
+                pb.VolumeTailSenderRequest(
+                    volume_id=req.volume_id,
+                    since_ns=req.since_ns,
+                    idle_timeout_seconds=req.idle_timeout_seconds or 2,
+                )
+            ):
+                blob = resp.needle_header + resp.needle_body
+                try:
+                    n = Needle.from_bytes(blob, v.version)
+                except ValueError:
+                    continue
+                if len(n.data) == 0:
+                    # zero-size record = tombstone (the reference keys
+                    # replicated deletes off n.Size == 0 the same way)
+                    v.delete_needle(n)
+                else:
+                    v.write_needle(n)
+        return pb.VolumeTailReceiverResponse()
 
     # EC verbs (volume_grpc_erasure_coding.go)
     def _base_name(self, collection: str, vid: int) -> str:
@@ -750,11 +829,56 @@ class VolumeServer:
         ec_files.write_sorted_file_from_idx(base, durable=True)
         return pb.VolumeEcShardsGenerateResponse()
 
+    def _batch_codec(self):
+        """The batch verbs' codec. A host codec named by `ec_codec` (or
+        by WEED_EC_CODEC when it is unset) runs the host arm, as the
+        single-volume verbs do. Otherwise a one-device MeshCodec on this
+        server's `device` ("cpu" runs the kernels' plain versions), or
+        None on a card server without one: a mesh over every card, which
+        raises where there is none. Never the host codec in its place."""
+        from seaweedfs_tpu_torch.ec import ec_stream
+        from seaweedfs_tpu_torch.ec.codec import default_backend
+
+        if (self.ec_codec or default_backend()) in ("cpu", "native"):
+            return ec_stream._HostBatchCodec(self._new_rs())
+        if self.device is None:
+            return None
+        from seaweedfs_tpu_torch.parallel import MeshCodec, make_mesh
+
+        return MeshCodec(make_mesh([self.device]))
+
     def VolumeEcShardsBatchGenerate(self, req, context):
-        raise NotImplementedError(
-            "VolumeEcShardsBatchGenerate: the batch EC verbs are not "
-            "ported yet (ROADMAP item 8)"
-        )
+        """N local sealed volumes → shard files through one MeshCodec
+        round per tile (ec_files.write_ec_files_batch: K2 with K4 fused).
+        With durable=True it fsyncs every shard file before
+        returning on both arms, so the .ecx publish below can imply
+        shard bytes are on disk (the single-volume verb's ordering)."""
+        bases = []
+        for vid in req.volume_ids:
+            v = self.store.find_volume(vid)
+            if v is None:
+                context.abort(
+                    grpc.StatusCode.NOT_FOUND, f"volume {vid} not found"
+                )
+            bases.append(v.base_name)
+        if bases:
+            st: dict = {}
+            ec_files.write_ec_files_batch(
+                bases, codec=self._batch_codec(), durable=True, stats=st,
+                want_crcs=True,
+            )
+            for vid, base, crcs in zip(
+                req.volume_ids, bases, st.get("shard_crcs") or []
+            ):
+                wlog.info(
+                    "ec.batch_generate vid=%s shard_crc32c=%s",
+                    vid,
+                    ",".join(f"{c:08x}" for c in crcs),
+                )
+                self._publish_ecc(base, crcs)
+            for base in bases:
+                ec_files.write_sorted_file_from_idx(base, durable=True)
+        return pb.VolumeEcShardsBatchGenerateResponse()
 
     def VolumeEcShardsRebuild(self, req, context):
         """Regenerate missing shard files. With every survivor local
@@ -935,10 +1059,87 @@ class VolumeServer:
         )
 
     def VolumeEcShardsBatchRebuild(self, req, context):
-        raise NotImplementedError(
-            "VolumeEcShardsBatchRebuild: the batch EC verbs are not "
-            "ported yet (ROADMAP item 8)"
-        )
+        """Rebuild N volumes' missing shards, batched: volumes whose
+        survivors are all local and whose missing shards are missing
+        cluster-wide ride one MeshCodec decode round per tile
+        (ec_files.rebuild_ec_files_batch, grouped there by damage
+        signature; K2). Volumes that don't fit that shape (a "missing"
+        shard is mounted elsewhere, or survivors must be rack-gathered)
+        fall through to the single-volume rebuild per volume, so the
+        verb is safe to aim at any mix. Reuses the BatchGenerate message
+        pair: ids in, empty response (rebuilt ids are logged; callers
+        recompute presence, as ec.rebuild does)."""
+        with trace.span(
+            "volume.ec_rebuild_batch",
+            header=trace.header_from_grpc_context(context),
+            node=f"{self.host}:{self.port}",
+        ) as sp:
+            if sp:
+                sp.annotate("vids", list(req.volume_ids))
+            batch: list[tuple[int, str]] = []
+            for vid in req.volume_ids:
+                ev = self.store.find_ec_volume(vid)
+                base = (
+                    ev.base_name
+                    if ev is not None
+                    else self._base_name("", vid)
+                )
+                present, missing = ec_files.shard_presence(base)
+                if not missing:
+                    continue
+                remote = self._cluster_present_shards(vid)
+                if (
+                    sum(present) >= ec_files.DATA_SHARDS
+                    and not (set(missing) & remote)
+                ):
+                    batch.append((vid, base))
+                else:
+                    self._ec_shards_rebuild(
+                        pb.VolumeEcShardsRebuildRequest(volume_id=vid),
+                        context,
+                    )
+            if batch:
+                st: dict = {}
+                try:
+                    ec_files.rebuild_ec_files_batch(
+                        [base for _, base in batch],
+                        codec=self._batch_codec(),
+                        durable=True,
+                        stats=st,
+                        want_crcs=True,
+                    )
+                except ValueError as e:
+                    context.abort(
+                        grpc.StatusCode.FAILED_PRECONDITION, str(e)
+                    )
+                for (vid, base), crcs in zip(
+                    batch, st.get("shard_crcs") or []
+                ):
+                    self._log_rebuild_crcs(vid, base, {"shard_crcs": crcs})
+        return pb.VolumeEcShardsBatchGenerateResponse()
+
+    def _cluster_present_shards(self, vid: int) -> set[int]:
+        """Shard ids of `vid` mounted on other nodes per the master:
+        shards the batch rebuild must not regenerate locally (the single
+        verb's _remote_rebuild_readers exclusion, presence only). Empty
+        with no master or on a failed lookup; then every locally missing
+        shard is a target, as in the single verb on those arms."""
+        if not self.master:
+            return set()
+        try:
+            with rpc.dial(self._master_grpc()) as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid),
+                    timeout=5,
+                )
+        except grpc.RpcError:
+            return set()
+        me = self._self_urls()
+        return {
+            e.shard_id
+            for e in resp.shard_id_locations
+            if any(l.url not in me for l in e.locations)
+        }
 
     @staticmethod
     def _publish_ecc(base: str, crcs) -> None:

@@ -847,3 +847,51 @@ def test_cluster_rebuild_beside_degraded_gets_equals_serial(card, tmp_path):
         for vs in servers:
             vs.stop()
         master.stop()
+
+
+def test_server_batch_generate_on_the_card(card, tmp_path):
+    """VolumeEcShardsBatchGenerate on a card server: K2 (and K4 on the
+    full-width rounds) launch, and every volume's shards, .ecx and .ecc
+    equal the native host codec's encode of the same .dat, one volume at
+    a time."""
+    import shutil
+
+    from seaweedfs_tpu_torch.ec import ecc_sidecar
+    from seaweedfs_tpu_torch.pb import rpc, volume_pb2 as pb
+    from seaweedfs_tpu_torch.storage.synthetic import write_volume
+
+    d = str(tmp_path / "srv")
+    os.makedirs(d)
+    vids = list(range(41, 49))
+    for vid in vids:
+        write_volume(os.path.join(d, str(vid)), (3 << 20) + 65536 * vid, vid,
+                     max_payload=1 << 20)
+    ref = str(tmp_path / "ref")
+    os.makedirs(ref)
+    native = new_encoder(backend="native")
+    for vid in vids:
+        base = os.path.join(ref, str(vid))
+        for ext in (".dat", ".idx"):
+            shutil.copyfile(os.path.join(d, f"{vid}{ext}"), base + ext)
+        st: dict = {}
+        ec_files.write_ec_files(base, rs=native, want_crcs=True, stats=st)
+        ec_files.write_sorted_file_from_idx(base)
+        ecc_sidecar.write_sidecar(base, st["shard_crcs"])
+    vs = _server(d)
+    try:
+        k2, k4 = codec_cuda.BATCH_LAUNCHES.value, crc_kernel.LAUNCHES.value
+        with rpc.dial(f"127.0.0.1:{vs.grpc_port}") as ch:
+            stub = rpc.volume_stub(ch)
+            for vid in vids:
+                stub.VolumeMarkReadonly(pb.VolumeMarkReadonlyRequest(volume_id=vid))
+            stub.VolumeEcShardsBatchGenerate(
+                pb.VolumeEcShardsBatchGenerateRequest(volume_ids=vids), timeout=300)
+        assert codec_cuda.BATCH_LAUNCHES.value > k2
+        assert crc_kernel.LAUNCHES.value > k4
+        for vid in vids:
+            for ext in [ec_files.to_ext(i) for i in range(14)] + [".ecx", ".ecc"]:
+                with open(os.path.join(ref, f"{vid}{ext}"), "rb") as a, open(
+                        os.path.join(d, f"{vid}{ext}"), "rb") as b:
+                    assert a.read() == b.read(), (vid, ext)
+    finally:
+        vs.stop()

@@ -234,8 +234,23 @@ def test_empty_volumes_and_nothing_missing(tmp_path):
     assert st["batch_groups"] == 0 and st["shard_crcs"] == [{}, {}]
 
 
-def _fds() -> int:
-    return len(os.listdir("/proc/self/fd"))
+def _fds() -> dict[str, str]:
+    """This process's open fds, each with what it points at."""
+    out = {}
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            out[fd] = os.readlink(os.path.join("/proc/self/fd", fd))
+        except OSError:  # the listing's own fd, closed by now
+            pass
+    return out
+
+
+def _assert_no_leak(threads: int, fds: dict[str, str]) -> None:
+    now = _fds()
+    assert threading.active_count() == threads and len(now) == len(fds), (
+        f"threads {threads} -> {threading.active_count()}; "
+        f"fds before {sorted(fds.items())}, after {sorted(now.items())}"
+    )
 
 
 def _enospc_after(monkeypatch, calls: int):
@@ -261,7 +276,7 @@ def test_encode_abort_leaves_no_shards_threads_or_fds(tmp_path, monkeypatch):
     assert err.value.errno == errno.ENOSPC
     for p in ports:
         assert not any(os.path.exists(p + ext) for ext in SHARDS), p
-    assert threading.active_count() == threads and _fds() == fds
+    _assert_no_leak(threads, fds)
 
 
 def test_rebuild_abort_removes_every_target(tmp_path, monkeypatch):
@@ -280,7 +295,7 @@ def test_rebuild_abort_removes_every_target(tmp_path, monkeypatch):
         assert not os.path.exists(p + ec_files.to_ext(1))
         assert not os.path.exists(p + ec_files.to_ext(12))
         assert os.path.exists(p + ec_files.to_ext(0))  # survivors untouched
-    assert threading.active_count() == threads and _fds() == fds
+    _assert_no_leak(threads, fds)
 
 
 @pytest.mark.parametrize("pipeline", ["1", "0"])

@@ -241,8 +241,8 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-# the volume server's and the master tier's slices: every module they
-# added is walked too
+# the volume server's, the master tier's and the admin plane's slices:
+# every module they added is walked too
 SERVER_SLICE = (
     "pb/rpc.py", "pb/volume_pb2.py", "pb/master_pb2.py", "pb/filer_pb2.py",
     "pb/raft_pb2.py", "pb/tikv_pb2.py", "util/deadline.py", "util/http_range.py",
@@ -258,6 +258,10 @@ SERVER_SLICE = (
     "cluster/raft.py", "server/master_server.py", "stats/metrics.py",
     "util/availability.py", "client/__init__.py", "client/operation.py",
     "client/retry.py",
+    # the admin plane's slice
+    "client/vid_map.py", "client/masterclient.py", "shell/__init__.py",
+    "shell/command_env.py", "shell/ec_common.py", "shell/commands.py",
+    "shell/shell_runner.py",
 )
 
 

@@ -198,6 +198,11 @@ def _teardown(nodes, servers, pools):
         pool.shutdown(wait=True)
 
 
+def _settled(node) -> bool:
+    """`node` leads and has applied every entry of its log."""
+    return node.is_leader and node.last_applied >= node._last_log_index()
+
+
 def _applied(node) -> list[dict]:
     out = []
     for i in range(1, node.last_applied + 1):
@@ -240,8 +245,13 @@ def test_leader_failover(tmp_path):
         rest = [n for i, n in enumerate(nodes) if i != idx]
         assert wait_for(lambda: sum(1 for n in rest if n.is_leader) == 1), \
             "no new leader after failover"
-        new_leader = next(n for n in rest if n.is_leader)
+        # a new leader applies the prior term's entries only once its own
+        # no-op commits (§5.4.2): until then last_applied may still be 0
+        assert wait_for(lambda: any(_settled(n) for n in rest)), \
+            "the new leader never applied its log"
+        new_leader = next(n for n in rest if _settled(n))
         assert new_leader.last_applied >= 1
+        assert any(c.get("maxVolumeId") == 3 for c in _applied(new_leader))
         new_leader.propose({"name": "MaxVolumeId", "maxVolumeId": 4})
     finally:
         _teardown(nodes, servers, pools)
@@ -282,12 +292,18 @@ def ha_cluster(tmp_path_factory):
 
 
 def _leader_with_server(masters):
-    """The master that leads and holds the volume server, waited for: a
-    loaded host may re-elect before the server's first beat lands."""
-    assert wait_for(lambda: any(m.is_leader and len(m.topology.data_nodes()) == 1
-                                for m in masters)), \
-        "volume server did not register with a leader"
-    return next(m for m in masters if m.is_leader)
+    """The master that leads, has applied its whole raft log and holds
+    the volume server, waited for: a loaded host may re-elect before the
+    server's first beat lands, and a new leader applies the prior term's
+    MaxVolumeId entries only once its own no-op commits; until then its
+    volume-id allocation waits on that commit (`barrier`, 5 s) and an
+    assign on a loaded host can time out."""
+    def ready(m):
+        return _settled(m._raft) and len(m.topology.data_nodes()) == 1
+
+    assert wait_for(lambda: any(ready(m) for m in masters)), \
+        "volume server did not register with a settled leader"
+    return next(m for m in masters if ready(m))
 
 
 def _http_json(url, data=None, timeout=30):
@@ -316,6 +332,7 @@ def test_assign_via_any_master_and_failover(ha_cluster):
     max_before = max(vid1, new_leader.topology.id_gen.peek())
     ar3 = _http_json(f"http://127.0.0.1:{new_leader.port}/dir/assign"
                      f"?collection=post_failover")
+    assert ar3.get("fid"), ar3
     vid3 = int(ar3["fid"].split(",")[0])
     assert vid3 > max(vid1, 0) and new_leader.topology.id_gen.peek() >= max_before
     urllib.request.urlopen(urllib.request.Request(

@@ -69,6 +69,18 @@ def pair(tmp_path, pinned_clock):
         vs.stop()
 
 
+@pytest.fixture
+def second(tmp_path):
+    """A second server of each package, in directories of their own."""
+    dirs = {k: str(tmp_path / f"{k}2") for k in ("ref", "port")}
+    for d in dirs.values():
+        os.makedirs(d)
+    servers = {k: _start(k, d) for k, d in dirs.items()}
+    yield servers, dirs
+    for vs in servers.values():
+        vs.stop()
+
+
 def _stub(vs):
     ch = rpc.dial(f"127.0.0.1:{vs.grpc_port}")
     return ch, rpc.volume_stub(ch)
@@ -268,6 +280,184 @@ def test_ec_verbs_and_degraded_reads_match(pair, monkeypatch):
     assert sorted(os.listdir(dirs["ref"])) == sorted(os.listdir(dirs["port"]))
 
 
+# --- copy, tail and the batch EC verbs -----------------------------------
+# Each runs on a server of each package and must leave the same bytes:
+# .dat/.idx for copy and tail, shard files, .ecx and .ecc for the batch
+# verbs.
+
+
+def test_volume_copy_pulls_dat_and_idx(pair, second):
+    servers, dirs = pair
+    dests, dest_dirs = second
+    _write_volume(servers, _needles(seed=11, count=10))
+    _both(servers, "VolumeMarkReadonly", pb.VolumeMarkReadonlyRequest(volume_id=VID))
+    got = {}
+    for k in ("ref", "port"):
+        ch, stub = _stub(dests[k])
+        with ch:
+            got[k] = stub.VolumeCopy(pb.VolumeCopyRequest(
+                volume_id=VID, source_data_node=f"127.0.0.1:{servers[k].port}"), timeout=60)
+    assert got["ref"].last_append_at_ns == got["port"].last_append_at_ns > 0
+    exts = (".dat", ".idx")
+    want = _files(dirs["ref"], exts)
+    assert _files(dest_dirs["ref"], exts) == _files(dest_dirs["port"], exts) == want
+    assert _files(dirs["port"], exts) == want
+    # the copy is mounted: a second copy is refused, and GETs serve it
+    for k in ("ref", "port"):
+        ch, stub = _stub(dests[k])
+        with ch, pytest.raises(grpc.RpcError) as err:
+            stub.VolumeCopy(pb.VolumeCopyRequest(
+                volume_id=VID, source_data_node=f"127.0.0.1:{servers[k].port}"), timeout=60)
+        assert err.value.code() == grpc.StatusCode.ALREADY_EXISTS
+    for fid, body in _needles(seed=11, count=10):
+        assert _same(dests, _req("GET", f"/{fid}")).endswith(body)
+
+
+def _tail(vs, since_ns=0, idle=1):
+    ch, stub = _stub(vs)
+    with ch:
+        return [(r.needle_header, r.needle_body) for r in stub.VolumeTailSender(
+            pb.VolumeTailSenderRequest(volume_id=VID, since_ns=since_ns,
+                                       idle_timeout_seconds=idle), timeout=60)]
+
+
+def test_tail_sender_follows_appends(pair):
+    """A tail opened on the volume streams what is there, then the
+    needles appended while it follows, and ends after the idle timeout;
+    since_ns skips what came before."""
+    servers, _ = pair
+    first = _needles(seed=12, count=6)
+    _write_volume(servers, first)
+    streams = {}
+
+    def follow(k):
+        streams[k] = _tail(servers[k], idle=4)
+
+    threads = [threading.Thread(target=follow, args=(k,)) for k in servers]
+    for t in threads:
+        t.start()
+    later = [(f"{VID},{0x40 + i:x}0000beef", bytes([i]) * (5000 + 999 * i)) for i in range(4)]
+    for fid, body in later:
+        _same(servers, _req("POST", f"/{fid}?ts={TS}", body))
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert streams["ref"] == streams["port"]
+    bodies = b"".join(b for _, b in streams["port"])
+    assert len(streams["port"]) == len(first) + len(later)
+    assert all(body in bodies for _, body in later)
+    # since_ns: only the needles appended after the sixth
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    header, body = streams["port"][5]
+    since = Needle.from_bytes(header + body, servers["port"].store.find_volume(VID).version
+                              ).append_at_ns
+    tails = {k: _tail(vs, since_ns=since) for k, vs in servers.items()}
+    assert tails["ref"] == tails["port"] == streams["port"][6:]
+
+
+def test_tail_receiver_applies_writes_and_tombstones(pair, second):
+    servers, dirs = pair
+    dests, dest_dirs = second
+    needles = _needles(seed=13, count=8)
+    _write_volume(servers, needles)
+    for fid, _ in needles[:3]:
+        _same(servers, _req("DELETE", f"/{fid}"))
+    _both(dests, "AllocateVolume", pb.AllocateVolumeRequest(volume_id=VID))
+    for k in ("ref", "port"):
+        ch, stub = _stub(dests[k])
+        with ch:
+            stub.VolumeTailReceiver(pb.VolumeTailReceiverRequest(
+                volume_id=VID, since_ns=0, idle_timeout_seconds=1,
+                source_volume_server=f"127.0.0.1:{servers[k].port}"), timeout=60)
+    exts = (".dat", ".idx")
+    assert _files(dest_dirs["ref"], exts) == _files(dest_dirs["port"], exts)
+    for fid, _ in needles[:3]:
+        assert _same(dests, _req("GET", f"/{fid}")).startswith(b"HTTP/1.1 404")
+    for fid, body in needles[3:]:
+        assert _same(dests, _req("GET", f"/{fid}")).endswith(body)
+
+
+BATCH = (VID, VID + 1, VID + 2)
+
+
+def _batch_volumes(servers, dirs):
+    """Three sealed volumes of different sizes in each server."""
+    for vid in BATCH[1:]:
+        _both(servers, "AllocateVolume", pb.AllocateVolumeRequest(volume_id=vid))
+    _write_volume(servers, _needles(seed=14, count=10))
+    for n, vid in enumerate(BATCH[1:]):
+        rng = np.random.default_rng(vid)
+        for i in range(4 + 3 * n):
+            body = rng.bytes(int(rng.integers(2000, 120_000)))
+            _same(servers, _req("POST", f"/{vid},{i + 1:x}0000cafe?ts={TS}", body))
+    for vid in BATCH:
+        _both(servers, "VolumeMarkReadonly", pb.VolumeMarkReadonlyRequest(volume_id=vid))
+
+
+def _batch_files(d):
+    return {vid: {e: open(os.path.join(d, f"{vid}{e}"), "rb").read()
+                  for e in SHARD_EXTS + (".ecx",)} for vid in BATCH}
+
+
+def test_batch_generate_matches_the_reference(pair):
+    servers, dirs = pair
+    _batch_volumes(servers, dirs)
+    _both(servers, "VolumeEcShardsBatchGenerate",
+          pb.VolumeEcShardsBatchGenerateRequest(volume_ids=list(BATCH)))
+    assert _batch_files(dirs["ref"]) == _batch_files(dirs["port"])
+    for vid in BATCH:
+        assert _ecc_crcs(dirs["ref"], vid) == _ecc_crcs(dirs["port"], vid)
+
+
+def test_batch_rebuild_matches_the_reference(pair):
+    """Two damage signatures over three volumes, rebuilt by one verb."""
+    servers, dirs = pair
+    _batch_volumes(servers, dirs)
+    _both(servers, "VolumeEcShardsBatchGenerate",
+          pb.VolumeEcShardsBatchGenerateRequest(volume_ids=list(BATCH)))
+    want = _batch_files(dirs["port"])
+    for vid in BATCH:
+        lost = (3,) if vid % 2 else LOST
+        _both(servers, "VolumeEcShardsMount",
+              pb.VolumeEcShardsMountRequest(volume_id=vid, shard_ids=list(range(14))))
+        _both(servers, "VolumeDelete", pb.VolumeDeleteRequest(volume_id=vid))
+        _both(servers, "VolumeEcShardsUnmount",
+              pb.VolumeEcShardsUnmountRequest(volume_id=vid, shard_ids=list(lost)))
+        for d in dirs.values():
+            for sid in lost:
+                os.remove(os.path.join(d, f"{vid}.ec{sid:02d}"))
+    _both(servers, "VolumeEcShardsBatchRebuild",
+          pb.VolumeEcShardsBatchGenerateRequest(volume_ids=list(BATCH)))
+    assert _batch_files(dirs["ref"]) == _batch_files(dirs["port"]) == want
+    for vid in BATCH:
+        assert _ecc_crcs(dirs["ref"], vid) == _ecc_crcs(dirs["port"], vid)
+
+
+def test_batch_codec_is_the_servers_device_or_its_host_codec(tmp_path, monkeypatch):
+    """device="cpu": a one-device mesh of plain versions; a host codec
+    named by ec_codec: the host arm; neither falls back to the other."""
+    from seaweedfs_tpu_torch.ec import ec_stream
+    from seaweedfs_tpu_torch.parallel import MeshCodec
+
+    port = PortServer([str(tmp_path)], port=free_port(), ec_codec="cuda", device="cpu",
+                      scrub_interval=0)
+    try:
+        codec = port._batch_codec()
+        assert isinstance(codec, MeshCodec)
+        assert [str(d) for d in codec.mesh.devices.flat] == ["cpu"]
+    finally:
+        port.store.close()
+    host = PortServer([str(tmp_path / "h")], port=free_port(), ec_codec="native",
+                      device="cpu", scrub_interval=0)
+    try:
+        codec = host._batch_codec()
+        assert isinstance(codec, ec_stream._HostBatchCodec)
+        assert codec.rs._backend_name == "native"
+    finally:
+        host.store.close()
+
+
 def _both_stream(servers, req):
     out = {}
     for k, vs in servers.items():
@@ -451,15 +641,10 @@ VERBS = [
     ("Query", pb.QueryRequest(), "ROADMAP item 11"),
     ("VolumeTierMoveDatToRemote", pb.VolumeTierMoveDatToRemoteRequest(), "ROADMAP item 9"),
     ("VolumeTierMoveDatFromRemote", pb.VolumeTierMoveDatFromRemoteRequest(), "ROADMAP item 9"),
-    ("VolumeCopy", pb.VolumeCopyRequest(), "ROADMAP item 10"),
-    ("VolumeTailSender", pb.VolumeTailSenderRequest(), "ROADMAP item 10"),
-    ("VolumeTailReceiver", pb.VolumeTailReceiverRequest(), "ROADMAP item 10"),
     # ported with the master tier (ROADMAP item 7): they serve the request
     ("VolumeEcShardsCopy", pb.VolumeEcShardsCopyRequest(source_data_node="127.0.0.1:1"),
      None),
     ("CopyFile", pb.CopyFileRequest(volume_id=VID, ext=".dat"), None),
-    ("VolumeEcShardsBatchGenerate", pb.VolumeEcShardsBatchGenerateRequest(), "ROADMAP item 8"),
-    ("VolumeEcShardsBatchRebuild", pb.VolumeEcShardsBatchGenerateRequest(), "ROADMAP item 8"),
 ]
 
 
@@ -538,3 +723,55 @@ def test_stop_ends_every_thread_start_made(tmp_path, monkeypatch):
     left = [t.name for t in threading.enumerate()
             if t not in before and t.name != "trace-drain"]
     assert left == [] and not profiler.running()
+
+
+def test_sender_streams_and_receiver_applies(tmp_path):
+    """tests/test_smallgaps.py::TestTailRpcs ported: on a port master
+    with one port volume server, a tail of an assigned volume delivers
+    the uploaded needle, and a second server replicates the volume
+    through VolumeTailReceiver and serves it."""
+    import time
+    import urllib.request
+
+    from seaweedfs_tpu_torch.client import operation as op
+    from seaweedfs_tpu_torch.server.master_server import MasterServer
+
+    master = MasterServer(port=free_port(), volume_size_limit_mb=64)
+    master.start()
+    vs = vs2 = None
+    try:
+        vs = PortServer([str(tmp_path / "tailvs")], port=free_port(),
+                        master=f"127.0.0.1:{master.port}", heartbeat_interval=0.1,
+                        max_volume_counts=[100], ec_codec="cuda", device="cpu",
+                        scrub_interval=0)
+        vs.start()
+        deadline = time.time() + 45
+        while time.time() < deadline and not master.topology.data_nodes():
+            time.sleep(0.05)
+        ar = op.assign(f"127.0.0.1:{master.port}", collection="tail")
+        vid = int(ar.fid.split(",")[0])
+        # incompressible: a text payload would be stored gzipped, and
+        # this asserts on the raw tailed record bytes
+        payload = bytes(range(256)) * 4
+        assert not op.upload(f"{ar.url}/{ar.fid}", payload, jwt=ar.auth).error
+        ch, stub = _stub(vs)
+        with ch:
+            frames = list(stub.VolumeTailSender(pb.VolumeTailSenderRequest(
+                volume_id=vid, since_ns=0, idle_timeout_seconds=1), timeout=30))
+        assert frames and payload in b"".join(f.needle_body for f in frames)
+        vs2 = _start("port", str(tmp_path / "tailvs2"))
+        ch, stub = _stub(vs2)
+        with ch:
+            stub.AllocateVolume(pb.AllocateVolumeRequest(
+                volume_id=vid, collection="", replication="000"))
+            stub.VolumeTailReceiver(pb.VolumeTailReceiverRequest(
+                volume_id=vid, since_ns=0, idle_timeout_seconds=1,
+                source_volume_server=f"{vs.host}:{vs.port}"), timeout=60)
+        with urllib.request.urlopen(f"http://127.0.0.1:{vs2.port}/{ar.fid}",
+                                    timeout=10) as r:
+            assert r.read() == payload
+    finally:
+        for s in (vs2, vs):
+            if s is not None:
+                s.stop()
+        master.stop()
