@@ -100,6 +100,28 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      VolumeTailReceiver following appends and volume.move (VolumeCopy,
      .dat and .idx equal); each step's launches must include its
      kernels; after stop() no thread may be left;
+ 3g. the command line and the integrity plane (run_cli_phase): a master
+     and three volume servers started as `python -m seaweedfs_tpu_torch
+     master|volume` processes, every server on the card (no -ec.codec),
+     data in /dev/shm; one volume filled with 1 GiB by `python -m
+     seaweedfs_tpu_torch benchmark`; ec.encode and ec.balance through a
+     `shell` process (no server holds all 14 shards); bytes flipped in a
+     4 MiB tile of a data shard and of a parity shard on two servers;
+     this process runs the scrub's verify core over the shard files on
+     the card and on K1's plain version (equal mismatch counts and
+     culprits, one K1 launch a codec call of the plain run); then
+     scrub.trigger on each culprit's holder in turn: its sweep finds and
+     localizes the culprit with K1 and quarantines it (.bad), the
+     master's /repair/queue shows the volume and its RepairScheduler
+     rebuilds the shard on a server's card (K1 + K4); ec.verify through
+     the shell (K1 in the shell's process) reports the volume clean, the
+     rebuilt shards equal the saved copies and the .ecc, every holder
+     completes a clean pass (its scanned-EC-bytes counter rising by the
+     volume), every needle reads back with its payload's SHA-256, the
+     volume servers' and the shell's processes appear in nvidia-smi's
+     compute apps, the verify core runs clean after the repair (one K1
+     launch a tile) and SIGTERM ends every process with exit code 0;
+     each server's launches are read off its /metrics;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -120,7 +142,8 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      them (the wrappers' tallies: shape, and K1's and K5's matrix), each
      byte-exact against its plain version, timed, bounded, and priced
      as launches x (ms - bound); K1 at the degraded read's shapes
-     ([10, 65536] and [10, 2097152] lanes, one decode row) and
+     ([10, 65536] and [10, 2097152] lanes, one decode row), at the
+     scrub's 4 MiB tile ([10, 1048576] lanes, the 4 parity rows) and
      cuda_apply_matrix's wall a call there; a `kernels` JSON line, then
      the final status line.
 
@@ -3030,6 +3053,603 @@ ADMIN_PATHS = ("admin_encode", "admin_balance", "admin_rebuild", "admin_batch",
                "admin_rebuild_batch", "admin_move")
 
 
+# --- phase 3g: the command line and the integrity plane ---------------------
+
+CLI_ROOM = 4 << 30  # the cli phase's peak in its directory (about 3.2 GiB)
+CLI_FILE_BYTES = 1 << 20  # the benchmark's -size
+CLI_TILE = 4 << 20  # the scrub's tile (scrub/verify.DEFAULT_TILE_BYTES)
+CLI_BAD_TILES = (1, 2)  # the data and the parity culprit's corrupt tile
+CLI_REPAIR_GRACE = 8.0  # -repairGrace: both quarantines land inside it
+
+
+def _cli_metrics(port: int) -> dict:
+    """{(family, labels): value} off a server's /metrics."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        name_labels, _, value = line.rpartition(" ")
+        out[name_labels] = float(value)
+    return out
+
+
+def _cli_launches(metrics: dict) -> dict:
+    return {k: int(metrics.get(f'weed_kernel_launches{{kernel="{k}"}}', 0))
+            for k in ("gf_apply", "gf_apply_batch", "gf_verify_batch", "crc32c_rows",
+                      "gf_bits", "gf_bits_mma", "gf_bits_alu")}
+
+
+class _CliShell:
+    """`python -m seaweedfs_tpu_torch shell` as an operator runs it, one
+    process kept open: each command is written to its stdin, and its
+    output is read up to a marker line (an unknown command's error,
+    which the shell prints and flushes with its next prompt)."""
+
+    def __init__(self, argv: list, env: dict, log_path: str):
+        import queue
+
+        self.proc = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=open(log_path, "w"), text=True, env=env,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.lines: "queue.Queue" = queue.Queue()
+        self._n = 0
+        threading.Thread(target=self._pump, daemon=True, name="cli-shell-reader").start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def run(self, line: str, timeout: float = 600.0) -> tuple[float, str]:
+        import queue
+
+        self._n += 1
+        marker = f"cli-smoke-mark-{self._n}"
+        t0 = time.perf_counter()
+        self.proc.stdin.write(f"{line}\n{marker}\n")
+        self.proc.stdin.flush()
+        out = []
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                got = self.lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"cli shell: `{line}` gave no answer in {timeout} s")
+            if got is None:
+                raise AssertionError(f"cli shell exited during `{line}`: {''.join(out)}")
+            if marker in got:
+                wall = time.perf_counter() - t0
+                text = "".join(out).replace("> ", "")
+                if "error:" in text:
+                    raise AssertionError(f"cli shell: `{line}` failed: {text}")
+                return wall, text
+            out.append(got)
+
+    def exit(self, timeout: float = 60.0) -> int:
+        self.proc.stdin.write("exit\n")
+        self.proc.stdin.flush()
+        return self.proc.wait(timeout)
+
+
+def _cli_verify(paths: dict, tile: int, rs):
+    """verify_parity_stream over shard files {sid: path} (pread readers)."""
+    from seaweedfs_tpu_torch.scrub.verify import verify_parity_stream
+
+    fds = {sid: os.open(p, os.O_RDONLY) for sid, p in paths.items()}
+    try:
+        readers = [lambda off, size, fd=fds[sid]: os.pread(fd, size, off)
+                   for sid in range(14)]
+        return verify_parity_stream(readers, rs=rs, tile_bytes=tile)
+    finally:
+        for fd in fds.values():
+            os.close(fd)
+
+
+def _cli_verify_both(paths: dict, tile: int, device, what: str, card: str) -> dict:
+    """The scrub's verify core in this process over the shards' files: on
+    `device` (None: the card; K1, and K5 on a short last tile) and on
+    K1's plain version, whose codec calls are counted. Both runs must
+    give the same mismatch counts, bad tiles and culprits, and the card
+    run must launch one kernel a codec call of the plain run: one
+    re-encode a tile, and each localization hypothesis's decodes and
+    re-encode."""
+    from seaweedfs_tpu_torch.ec.codec import new_encoder
+
+    rs_card = new_encoder(backend="cuda", device=device)
+    _reset_counts()
+    wall, res = _timed(lambda: _cli_verify(paths, tile, rs_card))
+    launches = _read_counts()
+    rs_plain = new_encoder(backend="cuda", device="cpu")
+    calls = [0]
+    apply = rs_plain._apply
+
+    def counted(matrix, inputs):
+        calls[0] += 1
+        return apply(matrix, inputs)
+
+    rs_plain._apply = counted
+    plain_s, ref = _timed(lambda: _cli_verify(paths, tile, rs_plain))
+    got = (res.mismatch, res.bad_tiles, res.culprits, res.unlocalized, res.bytes_per_shard)
+    want = (ref.mismatch, ref.bad_tiles, ref.culprits, ref.unlocalized, ref.bytes_per_shard)
+    if got != want:
+        raise AssertionError(f"cli {what}: the card's verify {got} differs from the plain "
+                             f"version's {want}")
+    tiles = -(-res.bytes_per_shard // tile)
+    if device is None and launches["gf_apply"] + launches["gf_bits"] != calls[0]:
+        raise AssertionError(f"cli {what}: {launches['gf_apply']} K1 + {launches['gf_bits']} "
+                             f"K5 launches for {calls[0]} codec calls")
+    nbytes = 14 * res.bytes_per_shard
+    log(f"cli {what} in this process on {card}: {tiles} tiles of {tile >> 20} MiB x 14 "
+        f"shards, mismatch per parity row {res.mismatch}, bad tiles {res.bad_tiles}, "
+        f"culprits {res.culprits}, unlocalized {res.unlocalized}; equal to K1's plain "
+        f"version's run ({plain_s:.3f} s, {calls[0]} codec calls); card {wall:.4f} s "
+        f"({nbytes / wall / 1e9:.3f} shard-GB/s), launches {launches} "
+        f"({calls[0] - tiles} of them localization hypotheses' decodes and re-encodes)")
+    return {"wall_s": wall, "launches": launches, "sigs": _read_sigs(), "tiles": tiles,
+            "calls": calls[0], "mismatch": res.mismatch, "culprits": res.culprits,
+            "bad_tiles": res.bad_tiles}
+
+
+def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card: str = "",
+                  smi: str = "") -> dict:
+    """The port started from the command line, on `device` (None: the
+    card; "cpu" runs the servers with -ec.codec cpu and this process's
+    verifies on K1's plain version, a rehearsal), its integrity plane
+    driven as users drive it:
+      1. `python -m seaweedfs_tpu_torch master` (-repairInterval 1,
+         -repairGrace CLI_REPAIR_GRACE, -telemetryInterval 0: the
+         telemetry collector is not ported) and three `volume` servers on
+         two racks, each a process of its own, with no -ec.codec (the
+         card), -scrubInterval a day (only scrub.trigger sweeps) and
+         -scrubRate 0; data in `workdir` (/dev/shm);
+      2. one volume grown through /vol/grow and filled with about
+         `volume_bytes` by `python -m seaweedfs_tpu_torch benchmark`
+         (-size CLI_FILE_BYTES, -n to fill, -read=false): upstream's
+         documented -n 1048576 -size 1024 makes the same 1 GiB of ten
+         times the requests;
+      3. `python -m seaweedfs_tpu_torch shell`, one process kept open:
+         ec.encode -volumeId V (K1 + K4 on the volume's server) and
+         ec.balance -force; no server may hold all 14 shards, so every
+         sweep takes the parity re-verify, not the .ecc CRC arm;
+      4. a data shard and a parity shard on two different servers saved,
+         then bytes flipped in one 4 MiB tile of each (CLI_BAD_TILES);
+         this process runs the scrub's verify core over the shard files
+         on the card and on K1's plain version (_cli_verify_both); then
+         scrub.trigger -volumeId V through the shell: each holder's sweep
+         re-encodes every tile with K1 and localizes the culprits by
+         decodes; each culprit's holder quarantines it (.bad); the
+         master's /repair/queue shows the volume, its RepairScheduler
+         rebuilds both shards on a server's card (K1 + K4), and
+         ec.verify -volumeId V through the shell (K1 in the shell's
+         process) reports them clean;
+      5. the rebuilt shards equal the saved copies and their CRCs the
+         .ecc; every needle reads back over HTTP with its payload's
+         SHA-256; every volume server's process and the shell's appear
+         in nvidia-smi's compute apps; each holder's scrub counter of
+         scanned EC bytes rose; the verify core once more in this
+         process after the repair, clean, one K1 launch a tile; SIGTERM
+         ends every process with exit code 0.
+    Each volume server's kernel launches are read off its /metrics
+    (weed_kernel_launches, the wrappers' counters, 0 when its process
+    starts) before and after each step. Raises on any fault; returns
+    cli_encode, cli_scrub, cli_repair, cli_verify_before and
+    cli_verify_after with walls and launches."""
+    import hashlib
+    import signal
+
+    from seaweedfs_tpu_torch.ec import ec_files, ecc_sidecar
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+
+    _check_room(workdir, CLI_ROOM if volume_bytes >= 1 << 30 else 3 * volume_bytes + (1 << 28),
+                "the cli phase")
+    on_card = device is None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"  # the shell's ec.verify on the host codec
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    logs = os.path.join(workdir, "logs")
+    os.mkdir(logs)
+    procs: dict = {}
+
+    def spawn(name: str, args: list) -> subprocess.Popen:
+        procs[name] = subprocess.Popen(cli + args, cwd=here, env=env,
+                                       stdout=open(os.path.join(logs, name + ".log"), "w"),
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except (OSError, ValueError, KeyError):
+                pass
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise AssertionError(f"cli: {name} exited ({p.returncode}) while waiting "
+                                         f"for {what}: {_tail(name)}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"cli: {what} not seen within {timeout} s")
+            time.sleep(0.05)
+
+    def _tail(name: str) -> str:
+        with open(os.path.join(logs, name + ".log"), errors="replace") as f:
+            return f.read()[-3000:]
+
+    phase_t0 = time.perf_counter()
+    mport = _free_port()
+    ports = [_free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    master_addr = f"127.0.0.1:{mport}"
+    runs: dict = {}
+    shell = None
+    try:
+        t0 = time.perf_counter()
+        spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                         "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval", "1",
+                         "-repairGrace", str(CLI_REPAIR_GRACE), "-telemetryInterval", "0"])
+        wait(lambda: urllib.request.urlopen(f"http://{master_addr}/cluster/status",
+                                            timeout=2).close() is None, "the master")
+        for i, (port, d) in enumerate(zip(ports, dirs)):
+            os.mkdir(d)
+            spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(port), "-dir", d,
+                                 "-max", "100", "-mserver", master_addr, "-rack", f"rack{i % 2}",
+                                 "-scrubInterval", "86400", "-scrubRate", "0"] + codec_args)
+        cenv = CommandEnv([master_addr])
+        wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+        log(f"cli: master and three volume servers up as `python -m seaweedfs_tpu_torch` "
+            f"processes (pids {[p.pid for p in procs.values()]}) in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        # --- 2. fill one volume with the benchmark ---
+        with urllib.request.urlopen(f"http://{master_addr}/vol/grow?collection=cli&count=1",
+                                    timeout=60) as r:
+            if json.loads(r.read()).get("count") != 1:
+                raise AssertionError("cli: /vol/grow of the benchmark's volume failed")
+        n = max(1, volume_bytes // CLI_FILE_BYTES)
+        bench = subprocess.run(cli + ["benchmark", "-master", master_addr, "-c", "16",
+                                      "-n", str(n), "-size", str(CLI_FILE_BYTES),
+                                      "-collection", "cli", "-replication", "000",
+                                      "-read=false"],
+                               cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        if bench.returncode or "Failed requests:        0" not in bench.stdout:
+            raise AssertionError(f"cli benchmark failed (rc {bench.returncode}): "
+                                 f"{bench.stdout[-2000:]} {bench.stderr[-2000:]}")
+        took = float(re.search(r"Time taken for tests:\s+([0-9.]+)", bench.stdout).group(1))
+        moved = int(re.search(r"Total transferred:\s+(\d+)", bench.stdout).group(1))
+        dats = [os.path.join(d, f) for d in dirs for f in os.listdir(d)
+                if f.startswith("cli_") and f.endswith(".dat")]
+        if len(dats) != 1:
+            raise AssertionError(f"cli: the benchmark filled {dats}, not one volume")
+        vid = int(os.path.basename(dats[0])[4:-4])
+        needles = [(nd.id, nd.cookie) for nd, _ in scan_volume_file(dats[0])]
+        if len(needles) != n:
+            raise AssertionError(f"cli: volume {vid} holds {len(needles)} needles, not {n}")
+        import random as _random
+
+        rng = _random.Random(1)  # the benchmark's one payload, as it makes it
+        random_payload = bytes(rng.randrange(256) for _ in range(CLI_FILE_BYTES))
+        want_sha = hashlib.sha256(random_payload).hexdigest()
+        runs["cli_fill"] = {"wall_s": took, "bytes": moved}
+        log(f"cli benchmark on {card}: {n} x {CLI_FILE_BYTES} B into volume {vid} in "
+            f"{took:.3f} s, {moved / took / 1e9:.4f} GB/s (its own report); {smi}")
+
+        # --- 3. ec.encode and ec.balance through the shell process ---
+        shell = _CliShell(cli + ["shell", "-master", master_addr], env,
+                          os.path.join(logs, "shell.log"))
+        procs["shell"] = shell.proc
+        before = [_cli_launches(_cli_metrics(p)) for p in ports]
+        enc_s, out = shell.run(f"ec.encode -volumeId {vid}")
+        bal_s, _ = shell.run("ec.balance -force")
+
+        def registered() -> dict:
+            with rpc.dial(f"127.0.0.1:{mport + 10000}") as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+            return {e.shard_id: [loc.url for loc in e.locations]
+                    for e in resp.shard_id_locations if e.locations}
+
+        wait(lambda: len(registered()) == 14, "14 registered shards", 60)
+        after = [_cli_launches(_cli_metrics(p)) for p in ports]
+        enc = {k: sum(a[k] - b[k] for a, b in zip(after, before)) for k in after[0]}
+        if on_card:
+            _must_launch("cli ec.encode", enc, ("gf_apply", "crc32c_rows"))
+        runs["cli_encode"] = {"wall_s": enc_s, "launches": enc, "sigs": {}}
+        name = f"cli_{vid}"
+
+        def shard_paths() -> dict:
+            out = {}
+            for d in dirs:
+                for sid in range(14):
+                    p = os.path.join(d, name + ec_files.to_ext(sid))
+                    if os.path.exists(p):
+                        if sid in out:
+                            raise AssertionError(f"cli: shard {sid} on two servers")
+                        out[sid] = p
+            return out
+
+        held = {}
+        for sid, p in shard_paths().items():
+            held.setdefault(os.path.dirname(p), []).append(sid)
+        if len(shard_paths()) != 14 or max(len(v) for v in held.values()) >= 14:
+            raise AssertionError(f"cli: after ec.balance the shards lie {held}")
+        shard_len = os.path.getsize(shard_paths()[0])
+        log(f"cli ec.encode -volumeId {vid} through the shell process on {card}: "
+            f"{enc_s:.4f} s ({14 * shard_len / enc_s / 1e9:.3f} shard-GB/s), ec.balance "
+            f"-force {bal_s:.4f} s; shards per server "
+            f"{ {os.path.basename(d): sorted(v) for d, v in held.items()} }; server "
+            f"launches {enc}")
+
+        # --- 4. bit rot in a data and a parity shard on two servers ---
+        paths = shard_paths()
+        # the parity culprit is not shard 10: the data culprit's rebuild
+        # decodes from the first ten survivors, data shards and 10
+        ds = min(s for s in paths if s < 10)
+        ps = min(s for s in paths if s > 10 and os.path.dirname(paths[s])
+                 != os.path.dirname(paths[ds]))
+        saved = os.path.join(workdir, "saved")
+        os.mkdir(saved)
+        for sid, tile in zip((ds, ps), CLI_BAD_TILES):
+            shutil.copyfile(paths[sid], os.path.join(saved, str(sid)))
+            off = tile * CLI_TILE
+            if off + CLI_TILE > shard_len:
+                raise AssertionError(f"cli: shard {sid} has no tile {tile}")
+            with open(paths[sid], "r+b") as f:
+                for j in range(0, CLI_TILE, CLI_TILE // 16):
+                    f.seek(off + j)
+                    b = f.read(1)
+                    f.seek(off + j)
+                    f.write(bytes([b[0] ^ 0x5A]))
+        log(f"cli: 16 bytes flipped in tile {CLI_BAD_TILES[0]} of data shard {ds} "
+            f"({os.path.basename(os.path.dirname(paths[ds]))}) and tile {CLI_BAD_TILES[1]} "
+            f"of parity shard {ps} ({os.path.basename(os.path.dirname(paths[ps]))})")
+        runs["cli_verify_before"] = _cli_verify_both(paths, CLI_TILE, device,
+                                                     "verify core before the repair", card)
+        if sorted(runs["cli_verify_before"]["culprits"]) != sorted((ds, ps)):
+            raise AssertionError(f"cli: the verify core localized "
+                                 f"{runs['cli_verify_before']['culprits']}, not {ds} and {ps}")
+
+        before = [_cli_launches(_cli_metrics(p)) for p in ports]
+        seen_queue: list = []
+
+        def queue() -> dict:
+            with urllib.request.urlopen(f"http://{master_addr}/repair/queue",
+                                        timeout=10) as r:
+                q = json.loads(r.read())
+            if any(t["VolumeId"] == vid for t in q.get("Tasks", [])):
+                seen_queue.append(q)
+            return q
+
+        def rebuilds() -> int:
+            return sum(1 for h in queue().get("History", [])
+                       if h["Kind"] == "ec_rebuild" and h["VolumeId"] == vid)
+
+        # One holder at a time, the data culprit's first. A sweep stops its
+        # pass over the volume when a shard it reads remotely has been
+        # quarantined meanwhile, and it quarantines only its own culprits
+        # (remote ones go to the master as a count on the heartbeat), as
+        # the reference's does; and the rebuild decodes from the first
+        # ten survivors whatever the sweeps reported. Triggered on every
+        # holder at once, the holder that finishes its first segment
+        # first quarantines its culprit and the others' passes stop; if
+        # that is the parity culprit, its rebuild decodes from the
+        # corrupt data shard and the volume never heals (ROADMAP Queue 3).
+        pending = {ds, ps}
+        rounds = []
+        scrub = {k: 0 for k in before[0]}
+        repair = dict(scrub)
+        for rnd, sid in enumerate((ds, ps), 1):
+            node = f"127.0.0.1:{ports[dirs.index(os.path.dirname(paths[sid]))]}"
+            done0 = rebuilds()
+            t_trigger = time.perf_counter()
+            shell.run(f"scrub.trigger -volumeId {vid} -node {node}")
+            wait(lambda: os.path.exists(paths[sid] + ".bad") and sid not in shard_paths(),
+                 f"shard {sid} quarantined", 300)
+            t_quarantine = time.perf_counter()
+            mid = [_cli_launches(_cli_metrics(p)) for p in ports]
+
+            def rebuilt() -> bool:
+                return (rebuilds() > done0 and sid in shard_paths()
+                        and len(registered()) == 14)
+
+            wait(rebuilt, f"the RepairScheduler's rebuild of shard {sid}", 300)
+            t_rebuilt = time.perf_counter()
+            end = [_cli_launches(_cli_metrics(p)) for p in ports]
+            for k in scrub:
+                scrub[k] += sum(a[k] - b[k] for a, b in zip(mid, before))
+                repair[k] += sum(a[k] - b[k] for a, b in zip(end, mid))
+            before = end
+            rounds.append({"round": rnd, "quarantined": sid, "holder": node,
+                           "trigger_to_quarantine_s": t_quarantine - t_trigger,
+                           "quarantine_to_rebuilt_s": t_rebuilt - t_quarantine})
+            log(f"cli round {rnd} on {card}: scrub.trigger -volumeId {vid} -node {node} to "
+                f"shard {sid} quarantined (.bad) {t_quarantine - t_trigger:.3f} s; quarantine "
+                f"to rebuilt and mounted by the master's RepairScheduler "
+                f"{t_rebuilt - t_quarantine:.3f} s (a volume repaired within the "
+                f"scheduler's 60 s post-success cool-down waits it out)")
+            pending.discard(sid)
+        if pending:
+            raise AssertionError(f"cli: shards {sorted(pending)} never quarantined")
+        if not seen_queue:
+            raise AssertionError("cli: /repair/queue never showed the damaged volume")
+        if on_card:
+            _must_launch("cli scrub", scrub, ("gf_apply",))
+            _must_launch("cli repair", repair, ("gf_apply", "crc32c_rows"))
+        runs["cli_scrub"] = {"wall_s": sum(r["trigger_to_quarantine_s"] for r in rounds),
+                             "launches": scrub, "sigs": {}, "rounds": rounds}
+        runs["cli_repair"] = {"wall_s": sum(r["quarantine_to_rebuilt_s"] for r in rounds),
+                              "launches": repair, "sigs": {}}
+        history = [h for h in queue().get("History", []) if h["VolumeId"] == vid]
+        log(f"cli scrub and repair on {card}: {len(rounds)} round(s) {rounds}; server "
+            f"launches in the sweeps {scrub}, in the rebuilds {repair}; /repair/queue "
+            f"showed the volume in {len(seen_queue)} polls; its history {history}")
+
+        # --- 5. what the phase holds ---
+        now = shard_paths()
+        sidecar = None
+        for d in dirs:
+            if os.path.exists(os.path.join(d, name + ".ecc")):
+                sidecar = ecc_sidecar.load_sidecar(os.path.join(d, name))["shards"]
+                break
+        if sidecar is None:
+            raise AssertionError("cli: no server holds the volume's .ecc")
+        for sid in (ds, ps):
+            if not filecmp.cmp(now[sid], os.path.join(saved, str(sid)), shallow=False):
+                raise AssertionError(f"cli: rebuilt shard {sid} differs from the saved copy")
+            if _file_crc(now[sid]) != sidecar[str(sid)]["crc"]:
+                raise AssertionError(f"cli: rebuilt shard {sid}'s CRC differs from the .ecc")
+        vfy_s, out = shell.run(f"ec.verify -volumeId {vid}")
+        if "verified clean" not in out:
+            raise AssertionError(f"cli ec.verify: {out}")
+        runs["cli_ec_verify"] = {"wall_s": vfy_s}
+        log(f"cli ec.verify -volumeId {vid} through the shell process on {card}: "
+            f"{vfy_s:.4f} s, {14 * shard_len / vfy_s / 1e9:.3f} shard-GB/s: "
+            f"{out.strip()}")
+        # a last sweep of the repaired volume on every holder: each must
+        # complete a clean pass, and its scanned-EC-bytes counter rise by
+        # at least the whole volume. A pass stopped before the repair
+        # resumes at its cursor and completes with the damage it had
+        # found, so a holder whose completed pass is not clean is
+        # triggered again, as an operator would, for one from offset 0.
+        key = 'weed_scrub_scanned_bytes_total{{kind="ec",server="127.0.0.1:{}"}}'
+
+        def status(p) -> dict:
+            with urllib.request.urlopen(f"http://127.0.0.1:{p}/scrub/status",
+                                        timeout=10) as r:
+                st = json.loads(r.read())
+            rows = [v for v in st["Volumes"] if v["volume_id"] == vid and v["is_ec"]]
+            return {"running": st["SweepRunning"], "done": st["SweepsCompleted"],
+                    "row": rows[0] if rows else {}}
+
+        start = [_cli_metrics(p).get(key.format(p), 0) for p in ports]
+        sweep0 = [_cli_launches(_cli_metrics(p)) for p in ports]
+        passes0 = [status(p)["row"].get("sweeps", 0) for p in ports]
+        walls, triggers = {}, {i: 0 for i in range(3)}
+        for attempt in range(4):
+            need = [i for i in range(3) if i not in walls]
+            if not need:
+                break
+            t0 = time.time()  # the rows stamp a completed pass with the wall clock
+            done0 = {i: status(ports[i])["done"] for i in need}
+            for i in need:
+                shell.run(f"scrub.trigger -volumeId {vid} -node 127.0.0.1:{ports[i]}")
+                triggers[i] += 1
+            wait(lambda: all(status(ports[i])["done"] > done0[i] for i in need),
+                 f"the holders' sweeps (attempt {attempt + 1})", 300)
+            for i in need:
+                row = status(ports[i])["row"]
+                log(f"cli clean-pass attempt {attempt + 1}, volume{i}: pass "
+                    f"{row.get('sweeps')}, cursor {row.get('cursor')}, damage "
+                    f"{row.get('sweep_corruptions')}, error {row.get('last_error')!r}")
+                if row.get("sweeps", 0) > passes0[i]:
+                    if not (row["sweep_corruptions"] or row["last_error"]):
+                        walls[i] = row["last_sweep_unix"] - t0
+                    # else the pass began before the repair (a stopped
+                    # pass resumes at its cursor): the next starts at 0
+                    passes0[i] = row["sweeps"]
+        if len(walls) != 3:
+            raise AssertionError(f"cli: holders {sorted(set(range(3)) - set(walls))} never "
+                                 f"completed a clean pass of volume {vid}: "
+                                 f"{[status(p)['row'] for p in ports]}")
+        clean = [_cli_launches(_cli_metrics(p)) for p in ports]
+        for i, p in enumerate(ports):
+            scanned = _cli_metrics(p).get(key.format(p), 0) - start[i]
+            if scanned < 14 * shard_len:
+                raise AssertionError(f"cli: volume{i}'s scrub counter of EC bytes rose by "
+                                     f"{scanned}, under the volume's {14 * shard_len}")
+            k1 = clean[i]["gf_apply"] - sweep0[i]["gf_apply"]
+            log(f"cli volume{i} clean pass over volume {vid} on {card}: {walls[i]:.3f} s "
+                f"after its last of {triggers[i]} trigger(s), "
+                f"{14 * shard_len / walls[i] / 1e9:.3f} shard-GB/s "
+                f"({len(held.get(dirs[i], []))} of 14 shards local, the rest over "
+                f"VolumeEcShardRead); scanned-EC-bytes counter +{scanned / 1e9:.3f} GB; K1 "
+                f"launches {k1}")
+            if on_card and k1 < -(-shard_len // CLI_TILE):
+                raise AssertionError(f"cli: volume{i}'s clean pass launched K1 {k1} times")
+        runs["cli_sweep"] = {"wall_s": max(walls.values()), "sigs": {}, "launches": {
+            k: sum(c[k] - b[k] for c, b in zip(clean, sweep0)) for k in clean[0]}}
+
+        # every volume server has launched kernels by now (each swept) and
+        # the shell has (ec.verify): each holds a context on the card.
+        # nvidia-smi in a container may list every app under its own pid
+        # namespace's numbers (all 1 where they run in another pid namespace); then the apps
+        # listed must be at least these processes and this one, each of
+        # them mapping the CUDA driver
+        apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout if on_card else ""
+        listed = [line.strip() for line in apps.splitlines() if line.strip()]
+        need = {n: p.pid for n, p in procs.items() if n.startswith("volume") or n == "shell"}
+        mapped = {}
+        for n, pid in need.items():
+            with open(f"/proc/{pid}/maps") as f:
+                mapped[n] = "libcuda.so" in f.read()
+        pids = {int(line.split(",")[0]) for line in listed}
+        log(f"cli nvidia-smi compute apps: {listed}; processes {need}, each mapping "
+            f"libcuda.so: {mapped}")
+        served = [sum(_cli_launches(_cli_metrics(p)).values()) for p in ports]
+        if on_card and (not all(served) or not (
+                set(need.values()) <= pids
+                or (len(listed) >= len(need) + 1 and all(mapped.values())))):
+            raise AssertionError(f"cli: nvidia-smi lists {listed} for the processes {need} "
+                                 f"(libcuda.so mapped: {mapped}; launches a server "
+                                 f"{served})")
+
+        def get(conn, item):
+            fid = f"{vid},{item[0]:x}{item[1]:08x}"
+            status, _, body = _http(conn, "GET", f"/{fid}")
+            if status != 200 or hashlib.sha256(body).hexdigest() != want_sha:
+                raise AssertionError(f"cli: GET {fid} answered {status} with another body")
+
+        reader = max(range(3), key=lambda i: len(held.get(dirs[i], [])))
+        t0 = time.perf_counter()
+        _fan(ports[reader], 8, needles, get)
+        get_s = time.perf_counter() - t0
+        log(f"cli: every needle ({len(needles)}) read back over HTTP from volume{reader} "
+            f"with its payload's SHA-256 in {get_s:.3f} s")
+        runs["cli_verify_after"] = _cli_verify_both(now, CLI_TILE, device,
+                                                    "verify core after the repair", card)
+        after_run = runs["cli_verify_after"]
+        if any(after_run["mismatch"]) or (on_card and after_run["launches"]["gf_apply"]
+                                          + after_run["launches"]["gf_bits"]
+                                          != after_run["tiles"]):
+            raise AssertionError(f"cli: after the repair the verify core gave {after_run}")
+        rc = shell.exit()
+        if rc:
+            raise AssertionError(f"cli: the shell exited {rc}")
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        for name, p in procs.items():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = {}
+        for name, p in procs.items():
+            try:
+                rcs[name] = p.wait(60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[name] = p.wait(10)
+    left = {n: rc for n, rc in rcs.items() if rc != 0}
+    log(f"cli: SIGTERM, exit codes {rcs}; the phase took "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    if left:
+        raise AssertionError(f"cli: processes exited non-zero {left}: "
+                             f"{ {n: _tail(n) for n in left} }")
+    return runs
+
+
+CLI_PATHS = ("cli_encode", "cli_verify_before", "cli_scrub", "cli_repair", "cli_sweep",
+             "cli_verify_after")
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -3381,6 +4001,9 @@ def main() -> int:
     deg_rows = gf256.decode_rows(matrix, survivors, (0,))
     k1_tile = check_gf("degraded_tile", deg_rows, args.seed + 9, card, lanes=DEG_TILE_LANES)
     k1_run = check_gf("degraded_run", deg_rows, args.seed + 10, card, lanes=DEG_RUN_LANES)
+    # the scrub's parity re-verify: one 4 MiB tile of each data shard
+    k1_scrub = check_gf("scrub_tile", matrix[10:], args.seed + 20, card,
+                        lanes=CLI_TILE // 4)
     apply_tile = time_apply_matrix(deg_rows, DEG_TILE_LANES, args.seed + 11, card)
     apply_run = time_apply_matrix(deg_rows, DEG_RUN_LANES, args.seed + 12, card, reps=5)
     # K5 at the degraded read's exact-interval buckets under 64 KiB (the
@@ -3435,6 +4058,11 @@ def main() -> int:
                                     args.seed, None, card, smi))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=root)
+    try:
+        runs.update(run_cli_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
     try:
         runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
@@ -3457,7 +4085,7 @@ def main() -> int:
              "repair_parity", "store_encode", "store_rebuild4", "store_serve", "store_tier",
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
-             "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + (
+             "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
              "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
@@ -3465,8 +4093,9 @@ def main() -> int:
         f"reads, the server's encode, rebuild, degraded GETs with and without the tile "
         f"cache and concurrent encodes, the cluster's encode, healthy and lost-server GETs "
         f"with and without the tile cache and rack-gather rebuild, the shell's ec.encode, "
-        f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, batch "
-        f"encode, rebuild and verify) on {card}: "
+        f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, the command "
+        f"line's ec.encode, scrub sweeps and scheduled repair in the servers' processes "
+        f"and the verify core in this one, batch encode, rebuild and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]
@@ -3515,7 +4144,8 @@ def main() -> int:
                 "library_ms": first.get("library_ms")}
 
     kernels = [
-        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1, k1_tile, k1_run),
+        row("gf_apply", K1_SOURCE, K1_REPLACES, k1_enc, k1_dec, k1_dec1, k1_tile, k1_run,
+            k1_scrub),
         row("gf_apply_batch", K1_SOURCE, K2_REPLACES, k2_enc, k2_dec),
         row("gf_verify_batch", K3_SOURCE, K3_REPLACES, k3),
         row("crc32c_rows", K4_SOURCE, K4_REPLACES, k4, k4_graphs),

@@ -128,14 +128,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+COUNTERS: dict[str, "LaunchCounter"] = {}  # every wrapper's counter, by name
+
+
 class LaunchCounter:
     """Kernel launches through one wrapper: bumped where the wrapper
     launches its kernel and nowhere else (thread-safe). A launch may
     name its signature (what its time depends on: its shape, and for
     the GF kernels the coefficient matrix), tallied beside the count
-    (`by_signature`); a thread reads its own launches with `mine`."""
+    (`by_signature`); a thread reads its own launches with `mine`.
+    Each counter is listed in COUNTERS, which a server's /metrics
+    reports (stats/metrics.KERNEL_LAUNCHES)."""
 
     def __init__(self, name: str):
+        COUNTERS[name] = self
         self.name = name
         self._n = 0
         self._by: dict = {}

@@ -1,5 +1,6 @@
-"""Client operations the master tier calls: assign / upload / submit
-over pooled keep-alive HTTP, and `http_call`, the leader proxy's hop.
+"""Client operations: assign / upload / submit / download / lookup /
+delete over pooled keep-alive HTTP and gRPC, and `http_call`, the
+leader proxy's hop.
 
 The part of seaweedfs_tpu/client/operation.py the port needs so far
 (behavioral match of weed/operation/):
@@ -8,8 +9,11 @@ The part of seaweedfs_tpu/client/operation.py the port needs so far
   * submit_file       — assign+upload, auto-splitting big payloads into
                         chunks behind a chunk-manifest needle
                         (submit.go:40,112, chunked_file.go)
-The master client's lookups, deletes, gRPC assign, failover and tails
-come with ROADMAP item 10.
+  * download / delete — GET / DELETE one blob
+  * lookup            — cached LookupVolume (lookup.go), lookup_file_id
+  * delete_files      — BatchDelete per server (delete_content.go:43)
+The reference's gRPC assign, master failover and tails are not ported:
+the shell and the CLI's tools do not use them.
 """
 
 from __future__ import annotations
@@ -23,9 +27,13 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import grpc
 
 from seaweedfs_tpu_torch.client import retry as _retry
+from seaweedfs_tpu_torch.pb import master_pb2, rpc, volume_pb2
+from seaweedfs_tpu_torch.pb.rpc import grpc_address
 from seaweedfs_tpu_torch.util import deadline as _deadline
 
 
@@ -512,6 +520,166 @@ def upload(
     return UploadResult(
         name=body.get("name", ""), size=int(body.get("size", 0)), etag=body.get("eTag", "")
     )
+
+
+def download(fid_url: str, timeout: float = 30.0) -> tuple[bytes, dict]:
+    """GET a blob; returns (bytes, headers)."""
+    status, headers, data = http_call("GET", fid_url, timeout=timeout)
+    if status >= 300:
+        import io
+
+        # keep the server's error body readable via e.read(), like the
+        # urllib HTTPErrors this replaces
+        raise urllib.error.HTTPError(
+            f"http://{fid_url}", status, f"HTTP {status}", headers, io.BytesIO(data)
+        )
+    return data, headers
+
+
+def delete(fid_url: str, timeout: float = 30.0, jwt: str = "") -> None:
+    """DELETE a blob. Pass the assign-issued write JWT on signed
+    clusters; auth failures raise (a swallowed 401 would silently leak
+    the blob), while 404s stay idempotent no-ops."""
+    headers = {}
+    if jwt:
+        headers["Authorization"] = f"BEARER {jwt}"
+    status, _, _ = http_call("DELETE", fid_url, headers=headers, timeout=timeout)
+    if status in (401, 403):
+        raise RuntimeError(f"delete {fid_url}: not authorized ({status})")
+    # 404 etc.: delete is idempotent
+
+
+# ----------------------------------------------------------------------
+# lookup (+cache)
+
+
+@dataclass
+class LookupResult:
+    vid: str
+    locations: list[dict] = field(default_factory=list)
+    error: str = ""
+
+
+class _CacheEntry:
+    __slots__ = ("result", "expires")
+
+    def __init__(self, result: LookupResult, ttl: float):
+        self.result = result
+        self.expires = time.time() + ttl
+
+
+_lookup_cache: dict[tuple[str, str], _CacheEntry] = {}
+_lookup_lock = threading.Lock()
+LOOKUP_CACHE_TTL = 10 * 60  # lookup.go:18 (10 min)
+
+
+def lookup(master: str, vid: str, collection: str = "") -> LookupResult:
+    key = (master, vid)
+    with _lookup_lock:
+        entry = _lookup_cache.get(key)
+        if entry and entry.expires > time.time():
+            return entry.result
+    ch = rpc.cached_channel(grpc_address(master))
+    resp = rpc.master_stub(ch).LookupVolume(
+        master_pb2.LookupVolumeRequest(vids=[vid], collection=collection)
+    )
+    result = LookupResult(vid=vid, error=f"volume {vid} not found")
+    for e in resp.vid_locations:
+        if e.vid == vid:
+            result = LookupResult(
+                vid=vid,
+                # `suspect` (health plane, docs/HEALTH.md): the master
+                # marks replicas it currently suspects; the filer read
+                # path hedges eagerly when only suspects remain
+                locations=[
+                    {
+                        "url": l.url,
+                        "publicUrl": l.public_url,
+                        "suspect": l.suspect,
+                    }
+                    for l in e.locations
+                ],
+                error=e.error,
+            )
+    if not result.error:
+        # a result naming a SUSPECT replica is cached briefly: the
+        # health verdict changes on heartbeat timescales, and pinning
+        # it for the full 10 min would demote a healed node (or keep
+        # routing at a sick one) long after the master knows better
+        ttl = (
+            10.0
+            if any(loc.get("suspect") for loc in result.locations)
+            else LOOKUP_CACHE_TTL
+        )
+        with _lookup_lock:
+            _lookup_cache[key] = _CacheEntry(result, ttl)
+    return result
+
+
+def lookup_file_id(master: str, fid: str) -> str:
+    """fid → "host:port/fid" of one replica."""
+    vid = fid.split(",")[0]
+    result = lookup(master, vid)
+    if result.error:
+        raise RuntimeError(result.error)
+    if not result.locations:
+        raise RuntimeError(f"volume {vid} has no locations")
+    return f"{result.locations[0]['url']}/{fid}"
+
+
+# ----------------------------------------------------------------------
+# batch delete
+
+
+def delete_files(master: str, fids: list[str]) -> list[dict]:
+    """Group fids by volume id, resolve each volume once, then issue one
+    BatchDelete gRPC per server (delete_content.go:43)."""
+    by_vid: dict[str, list[str]] = {}
+    results: list[dict] = []
+    for fid in fids:
+        parts = fid.split(",")
+        if len(parts) != 2:
+            results.append({"fid": fid, "status": 400, "error": "invalid fid"})
+            continue
+        by_vid.setdefault(parts[0], []).append(fid)
+
+    # every replica location gets the batch (delete_content.go sends to
+    # all locations so no replica keeps the data)
+    by_server: dict[str, list[str]] = {}
+    primary: dict[str, str] = {}  # fid -> primary server (reported result)
+    for vid, vid_fids in by_vid.items():
+        res = lookup(master, vid)
+        if res.error or not res.locations:
+            for fid in vid_fids:
+                results.append({"fid": fid, "status": 404, "error": res.error})
+            continue
+        for i, loc in enumerate(res.locations):
+            by_server.setdefault(loc["url"], []).extend(vid_fids)
+            if i == 0:
+                for fid in vid_fids:
+                    primary[fid] = loc["url"]
+
+    for server, server_fids in by_server.items():
+        try:
+            with rpc.dial(grpc_address(server)) as ch:
+                resp = rpc.volume_stub(ch).BatchDelete(
+                    volume_pb2.BatchDeleteRequest(file_ids=server_fids)
+                )
+            for r in resp.results:
+                if primary.get(r.file_id) == server:
+                    results.append(
+                        {
+                            "fid": r.file_id,
+                            "status": r.status,
+                            "error": r.error,
+                            "size": r.size,
+                        }
+                    )
+        except grpc.RpcError as e:
+            for fid in server_fids:
+                if primary.get(fid) == server:
+                    results.append({"fid": fid, "status": 500, "error": str(e)})
+    return results
 
 
 # ----------------------------------------------------------------------

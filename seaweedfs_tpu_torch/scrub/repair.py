@@ -1,0 +1,805 @@
+"""RepairScheduler: the master's automatic time-to-repair engine.
+
+The warehouse-cluster study (arxiv 1309.0186) and the Reed-Solomon
+repair literature (arxiv 2205.11015) agree on the operational point:
+erasure-coded durability is dominated by how fast and how carefully
+damage is repaired, not by the code itself. This scheduler closes the
+loop the scrub plane opens — it watches the leader's topology (shard
+registry, replica layouts, per-node ScrubStat rows) and turns damage
+into repair RPCs with production guardrails:
+
+  * detection grace — a volume must stay damaged for `grace` seconds
+    before repair starts, so transient states (an ec.balance move, a
+    node restart mid-heartbeat) don't trigger spurious rebuilds;
+  * global concurrency cap — repair traffic is cluster read traffic
+    (a 10-of-14 rebuild streams ~10x the lost bytes); the cap bounds
+    how much of the cluster's bandwidth repair may take;
+  * per-volume exponential backoff — a repair that keeps failing
+    (unreachable holders, full disks) retries at 2^n spacing instead
+    of hammering;
+  * post-success cool-down — the repaired state needs a heartbeat
+    round-trip to reach the topology; the cool-down stops the next
+    scan from double-repairing in that window.
+
+Repair verbs reuse the shell's drivers verbatim (do_ec_rebuild's
+rack-gather streaming rebuild, plan_fix_replication + VolumeCopy), so
+automatic and operator-driven repair exercise the same code path.
+
+The port of seaweedfs_tpu/scrub/repair.py. Its rebuilds run where the
+shards are: do_ec_rebuild's VolumeEcShardsRebuild decodes with K1 and
+checksums with K4 on the rebuilding server's card, and a batch of
+volumes rides VolumeEcShardsBatchRebuild (K2). stop() also joins the
+repairs the scheduler launched.
+"""
+
+from __future__ import annotations
+
+import io
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import grpc
+
+from seaweedfs_tpu_torch.ec.locate import DATA_SHARDS, TOTAL_SHARDS
+from seaweedfs_tpu_torch.pb import rpc, volume_pb2
+from seaweedfs_tpu_torch.scrub.arbiter import get_arbiter
+from seaweedfs_tpu_torch.util import wlog
+
+
+@dataclass
+class RepairTask:
+    kind: str  # ec_rebuild | replicate | replace | drain_move | drain_ec
+    volume_id: int
+    collection: str = ""
+    detail: str = ""
+    bad_node: str = ""  # replace: the node holding the corrupt copy
+    first_detected: float = 0.0
+    attempts: int = 0
+    next_try: float = 0.0
+    in_flight: bool = False
+    cooling_until: float = 0.0
+    last_error: str = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "Kind": self.kind,
+            "VolumeId": self.volume_id,
+            "Collection": self.collection,
+            "Detail": self.detail,
+            "BadNode": self.bad_node,
+            "FirstDetected": self.first_detected,
+            "Attempts": self.attempts,
+            "NextTry": self.next_try,
+            "InFlight": self.in_flight,
+            "CoolingUntil": self.cooling_until,
+            "LastError": self.last_error,
+        }
+
+
+@dataclass
+class RepairScheduler:
+    master: object  # MasterServer (topology, is_leader, host, port)
+    interval: float = 10.0
+    concurrency: int = 2
+    grace: float = 30.0
+    backoff_base: float = 15.0
+    backoff_max: float = 900.0
+    cooldown: float = 60.0
+    # replace repairs cool down much longer: the "damage" signal is the
+    # bad node's scrub row, which only goes clean after a FULL sweep of
+    # the fresh copy completes (we trigger one, but it can take minutes
+    # at the rate cap) — a 60 s cool-down would delete+recopy a healthy
+    # volume every cycle until then
+    replace_cooldown: float = 900.0
+    # whole-attempt budget (deadline plane, docs/CHAOS.md): one repair
+    # attempt — all its verbs and remote gathers together — may not
+    # outlive this; a partitioned peer then costs one bounded failed
+    # attempt + backoff, not a parked concurrency slot
+    repair_deadline_s: float = 900.0
+    tasks: dict = field(default_factory=dict)  # (kind, vid) -> RepairTask
+    history: deque = field(default_factory=lambda: deque(maxlen=50))
+
+    def __post_init__(self) -> None:
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._lock = threading.Lock()
+        self._active = 0
+        self._thread: threading.Thread | None = None
+        self._workers: list[threading.Thread] = []  # launched repairs
+
+    # ------------------------------------------------------------------
+    def start(self) -> None:
+        # check+spawn under one hold: two concurrent start() calls must
+        # not both see None and double-spawn the loop (weedlint v4
+        # race-check-then-act)
+        with self._lock:
+            if self._thread is not None:
+                return
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="repair-scheduler"
+            )
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        with self._lock:
+            workers = list(self._workers)
+        for t in workers:
+            t.join(timeout=60)
+
+    def _spawn(self, target, args: tuple, name: str) -> None:
+        t = threading.Thread(target=target, args=args, daemon=True, name=name)
+        with self._lock:
+            self._workers = [w for w in self._workers if w.is_alive()]
+            self._workers.append(t)
+        t.start()
+
+    def trigger(self) -> None:
+        self._wake.set()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            self._wake.wait(self.interval)
+            self._wake.clear()
+            if self._stop.is_set():
+                return
+            if not getattr(self.master, "is_leader", True):
+                continue
+            try:
+                self.scan_once()
+            except Exception:  # noqa: BLE001 - scheduler must survive
+                import traceback
+
+                # wlog.warning has no exc_info kwarg — passing it would
+                # raise and kill this thread; format explicitly
+                wlog.warning(
+                    "repair: scan crashed: %s", traceback.format_exc()
+                )
+
+    # ------------------------------------------------------------------
+    # detection
+    def detect(self) -> dict[tuple[str, int], RepairTask]:
+        """Damage visible in the topology right now, keyed (kind, vid)."""
+        topo = self.master.topology
+        found: dict[tuple[str, int], RepairTask] = {}
+        # EC volumes missing shards (but still decodable)
+        for vid, locs in list(topo.ec_shard_map.items()):
+            present = [
+                sid
+                for sid in range(TOTAL_SHARDS)
+                if locs.locations[sid]
+            ]
+            missing = TOTAL_SHARDS - len(present)
+            if 0 < missing and len(present) >= DATA_SHARDS:
+                found[("ec_rebuild", vid)] = RepairTask(
+                    kind="ec_rebuild",
+                    volume_id=vid,
+                    collection=locs.collection,
+                    detail=f"{missing} shard(s) unregistered",
+                )
+        # plain volumes below their replica placement
+        from seaweedfs_tpu_torch.storage.replica_placement import ReplicaPlacement
+
+        holders: dict[int, list] = {}
+        info: dict[int, object] = {}
+        for dn in topo.data_nodes():
+            for vid, v in list(dn.volumes.items()):
+                holders.setdefault(vid, []).append(dn)
+                info[vid] = v
+        for vid, nodes in holders.items():
+            if vid in topo.ec_shard_map:
+                # the EC plane owns this vid (mid- or post-ec.encode):
+                # re-replicating the plain copy would race the encode
+                # pipeline's readonly→delete cutover and resurrect a
+                # zombie plain volume that shadows the EC shards
+                continue
+            v = info[vid]
+            want = ReplicaPlacement.from_byte(v.replica_placement).copy_count
+            if 0 < len(nodes) < want:
+                found[("replicate", vid)] = RepairTask(
+                    kind="replicate",
+                    volume_id=vid,
+                    collection=v.collection,
+                    detail=f"{len(nodes)}/{want} replicas",
+                )
+        # scrub-reported corrupt replicas, replaceable from a clean peer
+        for dn in topo.data_nodes():
+            for s in list(getattr(dn, "scrub_stats", {}).values()):
+                if s.is_ec or s.corruptions_found <= 0:
+                    continue
+                vid = s.volume_id
+                if vid in topo.ec_shard_map:
+                    continue  # EC plane owns this vid (see above)
+                nodes = holders.get(vid, [])
+                if len(nodes) < 2 or dn not in nodes:
+                    continue  # sole copy: nothing to replace from
+                # the copy source must have a VERIFIED-clean sweep of
+                # this volume, not merely no corruption report: a
+                # never-swept (or scrub-disabled) peer could be corrupt
+                # in different needles, and replace DELETES the flagged
+                # copy — possibly the only good bytes of those needles
+                verified = self._verified_clean_holders(vid)
+                clean = [
+                    n for n in nodes if n is not dn and n.url in verified
+                ]
+                if not clean:
+                    continue
+                found[("replace", vid)] = RepairTask(
+                    kind="replace",
+                    volume_id=vid,
+                    collection=info[vid].collection,
+                    bad_node=dn.url,
+                    detail=(
+                        f"{s.corruptions_found} corrupt needle(s) on "
+                        f"{dn.url}; clean copy on {clean[0].url}"
+                    ),
+                )
+        # weedguard drain (docs/HEALTH.md): nodes marked draining (the
+        # node.drain shell command, or a SIGTERM self-drain) get their
+        # data moved off before decommission — one task per volume /
+        # per EC vid held, executed under the same concurrency cap and
+        # backoff as damage repair
+        health = getattr(self.master, "health", None)
+        draining = health.draining_urls() if health is not None else set()
+        for dn in topo.data_nodes():
+            if dn.url not in draining:
+                continue
+            for vid, v in list(dn.volumes.items()):
+                if vid in topo.ec_shard_map:
+                    continue  # the EC registry owns this vid
+                found[("drain_move", vid)] = RepairTask(
+                    kind="drain_move",
+                    volume_id=vid,
+                    collection=v.collection,
+                    bad_node=dn.url,
+                    detail=f"drain {dn.url}",
+                )
+            for vid, s in list(dn.ec_shards.items()):
+                found[("drain_ec", vid)] = RepairTask(
+                    kind="drain_ec",
+                    volume_id=vid,
+                    collection=s.collection,
+                    bad_node=dn.url,
+                    detail=f"drain {dn.url}",
+                )
+        return found
+
+    # ------------------------------------------------------------------
+    def scan_once(self) -> None:
+        now = time.time()
+        current = self.detect()
+        launch: list[RepairTask] = []
+        with self._lock:
+            # drop tracked damage that healed (heartbeats caught up or
+            # an operator fixed it) once its cool-down lapsed
+            for key in list(self.tasks):
+                task = self.tasks[key]
+                if task.in_flight:
+                    continue
+                if key not in current and now >= task.cooling_until:
+                    del self.tasks[key]
+            for key, fresh in current.items():
+                task = self.tasks.get(key)
+                if task is None:
+                    fresh.first_detected = now
+                    # drain tasks carry explicit operator intent: no
+                    # detection grace (the grace guards against
+                    # transient damage states, which a drain is not)
+                    grace = 0.0 if fresh.kind.startswith("drain") else self.grace
+                    fresh.next_try = now + grace
+                    self.tasks[key] = task = fresh
+                else:
+                    task.detail = fresh.detail
+                    task.bad_node = fresh.bad_node or task.bad_node
+                if task.in_flight or now < task.next_try:
+                    continue
+                if now < task.cooling_until:
+                    continue
+                if self._active + len(launch) >= self.concurrency:
+                    continue
+                task.in_flight = True
+                launch.append(task)
+            self._active += len(launch)
+        # concurrent ec_rebuild tasks ride ONE batched repair: a node
+        # loss surfaces many small EC volumes with identical damage in
+        # the same scan, and the batch verb amortizes one mesh decode
+        # program across them (ec_files.rebuild_ec_files_batch) instead
+        # of paying per-volume dispatch latency N times
+        ec_batch = [t for t in launch if t.kind == "ec_rebuild"]
+        if len(ec_batch) >= 2:
+            launch = [t for t in launch if t.kind != "ec_rebuild"]
+            self._spawn(
+                self._run_ec_batch,
+                (ec_batch,),
+                f"repair-ec_rebuild-batch-{len(ec_batch)}",
+            )
+        for task in launch:
+            self._spawn(
+                self._run_task,
+                (task,),
+                f"repair-{task.kind}-{task.volume_id}",
+            )
+
+    # ------------------------------------------------------------------
+    def _run_task(self, task: RepairTask) -> None:
+        from seaweedfs_tpu_torch.stats.metrics import (
+            REPAIR_FAILED,
+            REPAIR_STARTED,
+            REPAIR_SUCCEEDED,
+            TIME_TO_REPAIR,
+        )
+
+        REPAIR_STARTED.labels(task.kind).inc()
+        t0 = time.time()
+        try:
+            # tracing plane: the whole repair is one plane=repair span;
+            # every hop it drives (rebuild verbs, copies, EC shard
+            # reads) inherits the tag via gRPC metadata, so rebuild
+            # traffic competing with serving traffic is attributable
+            from seaweedfs_tpu_torch import trace
+            from seaweedfs_tpu_torch.util import deadline as _deadline
+
+            # deadline plane (docs/CHAOS.md): every repair attempt runs
+            # under one whole-repair budget. The ambient deadline rides
+            # the gRPC Stub auto-derivation onto every verb the repair
+            # drives (rebuild, copies, remote EC shard gathers on the
+            # target node's pool threads) — so a PARTITIONED survivor
+            # fails this attempt within the budget and the scheduler's
+            # exponential backoff takes over, instead of one parked
+            # gather pinning a concurrency slot for the full per-verb
+            # timeout stack.
+            with trace.span(f"repair.{task.kind}", plane="repair") as sp, \
+                    _deadline.scope(
+                        _deadline.Deadline.after(self.repair_deadline_s)
+                    ):
+                if sp:
+                    sp.annotate("vid", task.volume_id)
+                if task.kind == "ec_rebuild":
+                    self._repair_ec(task)
+                elif task.kind == "replicate":
+                    self._repair_replicate(task)
+                elif task.kind == "replace":
+                    self._repair_replace(task)
+                elif task.kind == "drain_move":
+                    self._repair_drain_move(task)
+                elif task.kind == "drain_ec":
+                    self._repair_drain_ec(task)
+                else:
+                    raise ValueError(f"unknown repair kind {task.kind}")
+        except Exception as e:  # noqa: BLE001 - becomes backoff state
+            REPAIR_FAILED.labels(task.kind).inc()
+            with self._lock:
+                task.in_flight = False
+                task.attempts += 1
+                task.last_error = str(e)[:300]
+                task.next_try = time.time() + min(
+                    self.backoff_base * (2 ** (task.attempts - 1)),
+                    self.backoff_max,
+                )
+                self._active -= 1
+            wlog.warning(
+                "repair: %s vid %d attempt %d failed: %s",
+                task.kind, task.volume_id, task.attempts, e,
+            )
+            return
+        took = time.time() - t0
+        ttr = time.time() - task.first_detected
+        REPAIR_SUCCEEDED.labels(task.kind).inc()
+        TIME_TO_REPAIR.observe(ttr, task.kind)
+        with self._lock:
+            task.in_flight = False
+            task.last_error = ""
+            # the topology needs a heartbeat round-trip to reflect the
+            # repair; cool down so the next scan can't double-repair
+            # (replace waits out a full scrub pass — see replace_cooldown)
+            task.cooling_until = time.time() + (
+                self.replace_cooldown
+                if task.kind == "replace"
+                else self.cooldown
+            )
+            task.next_try = task.cooling_until
+            self._active -= 1
+            self.history.append(
+                {
+                    "Kind": task.kind,
+                    "VolumeId": task.volume_id,
+                    "Detail": task.detail,
+                    "FinishedUnix": time.time(),
+                    "RepairSeconds": round(took, 3),
+                    "TimeToRepairSeconds": round(ttr, 3),
+                    "Attempts": task.attempts + 1,
+                }
+            )
+        wlog.warning(
+            "repair: %s vid %d done in %.1fs (time-to-repair %.1fs)",
+            task.kind, task.volume_id, took, ttr,
+        )
+
+    # ------------------------------------------------------------------
+    def _run_ec_batch(self, tasks: list["RepairTask"]) -> None:
+        """One batched ec_rebuild repair for N concurrent tasks — the
+        shell's do_ec_rebuild_batch groups same-node local-survivor
+        volumes through the BatchRebuild verb and falls back to the
+        single-volume flow for the rest, so per-task semantics (and
+        the scheduler's backoff on failure) are unchanged; only the
+        dispatch is amortized. Whole-batch failure backs off every
+        task: the next scan retries them (batched again if still
+        concurrent)."""
+        from seaweedfs_tpu_torch.stats.metrics import (
+            REPAIR_FAILED,
+            REPAIR_STARTED,
+            REPAIR_SUCCEEDED,
+            TIME_TO_REPAIR,
+        )
+
+        for task in tasks:
+            REPAIR_STARTED.labels(task.kind).inc()
+        t0 = time.time()
+        try:
+            from seaweedfs_tpu_torch import trace
+            from seaweedfs_tpu_torch.shell.commands import do_ec_rebuild_batch
+            from seaweedfs_tpu_torch.util import deadline as _deadline
+
+            # one whole-batch budget sized like the serial sum: N
+            # volumes under N x the per-repair deadline (the batch is
+            # strictly faster than serial, so this only loosens)
+            with trace.span("repair.ec_rebuild_batch", plane="repair") as sp, \
+                    _deadline.scope(
+                        _deadline.Deadline.after(
+                            self.repair_deadline_s * len(tasks)
+                        )
+                    ):
+                if sp:
+                    sp.annotate("vids", [t.volume_id for t in tasks])
+                do_ec_rebuild_batch(
+                    self._env(),
+                    [t.volume_id for t in tasks],
+                    io.StringIO(),
+                    apply=True,
+                )
+        except Exception as e:  # noqa: BLE001 - becomes backoff state
+            now = time.time()
+            with self._lock:
+                for task in tasks:
+                    REPAIR_FAILED.labels(task.kind).inc()
+                    task.in_flight = False
+                    task.attempts += 1
+                    task.last_error = str(e)[:300]
+                    task.next_try = now + min(
+                        self.backoff_base * (2 ** (task.attempts - 1)),
+                        self.backoff_max,
+                    )
+                    self._active -= 1
+            wlog.warning(
+                "repair: batched ec_rebuild of vids %s failed: %s",
+                [t.volume_id for t in tasks], e,
+            )
+            return
+        took = time.time() - t0
+        now = time.time()
+        with self._lock:
+            for task in tasks:
+                ttr = now - task.first_detected
+                REPAIR_SUCCEEDED.labels(task.kind).inc()
+                TIME_TO_REPAIR.observe(ttr, task.kind)
+                task.in_flight = False
+                task.last_error = ""
+                task.cooling_until = now + self.cooldown
+                task.next_try = task.cooling_until
+                self._active -= 1
+                self.history.append(
+                    {
+                        "Kind": task.kind,
+                        "VolumeId": task.volume_id,
+                        "Detail": task.detail + " (batched)",
+                        "FinishedUnix": now,
+                        "RepairSeconds": round(took, 3),
+                        "TimeToRepairSeconds": round(ttr, 3),
+                        "Attempts": task.attempts + 1,
+                    }
+                )
+        wlog.warning(
+            "repair: batched ec_rebuild of %d volume(s) %s done in %.1fs",
+            len(tasks), [t.volume_id for t in tasks], took,
+        )
+
+    # ------------------------------------------------------------------
+    # repair verbs (shell drivers reused — one code path for auto and
+    # operator repair)
+    def _env(self):
+        from seaweedfs_tpu_torch.shell.command_env import CommandEnv
+
+        return CommandEnv([f"{self.master.host}:{self.master.port}"])
+
+    def _corrupt_holders(self, vid: int) -> set[str]:
+        """Nodes whose scrub rows currently flag this plain volume —
+        NEVER a copy source: replicating from a corrupt replica would
+        propagate the rot cluster-wide with no operator in the loop."""
+        urls: set[str] = set()
+        for dn in self.master.topology.data_nodes():
+            for s in list(getattr(dn, "scrub_stats", {}).values()):
+                if (
+                    not s.is_ec
+                    and s.volume_id == vid
+                    and s.corruptions_found > 0
+                ):
+                    urls.add(dn.url)
+        return urls
+
+    def _verified_clean_holders(self, vid: int) -> set[str]:
+        """Nodes whose scrub COMPLETED a clean pass over this plain
+        volume (the bar for being a replace-repair source)."""
+        urls: set[str] = set()
+        for dn in self.master.topology.data_nodes():
+            s = getattr(dn, "scrub_stats", {}).get((vid, False))
+            if (
+                s is not None
+                and s.last_sweep_unix > 0
+                and s.corruptions_found == 0
+            ):
+                urls.add(dn.url)
+        return urls
+
+    def _repair_ec(self, task: RepairTask) -> None:
+        from seaweedfs_tpu_torch.shell.commands import do_ec_rebuild
+
+        do_ec_rebuild(self._env(), task.volume_id, io.StringIO(), apply=True)
+
+    def _timed_copy(self, vid: int, collection: str, src: str, dst: str) -> None:
+        """VolumeCopy with a deadline: the shell's _copy_volume carries
+        no timeout, and a wedged destination node would otherwise pin
+        this repair thread (and its concurrency slot) forever."""
+        host, _, port = dst.partition(":")
+        with rpc.dial(f"{host}:{int(port) + 10000}") as ch:
+            rpc.volume_stub(ch).VolumeCopy(
+                volume_pb2.VolumeCopyRequest(
+                    volume_id=vid,
+                    collection=collection,
+                    source_data_node=src,
+                ),
+                timeout=600,
+            )
+
+    def _repair_replicate(self, task: RepairTask) -> None:
+        from seaweedfs_tpu_torch.shell.commands import plan_fix_replication
+
+        env = self._env()
+        plans = [
+            p
+            for p in plan_fix_replication(env.collect_topology())
+            if p["vid"] == task.volume_id
+        ]
+        if not plans:
+            # healed between detect and launch — that's success
+            return
+        corrupt = self._corrupt_holders(task.volume_id)
+        clean_sources = [
+            dn.url
+            for dn in self.master.topology.data_nodes()
+            if task.volume_id in dn.volumes and dn.url not in corrupt
+        ]
+        for p in plans:
+            src = p["from"]
+            if src in corrupt:
+                if not clean_sources:
+                    raise RuntimeError(
+                        f"vid {task.volume_id}: every replica is "
+                        f"scrub-flagged corrupt; refusing to replicate "
+                        f"from a corrupt source"
+                    )
+                src = clean_sources[0]
+            self._timed_copy(p["vid"], p["collection"], src, p["to"])
+
+    def _repair_replace(self, task: RepairTask) -> None:
+        """Drop the scrub-flagged corrupt replica, then re-copy from a
+        clean one onto the same node (a fresh byte-identical copy)."""
+        topo = self.master.topology
+        nodes = [
+            dn
+            for dn in topo.data_nodes()
+            if task.volume_id in dn.volumes
+        ]
+        bad = next((n for n in nodes if n.url == task.bad_node), None)
+        verified = self._verified_clean_holders(task.volume_id)
+        sources = [
+            n
+            for n in nodes
+            if n.url != task.bad_node and n.url in verified
+        ]
+        if bad is None or not sources:
+            raise RuntimeError(
+                f"replace vid {task.volume_id}: bad/clean holder set "
+                f"changed under the scheduler"
+            )
+        with rpc.dial(f"{bad.ip}:{bad.port + 10000}") as ch:
+            rpc.volume_stub(ch).VolumeDelete(
+                volume_pb2.VolumeDeleteRequest(volume_id=task.volume_id),
+                timeout=60,
+            )
+        # unregister immediately: the copy below re-registers via the
+        # target's heartbeat; waiting for the bad node's beat here
+        # would race the VolumeCopy ALREADY_EXISTS check
+        bad.volumes.pop(task.volume_id, None)
+        with rpc.dial(f"{bad.ip}:{bad.port + 10000}") as ch:
+            try:
+                rpc.volume_stub(ch).VolumeCopy(
+                    volume_pb2.VolumeCopyRequest(
+                        volume_id=task.volume_id,
+                        collection=task.collection,
+                        source_data_node=sources[0].url,
+                    ),
+                    timeout=600,
+                )
+            except grpc.RpcError as e:
+                raise RuntimeError(
+                    f"re-copy after delete failed: {e.code().name}; "
+                    f"volume now under-replicated (replicate task will "
+                    f"retry)"
+                ) from e
+        # ask the (ex-)bad node to re-sweep the fresh copy promptly:
+        # its next clean pass zeroes the corruption row that flagged
+        # this task, closing the loop without waiting a full scrub
+        # interval
+        import urllib.request
+
+        try:
+            # weedlint: ignore[no-deadline] — leader-side best-effort nudge with a 5 s cap; no request deadline exists on the scheduler thread
+            urllib.request.urlopen(
+                f"http://{task.bad_node}/scrub/trigger"
+                f"?volumeId={task.volume_id}",
+                timeout=5,
+            ).close()
+        except OSError:
+            pass  # scrub disabled there: the row ages out on its own
+
+    # ------------------------------------------------------------------
+    # drain moves (weedguard, docs/HEALTH.md): empty a draining node
+    def _drain_targets(self, src_url: str, vid: int | None = None) -> list:
+        """Eligible destinations for data leaving a draining node:
+        registered, not draining, assignable per the health plane, with
+        free slots, and (for plain volumes) not already a holder of the
+        vid. Fullest-free first so drains spread wide."""
+        health = getattr(self.master, "health", None)
+        draining = health.draining_urls() if health is not None else set()
+        out = []
+        for dn in self.master.topology.data_nodes():
+            if dn.url == src_url or dn.url in draining:
+                continue
+            if health is not None and not health.assignable(dn.url):
+                continue
+            if vid is not None and vid in dn.volumes:
+                continue
+            if dn.free_space() <= 0:
+                continue
+            out.append(dn)
+        out.sort(key=lambda d: -d.free_space())
+        return out
+
+    def _repair_drain_move(self, task: RepairTask) -> None:
+        """Move one plain volume off the draining node: readonly guard
+        → copy → delete (the shell's volume.move driver, so operator
+        and automatic moves share one code path)."""
+        from seaweedfs_tpu_torch.shell.commands import _move_volume
+
+        topo = self.master.topology
+        src = next(
+            (d for d in topo.data_nodes() if d.url == task.bad_node), None
+        )
+        if src is None or task.volume_id not in src.volumes:
+            return  # already gone — that's success
+        targets = self._drain_targets(task.bad_node, vid=task.volume_id)
+        if not targets:
+            # surplus replica: when enough OTHER holders already
+            # satisfy the placement, dropping the draining copy IS the
+            # complete move (no fresh node required). Below placement,
+            # the drain is genuinely blocked on capacity — error into
+            # backoff so the repair queue (and node.drain's timeout
+            # report) names it.
+            from seaweedfs_tpu_torch.storage.replica_placement import (
+                ReplicaPlacement,
+            )
+
+            v = src.volumes[task.volume_id]
+            others = [
+                d
+                for d in topo.data_nodes()
+                if d is not src and task.volume_id in d.volumes
+            ]
+            want = ReplicaPlacement.from_byte(
+                v.replica_placement
+            ).copy_count
+            if len(others) < want:
+                raise RuntimeError(
+                    f"drain {task.bad_node}: no eligible target for "
+                    f"vid {task.volume_id} and only {len(others)}/{want} "
+                    f"other replica(s) — add capacity to proceed"
+                )
+            with rpc.dial(
+                f"{src.ip}:{src.port + 10000}"
+            ) as ch:
+                rpc.volume_stub(ch).VolumeDelete(
+                    volume_pb2.VolumeDeleteRequest(
+                        volume_id=task.volume_id
+                    ),
+                    timeout=60,
+                )
+        else:
+            _move_volume(
+                self._env(), task.volume_id, task.collection,
+                task.bad_node, targets[0].url,
+            )
+        # unregister immediately — node AND layout (the target's forced
+        # delta beat re-registers the moved copy). Popping only
+        # dn.volumes would erase the evidence the source's next FULL
+        # beat needs to report the delete, leaving a stale layout entry
+        # routing reads at the drained node forever (full-suite race).
+        v = src.volumes.pop(task.volume_id, None)
+        if v is not None:
+            self.master.topology._layout_for(v).unregister_volume(
+                v.id, src
+            )
+
+    def _repair_drain_ec(self, task: RepairTask) -> None:
+        """Move every EC shard of one vid off the draining node:
+        copy+mount on a target, then unmount+delete on the source (the
+        shell ec_common verbs, shard by shard so a failure mid-vid
+        leaves each shard wholly on exactly one node)."""
+        from seaweedfs_tpu_torch.shell import ec_common
+
+        env = self._env()
+        topo = self.master.topology
+        src = next(
+            (d for d in topo.data_nodes() if d.url == task.bad_node), None
+        )
+        if src is None:
+            return
+        info = src.ec_shards.get(task.volume_id)
+        if info is None:
+            return  # already gone
+        sids = ec_common.shard_bits_to_ids(info.ec_index_bits)
+        targets = self._drain_targets(task.bad_node)
+        if not targets:
+            raise RuntimeError(
+                f"drain {task.bad_node}: no eligible target for ec "
+                f"vid {task.volume_id}"
+            )
+        from types import SimpleNamespace
+
+        for i, sid in enumerate(sids):
+            # ec_common helpers address targets by .url only
+            dst = SimpleNamespace(url=targets[i % len(targets)].url)
+            ec_common.copy_and_mount_shards(
+                env, dst, task.volume_id, task.collection, [sid],
+                task.bad_node,
+            )
+            ec_common.unmount_and_delete_shards(
+                env, task.bad_node, task.volume_id, task.collection, [sid]
+            )
+        src.ec_shards.pop(task.volume_id, None)
+        topo.unregister_ec_shards(task.volume_id, src)
+
+    # ------------------------------------------------------------------
+    def queue_snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "Config": {
+                    "Interval": self.interval,
+                    "Concurrency": self.concurrency,
+                    "GraceSeconds": self.grace,
+                    "BackoffBaseSeconds": self.backoff_base,
+                    "BackoffMaxSeconds": self.backoff_max,
+                    "CooldownSeconds": self.cooldown,
+                },
+                "Active": self._active,
+                "Tasks": [t.to_dict() for t in self.tasks.values()],
+                "History": list(self.history),
+                # bandwidth arbiter view: what the background planes
+                # (rebuild/replication/handoff/tier) are being paced at
+                # right now (docs/TIERING.md)
+                "Arbiter": get_arbiter().stats(),
+            }

@@ -23,13 +23,14 @@ possible leader election first, raft-compatible interface later");
 with `peers` and `raft_dir`, cluster/raft.py replicates MaxVolumeId and
 elects the leader.
 
-The port of seaweedfs_tpu/server/master_server.py. The planes the port
+The port of seaweedfs_tpu/server/master_server.py, with the repair
+scheduler (`repair_interval > 0`, scrub/repair.py) and the tier
+scheduler (`tier_interval > 0`, tier/scheduler.py). The planes the port
 does not have yet raise NotImplementedError naming their ROADMAP item:
-the repair scheduler (`repair_interval > 0`) and the tier scheduler
-(`tier_interval > 0`, item 9), the telemetry collector
-(`telemetry_interval > 0`, item 13) and the etcd sequencer (item 5).
-With those off the master answers their routes as the reference does
-with them off. stop() ends every thread start() made.
+the telemetry collector (`telemetry_interval > 0`, item 13) and the
+etcd sequencer (item 5). With the collector off the master answers its
+routes as the reference does with it off. stop() ends every thread
+start() made.
 """
 
 from __future__ import annotations
@@ -113,23 +114,19 @@ class MasterServer:
         metrics_interval_sec: int = 15,
         sequencer=None,
         repair_interval: float = 0.0,
+        repair_concurrency: int = 2,
+        repair_grace: float = 30.0,
         telemetry_interval: float = 0.0,
         tier_interval: float = 0.0,
+        tier_kwargs: dict | None = None,
         assign_policy: str = "p2c",
     ):
-        # planes not ported yet: refused up front, never silently off
-        for name, value, plane in (
-            ("repair_interval", repair_interval,
-             "scrub/repair.RepairScheduler (ROADMAP item 9)"),
-            ("tier_interval", tier_interval,
-             "tier/scheduler.TierScheduler (ROADMAP item 9)"),
-            ("telemetry_interval", telemetry_interval,
-             "the telemetry collector (ROADMAP item 13)"),
-        ):
-            if value > 0:
-                raise NotImplementedError(
-                    f"{name}={value!r} needs {plane}, not ported yet"
-                )
+        # a plane not ported yet is refused up front, never silently off
+        if telemetry_interval > 0:
+            raise NotImplementedError(
+                f"telemetry_interval={telemetry_interval!r} needs the "
+                "telemetry collector, not ported yet (ROADMAP item 13)"
+            )
         # QoS plane (docs/QOS.md): "p2c" = queue-depth-aware
         # power-of-two-choices over writable volumes; "random" keeps
         # the pre-QoS pure-random pick (-assignPolicy random; WEED_QOS=0
@@ -220,6 +217,33 @@ class MasterServer:
         # heartbeats. Always on (cheap); WEED_HEALTH=0 makes every
         # verdict read healthy, restoring pre-health behavior wholesale.
         self.health = health_mod.HealthPlane()
+        # scrub plane: the automatic repair scheduler (scrub/repair.py).
+        # repair_interval <= 0 leaves repair manual (ec.rebuild /
+        # volume.fix.replication in the shell); the `weed` CLI enables
+        # it by default — tests and embedders opt in explicitly because
+        # automatic rebuilds mid-admin-operation are a real behavior
+        # change.
+        self.repair = None
+        if repair_interval > 0:
+            from seaweedfs_tpu_torch.scrub import RepairScheduler
+
+            self.repair = RepairScheduler(
+                self,
+                interval=repair_interval,
+                concurrency=repair_concurrency,
+                grace=repair_grace,
+            )
+        # tiering plane (docs/TIERING.md): leader-only lifecycle
+        # scheduler driving tier-out/tier-in moves at the shard
+        # holders. tier_interval <= 0 leaves tiering manual (tier.move
+        # in the shell) — same opt-in contract as repair.
+        self.tier = None
+        if tier_interval > 0:
+            from seaweedfs_tpu_torch.tier import TierScheduler
+
+            self.tier = TierScheduler(
+                self, interval=tier_interval, **(tier_kwargs or {})
+            )
 
     # gateways silent for this long stop being offered to the collector
     # (its own sticky-target window keeps their staleness alert alive
@@ -408,6 +432,7 @@ class MasterServer:
                             if s.corruptions_found or s.quarantined_shard_bits
                         }
 
+                    prev_sig = _damage_sig(dn.scrub_stats)
                     self.topology.sync_scrub_stats(
                         dn,
                         [
@@ -427,6 +452,14 @@ class MasterServer:
                     # disk-health signal for the health plane: this
                     # node's scrub rows currently report damage
                     self.health.observe_scrub(dn.url, bool(new_sig))
+                    if (
+                        self.repair is not None
+                        and new_sig
+                        and new_sig != prev_sig
+                    ):
+                        # a NEW damage report (not the same rows riding
+                        # every beat): scan now, don't wait the tick
+                        self.repair.trigger()
                     if need_full and (req.volumes or req.has_no_volumes):
                         need_full = False  # full inventory received
                 yield pb.HeartbeatResponse(
@@ -851,6 +884,8 @@ class MasterServer:
                     stop = q.get("stop", "") in ("1", "true")
                     if q.get("status", "") not in ("1", "true"):
                         server.health.request_drain(node, stop=stop)
+                        if server.repair is not None and not stop:
+                            server.repair.trigger()
                     dn = next(
                         (
                             d
@@ -866,7 +901,7 @@ class MasterServer:
                             "registered": dn is not None,
                             "volumes": len(dn.volumes) if dn else 0,
                             "ecShards": dn.ec_shard_count() if dn else 0,
-                            "repairScheduler": False,
+                            "repairScheduler": server.repair is not None,
                         }
                     )
                 if path in (
@@ -900,20 +935,28 @@ class MasterServer:
                     return self._json(disabled)
                 if path == "/repair/queue":
                     # scrub plane operator surface (repair.queue shell
-                    # command); the scheduler waits for ROADMAP item 9
-                    return self._json(
-                        {"Disabled": True, "Scrub": server.topology.scrub_summary()}
-                    )
+                    # command): scheduler config, tracked damage with
+                    # backoff state, and recent repair history
+                    if server.repair is None:
+                        return self._json(
+                            {"Disabled": True, "Scrub": server.topology.scrub_summary()}
+                        )
+                    snap = server.repair.queue_snapshot()
+                    snap["Scrub"] = server.topology.scrub_summary()
+                    return self._json(snap)
                 if path == "/cluster/tier":
                     # tiering plane operator surface (tier.status shell
-                    # command); the scheduler waits for ROADMAP item 9
-                    return self._json(
-                        {
-                            "Disabled": True,
-                            "error": "tier scheduler disabled on "
-                            "this master (-tierInterval 0)",
-                        }
-                    )
+                    # command): scheduler rules, in-flight moves, and
+                    # recent move history (docs/TIERING.md)
+                    if server.tier is None:
+                        return self._json(
+                            {
+                                "Disabled": True,
+                                "error": "tier scheduler disabled on "
+                                "this master (-tierInterval 0)",
+                            }
+                        )
+                    return self._json(server.tier.status_snapshot())
                 if path == "/stats/counter":
                     return self._json(server.request_counter.snapshot())
                 if path == "/stats/memory":
@@ -1347,6 +1390,10 @@ class MasterServer:
             t = threading.Thread(target=loop, daemon=True)
             t.start()
             self._threads.append(t)
+        if self.repair is not None:
+            self.repair.start()
+        if self.tier is not None:
+            self.tier.start()
         # continuous sampling profiler (telemetry/profiler.py): every
         # daemon serves /debug/profile; WEED_PROF=0 opts the process out
         from seaweedfs_tpu_torch.telemetry import profiler
@@ -1359,7 +1406,13 @@ class MasterServer:
         ticker and replicators, the gRPC workers (grpc's own stop leaves
         its executor's threads alive) and this master's hold on the
         sampling profiler. A Heartbeat stream still open ends with the
-        gRPC server, so its node is unregistered as on a stream break."""
+        gRPC server, so its node is unregistered as on a stream break.
+        The repair and tier schedulers' loops and the repairs and moves
+        they launched have ended too."""
+        if self.tier is not None:
+            self.tier.stop()
+        if self.repair is not None:
+            self.repair.stop()
         self._stop_event.set()
         if self._raft is not None:
             self._raft.stop()

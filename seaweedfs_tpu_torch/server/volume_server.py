@@ -11,13 +11,19 @@ leader hint, learns peers from the master for redirects, replica
 fan-out and chunk fetches, gathers EC survivors from the servers that
 hold them (degraded GETs through EcVolume's `fetch` seam, rebuilds
 through `remote_readers`) and copies EC shards from a peer
-(VolumeEcShardsCopy over CopyFile).
+(VolumeEcShardsCopy over CopyFile). With `scrub_interval > 0` its scrub
+engine sweeps every local volume in the background: the EC parity
+re-verify and culprit localization run through each EC volume's codec
+(K1 on the card), remote shards come through the same fetcher degraded
+reads use, and a localized corrupt shard is quarantined. The tier verbs
+move a volume's .dat, and /tier/move an EC volume's shards, to a
+storage backend and back.
 
 What needs a part of the reference that the port does not have yet
 raises NotImplementedError naming its ROADMAP item, at construction for
 a parameter and at the call for a verb; it never silently does less:
-the scrub engine (item 9), the -workers internal listener and write
-sharding (item 8), tier-move verbs (item 9) and Query (item 11). The
+the -workers internal listener and write sharding (item 8) and Query
+(item 11). The
 batch EC verbs run the batch arm (K2, with K4 fused into the encode) on
 a one-device mesh of `device`; VolumeCopy and the tail verbs pull from
 a peer over gRPC. The hinted-handoff spool waits for item 10: until
@@ -145,13 +151,7 @@ class VolumeServer:
         announce: str = "",
         device=None,
     ):
-        # the planes the port does not have yet refuse up front, with
-        # the reference's defaults kept (so scrub_interval must be 0)
-        if scrub_interval > 0:
-            raise NotImplementedError(
-                "scrub_interval > 0: the scrub engine is not ported yet "
-                "(ROADMAP item 9); pass scrub_interval=0"
-            )
+        # the planes the port does not have yet refuse up front
         if internal_port or shard_writes:
             raise NotImplementedError(
                 "internal_port / shard_writes: the -workers processes are "
@@ -242,11 +242,25 @@ class VolumeServer:
         # SO_REUSEPORT on the public listener (the reference's -workers
         # read processes share the port through it)
         self.reuse_port = reuse_port
-        # the scrub plane's engine is not ported (scrub_interval must be
-        # 0); quarantine reporting (/status) still works — foreground
-        # reads keep quarantining truncated shards
+        # scrub plane (docs/SCRUB.md): background integrity sweeps over
+        # every local volume, rate-limited so foreground p99 survives.
+        # scrub_interval <= 0 disables the engine; quarantine reporting
+        # (heartbeats, /status) still works — foreground reads keep
+        # quarantining truncated shards either way. The engine's EC
+        # sweeps decode through each EC volume's codec, on `device`.
         self.store.node_label = f"{host}:{port}"
-        self.scrub: "object | None" = None
+        self.scrub = None
+        if scrub_interval > 0:
+            from seaweedfs_tpu_torch.scrub import ScrubEngine
+
+            self.scrub = ScrubEngine(
+                self.store,
+                interval=scrub_interval,
+                rate_mb_s=scrub_rate_mb_s,
+                fetcher_factory=self._scrub_shard_fetcher,
+                on_event=self._hb_wake.set,
+                node_label=self.store.node_label,
+            )
         # keep-alive housekeeping knobs for both serving loops
         # (`-serveIdleMs`/`-serveMaxReqs`, docs/SERVING.md); 0 = off
         self.serve_idle_ms = serve_idle_ms
@@ -432,24 +446,46 @@ class VolumeServer:
             self._hb_wake.wait(self.heartbeat_interval)
 
     def _collect_scrub_stats(self) -> list[dict]:
-        """ScrubStat heartbeat rows from the store's quarantine registry
-        (foreground reads quarantine truncated shards; the scrub engine,
-        whose sweep rows the reference merges in, waits for ROADMAP item
-        9). Complete snapshot every beat; the master overwrites."""
-        return [
-            {
-                "volume_id": vid,
-                "is_ec": True,
-                "last_sweep_unix": 0,
-                "scanned_bytes": 0,
-                "corruptions_found": 0,
-                "quarantined_shard_bits": self.store.quarantined_shard_bits(vid),
-                "last_error": "; ".join(
-                    f"shard {sid}: {why}" for sid, why in sorted(per_vid.items())
-                )[:300],
-            }
-            for vid, per_vid in list(self.store.quarantined.items())
-        ]
+        """ScrubStat heartbeat rows: the engine's health records merged
+        with the store's quarantine registry (which also fills when the
+        engine is off — foreground reads quarantine truncated shards
+        too). Complete snapshot every beat; the master overwrites."""
+        rows: dict[tuple[int, bool], dict] = {}
+        if self.scrub is not None:
+            for h in self.scrub.health_rows():
+                rows[(h.volume_id, h.is_ec)] = {
+                    "volume_id": h.volume_id,
+                    "is_ec": h.is_ec,
+                    "last_sweep_unix": int(h.last_sweep_unix),
+                    "scanned_bytes": h.scanned_bytes,
+                    # CURRENT damage, not history: a repaired volume's
+                    # next clean sweep zeroes this, so the master's
+                    # repair scheduler converges (cumulative totals
+                    # stay in metrics and /scrub/status)
+                    "corruptions_found": h.sweep_corruptions,
+                    "quarantined_shard_bits": 0,
+                    "last_error": h.last_error[:300],
+                }
+        for vid, per_vid in list(self.store.quarantined.items()):
+            row = rows.setdefault(
+                (vid, True),
+                {
+                    "volume_id": vid,
+                    "is_ec": True,
+                    "last_sweep_unix": 0,
+                    "scanned_bytes": 0,
+                    "corruptions_found": 0,
+                    "quarantined_shard_bits": 0,
+                    "last_error": "; ".join(
+                        f"shard {sid}: {why}"
+                        for sid, why in sorted(per_vid.items())
+                    )[:300],
+                },
+            )
+            row["quarantined_shard_bits"] = self.store.quarantined_shard_bits(
+                vid
+            )
+        return list(rows.values())
 
     def _heartbeat_loop(self) -> None:
         while not self._stop.is_set():
@@ -1345,14 +1381,63 @@ class VolumeServer:
     # ------------------------------------------------------------------
     # tiered storage (volume_grpc_tier_upload.go:14 / tier_download.go)
     def VolumeTierMoveDatToRemote(self, req, context):
-        raise NotImplementedError(
-            "VolumeTierMoveDatToRemote needs the tier engine (ROADMAP item 9)"
-        )
+        """Copy a sealed volume's .dat to a remote backend, streaming
+        progress; the volume then serves reads via ranged GETs."""
+        v = self.store.find_volume(req.volume_id)
+        if v is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found"
+            )
+        if v.collection != req.collection:
+            context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                f"existing collection {v.collection!r} != {req.collection!r}",
+            )
+        updates: list = []
+
+        def progress(done: int, pct: float) -> None:
+            updates.append((done, pct))
+
+        try:
+            v.tier_upload(
+                req.destination_backend_name,
+                keep_local=req.keep_local_dat_file,
+                progress=progress,
+            )
+        except (RuntimeError, OSError) as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        for done, pct in updates:
+            yield pb.VolumeTierMoveDatToRemoteResponse(
+                processed=done, processed_percentage=pct
+            )
 
     def VolumeTierMoveDatFromRemote(self, req, context):
-        raise NotImplementedError(
-            "VolumeTierMoveDatFromRemote needs the tier engine (ROADMAP item 9)"
-        )
+        """Bring a tiered volume's .dat back to local disk."""
+        v = self.store.find_volume(req.volume_id)
+        if v is None:
+            context.abort(
+                grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found"
+            )
+        if v.collection != req.collection:
+            context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                f"existing collection {v.collection!r} != {req.collection!r}",
+            )
+        updates: list = []
+
+        def progress(done: int, pct: float) -> None:
+            updates.append((done, pct))
+
+        try:
+            v.tier_download(
+                keep_remote=req.keep_remote_dat_file, progress=progress
+            )
+        except (RuntimeError, OSError) as e:
+            context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
+        for done, pct in updates:
+            yield pb.VolumeTierMoveDatFromRemoteResponse(
+                processed=done, processed_percentage=pct
+            )
 
     # ------------------------------------------------------------------
     # remote shard fetches for degraded reads (store_ec.go:211-359)
@@ -1401,6 +1486,23 @@ class VolumeServer:
         with ev.shard_locations_lock:
             ev.shard_locations.pop(shard_id, None)
             ev.shard_locations_refresh_time = 0.0
+
+    def _scrub_shard_fetcher(self, ev):
+        """The scrub engine's fetcher: _remote_shard_fetcher after asking
+        the master again when a shard is neither mounted here nor cached
+        on another holder. A holder that quarantined a shard, or met it
+        quarantined elsewhere, keeps such an entry (itself, or none)
+        after the shard is rebuilt on another server, and the
+        reference's engine, whose fetcher then never reaches the master
+        within the cache's TTL (7 or 37 minutes), stops every pass over
+        the volume at that shard."""
+        me = self._self_urls()
+        with ev.shard_locations_lock:
+            if any(sid not in ev.shards
+                   and not [u for u in ev.shard_locations.get(sid, []) if u not in me]
+                   for sid in range(ev.rs.total_shards)):
+                ev.shard_locations_refresh_time = 0.0
+        return self._remote_shard_fetcher(ev)
 
     def _remote_shard_fetcher(self, ev):
         """fetch(shard_id, offset, size) against the EC volume's cached
@@ -1588,15 +1690,27 @@ class VolumeServer:
                         return self._json({"Disabled": True})
                     return self._json(server.scrub.status())
                 if url_path == "/scrub/trigger":
-                    # the scrub engine is not ported: the reference's
-                    # scrub-disabled answer
-                    return self._json({"error": "scrub disabled"}, 400)
+                    # operator surface (scrub.trigger shell command):
+                    # kick a sweep now, optionally one volume first
+                    if server.scrub is None:
+                        return self._json({"error": "scrub disabled"}, 400)
+                    q = fast_query(self.path.partition("?")[2])
+                    vid_arg = q.get("volumeId", "")
+                    try:
+                        vid = int(vid_arg) if vid_arg else None
+                    except ValueError:
+                        return self._json(
+                            {"error": f"bad volumeId {vid_arg!r}"}, 400
+                        )
+                    server.scrub.trigger(vid)
+                    return self._json({"triggered": True, "volumeId": vid})
                 if url_path == "/tier/status":
-                    return self._json(
-                        {"error": "lifecycle tiering is not ported yet "
-                                  "(ROADMAP item 9)"},
-                        501,
-                    )
+                    # lifecycle tiering (docs/TIERING.md): per-volume
+                    # local/remote shard state + mtimes — the master's
+                    # TierScheduler polls this for its age signal
+                    from seaweedfs_tpu_torch.tier.ec_tier import tier_status
+
+                    return self._json(tier_status(server.store))
                 if url_path == "/ec/quarantine":
                     # operator surface (and tests/faults.DeadShard): put
                     # one mounted EC shard out of service NOW — the
@@ -1939,13 +2053,53 @@ class VolumeServer:
                 )
                 return True
 
+            def _tier_move(self):
+                """POST /tier/move?volumeId=&direction=out|in
+                [&destination=type.id] — the TierScheduler's (and
+                tier.move shell command's) verb. Runs the move inline
+                under the request's ambient deadline; the engine
+                charges the bandwidth arbiter's "tier" claimant as
+                bytes stream, so a scan-wide fan-in cannot stampede."""
+                from seaweedfs_tpu_torch.tier import ec_tier
+                from seaweedfs_tpu_torch.tier.rules import tier_enabled
+
+                if not tier_enabled():
+                    return self._json(
+                        {"error": "tiering disabled (WEED_TIER=0)"}, 403
+                    )
+                q = fast_query(self.path.partition("?")[2])
+                try:
+                    vid = int(q.get("volumeId", ""))
+                except ValueError:
+                    return self._json({"error": "bad volumeId"}, 400)
+                direction = q.get("direction", "out")
+                try:
+                    if direction == "out":
+                        dest = q.get("destination", "")
+                        if not dest:
+                            return self._json(
+                                {"error": "destination required"}, 400
+                            )
+                        result = ec_tier.tier_out_ec(
+                            server.store, vid, dest, stop=server._stop
+                        )
+                    elif direction == "in":
+                        result = ec_tier.tier_in_ec(
+                            server.store, vid, stop=server._stop
+                        )
+                    else:
+                        return self._json(
+                            {"error": f"bad direction {direction!r}"}, 400
+                        )
+                except (ValueError, KeyError) as e:
+                    return self._json({"error": str(e)}, 404)
+                except (OSError, RuntimeError) as e:
+                    return self._json({"error": str(e)}, 500)
+                return self._json(result)
+
             def do_POST(self):
                 if self.path.partition("?")[0] == "/tier/move":
-                    return self._json(
-                        {"error": "lifecycle tiering is not ported yet "
-                                  "(ROADMAP item 9)"},
-                        501,
-                    )
+                    return self._tier_move()
                 fid, q, url_filename, _url_ext = self._parse_fid()
                 if fid is None:
                     return self._json({"error": "invalid file id"}, 400)
@@ -2219,6 +2373,8 @@ class VolumeServer:
         from seaweedfs_tpu_torch.telemetry import profiler
 
         self._profiling = profiler.ensure_started()
+        if self.scrub is not None:
+            self.scrub.start()
 
     def drain(self, timeout: float = 30.0) -> None:
         """SIGTERM graceful drain (docs/HEALTH.md runbook): announce
@@ -2247,9 +2403,12 @@ class VolumeServer:
         (its end is what unregisters this node at the master) and the
         metrics push loop, the gRPC workers (grpc's own stop leaves its
         executor's threads alive), this server's hold on the sampling
-        profiler, and the parked workers of the degraded gathers' pool."""
+        profiler, the scrub engine's sweeper and the parked workers of
+        the degraded gathers' pool."""
         self._stop.set()
         self._hb_wake.set()  # unblock the heartbeat generator's wait
+        if self.scrub is not None:
+            self.scrub.stop()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=30)
             self._hb_thread = None

@@ -7,10 +7,14 @@ port of seaweedfs_tpu/shell/commands.py. Implemented here:
   volume.move  volume.vacuum  volume.balance  volume.fix.replication
   collection.list  collection.delete  node.drain  help
   trace.status  trace.dump  cluster.health  cluster.alerts  cluster.top
-  cluster.slo  profile.capture  repair.queue
+  cluster.slo  profile.capture  repair.queue  scrub.status  scrub.trigger
+  ec.verify  volume.tier.upload  volume.tier.download  tier.status
+  tier.move
 The EC verbs run on the volume servers' codec: on a card server,
 ec.encode and ec.rebuild launch K1 with K4, ec.batch K2 with K4 and
-ec.rebuild.batch K2. Every other verb of the reference is registered
+ec.rebuild.batch K2. ec.verify runs in the shell's own process: it
+gathers every shard over VolumeEcShardRead and re-encodes each 4 MiB
+tile with new_encoder() (K1 on the card). Every other verb of the reference is registered
 under its own name and help and raises NotImplementedError naming the
 ROADMAP item it waits for (WAITING below), so `help` lists the
 reference's names.
@@ -883,6 +887,156 @@ class EcRebuild(Command):
 
 
 
+def do_ec_verify(
+    env: CommandEnv,
+    vid: int,
+    out,
+    tile_bytes: int = 4 * 1024 * 1024,
+    rate_mb_s: float = 0.0,
+    as_json: bool = False,
+    rs=None,
+) -> list[int]:
+    """Scrub one EC volume: stream all 14 shards from their holders,
+    recompute the parity from the data shards with `rs` (default
+    new_encoder(): K1 on the card unless WEED_EC_CODEC names a host
+    codec — the same selection as the serving path), and compare.
+    Returns the per-parity-row mismatched-byte counts [4].
+
+    Runs through the scrub engine's verify core
+    (scrub/verify.verify_parity_stream — the same code path the
+    background sweeper exercises), which
+    adds `-rate` token-bucket limiting (MB/s; 0 = full speed) so an
+    operator can scrub a live volume without flattening foreground
+    p99, plus corrupt-shard localization and `-json` machine-readable
+    output. A corrupt DATA shard shows as mismatches in ALL four
+    parity rows; a corrupt PARITY shard only in its own row."""
+    import json as _json
+
+    from seaweedfs_tpu_torch.scrub.ratelimit import TokenBucket
+    from seaweedfs_tpu_torch.scrub.verify import verify_parity_stream
+
+    with env.master_channel() as ch:
+        resp = rpc.master_stub(ch).LookupEcVolume(
+            master_pb2.LookupEcVolumeRequest(volume_id=vid), timeout=10
+        )
+    holders: dict[int, list[str]] = {
+        e.shard_id: [l.url for l in e.locations]
+        for e in resp.shard_id_locations
+        if e.locations
+    }
+    missing = [i for i in range(ec_common.TOTAL_SHARDS_COUNT) if i not in holders]
+    if missing:
+        raise RuntimeError(
+            f"volume {vid}: shards {missing} have no registered holder; "
+            "run ec.rebuild first"
+        )
+
+    def make_reader(sid: int):
+        def read_span(offset: int, size: int) -> bytes:
+            last_err = None
+            for url in holders[sid]:
+                try:
+                    with env.volume_channel(url) as ch:
+                        chunks = [
+                            r.data
+                            for r in rpc.volume_stub(ch).VolumeEcShardRead(
+                                volume_pb2.VolumeEcShardReadRequest(
+                                    volume_id=vid,
+                                    shard_id=sid,
+                                    offset=offset,
+                                    size=size,
+                                ),
+                                timeout=30,
+                            )
+                        ]
+                    return b"".join(chunks)
+                except Exception as e:  # noqa: BLE001 - try the next holder
+                    last_err = e
+            raise RuntimeError(f"shard {vid}.{sid} unreadable: {last_err}")
+
+        return read_span
+
+    limiter = (
+        TokenBucket(rate_mb_s * 1024 * 1024) if rate_mb_s > 0 else None
+    )
+    try:
+        res = verify_parity_stream(
+            [make_reader(sid) for sid in range(ec_common.TOTAL_SHARDS_COUNT)],
+            rs=rs,
+            tile_bytes=tile_bytes,
+            limiter=limiter,
+        )
+    except RuntimeError as e:
+        raise RuntimeError(f"volume {vid}: {e}") from None
+    mismatch, total = res.mismatch, res.bytes_per_shard
+    if as_json:
+        print(
+            _json.dumps(
+                {
+                    "volumeId": vid,
+                    "corrupt": res.corrupt,
+                    "mismatchPerParityRow": mismatch,
+                    "bytesPerShard": total,
+                    "badTiles": res.bad_tiles,
+                    "culpritShards": sorted(res.culprits),
+                    "unlocalizedTiles": res.unlocalized,
+                    "rateMBs": rate_mb_s,
+                }
+            ),
+            file=out,
+        )
+        return mismatch
+    if any(mismatch):
+        rows = [p for p, m in enumerate(mismatch) if m]
+        kind = (
+            "parity shard(s) corrupt"
+            if len(rows) < ec_common.PARITY_SHARDS
+            else "data shard corruption (all parity rows disagree)"
+        )
+        print(
+            f"volume {vid}: CORRUPT — mismatched bytes per parity row "
+            f"{mismatch} over {total} B/shard: {kind}"
+            + (
+                f"; culprit shard(s) {sorted(res.culprits)}"
+                if res.culprits
+                else ""
+            ),
+            file=out,
+        )
+    else:
+        print(
+            f"volume {vid}: verified clean ({total} bytes/shard x 14 shards)",
+            file=out,
+        )
+    return mismatch
+
+
+@register
+class EcVerify(Command):
+    name = "ec.verify"
+    help = (
+        "ec.verify [-volumeId vid] [-rate MB/s] [-json] — scrub: stream "
+        "shards, recompute + compare parity (rate-limited via the scrub "
+        "engine's token bucket)"
+    )
+
+    def run(self, env, args, out):
+        vid_flag = _flag(args, "volumeId")
+        rate = float(_flag(args, "rate") or 0)
+        as_json = _has_flag(args, "json")
+        nodes = ec_common.collect_ec_nodes(env)
+        vids = (
+            [int(vid_flag)]
+            if vid_flag
+            else sorted({vid for n in nodes for vid in n.ec_shards})
+        )
+        if not vids:
+            print("no ec volumes found", file=out)
+            return
+        for vid in vids:
+            do_ec_verify(env, vid, out, rate_mb_s=rate, as_json=as_json)
+
+
 @register
 class EcBalance(Command):
     name = "ec.balance"
@@ -968,6 +1122,78 @@ class Help(Command):
             print(f"{name:28s} {COMMANDS[name].help}", file=out)
 
 # ----------------------------------------------------------------------
+# tiered storage (command_volume_tier_upload.go / _download.go)
+
+
+def _find_volume_node(env: CommandEnv, vid: int) -> str:
+    for n in env.collect_topology().nodes:
+        for v in n.volumes:
+            if v["Id"] == vid:
+                return n.url
+    raise ValueError(f"volume {vid} not found on any node")
+
+
+@register
+class VolumeTierUpload(Command):
+    name = "volume.tier.upload"
+    help = (
+        "volume.tier.upload -volumeId <vid> -dest <backendName> "
+        "[-keepLocalDatFile] — move a sealed volume's .dat to a remote tier"
+    )
+
+    def run(self, env, args, out):
+        vid = int(_flag(args, "volumeId"))
+        dest = _flag(args, "dest")
+        if not dest:
+            raise ValueError("-dest <backendName> required (e.g. s3.default)")
+        node = _flag(args, "node") or _find_volume_node(env, vid)
+        collection = _flag(args, "collection") or _lookup_collection(env, vid)
+        with env.volume_channel(node) as ch:
+            for resp in rpc.volume_stub(ch).VolumeTierMoveDatToRemote(
+                volume_pb2.VolumeTierMoveDatToRemoteRequest(
+                    volume_id=vid,
+                    collection=collection,
+                    destination_backend_name=dest,
+                    keep_local_dat_file=_has_flag(args, "keepLocalDatFile"),
+                )
+            ):
+                print(
+                    f"uploaded {resp.processed} bytes "
+                    f"({resp.processed_percentage:.0f}%)",
+                    file=out,
+                )
+        print(f"volume {vid} dat moved to {dest}", file=out)
+
+
+@register
+class VolumeTierDownload(Command):
+    name = "volume.tier.download"
+    help = (
+        "volume.tier.download -volumeId <vid> [-keepRemoteDatFile] — "
+        "bring a tiered volume's .dat back to local disk"
+    )
+
+    def run(self, env, args, out):
+        vid = int(_flag(args, "volumeId"))
+        node = _flag(args, "node") or _find_volume_node(env, vid)
+        collection = _flag(args, "collection") or _lookup_collection(env, vid)
+        with env.volume_channel(node) as ch:
+            for resp in rpc.volume_stub(ch).VolumeTierMoveDatFromRemote(
+                volume_pb2.VolumeTierMoveDatFromRemoteRequest(
+                    volume_id=vid,
+                    collection=collection,
+                    keep_remote_dat_file=_has_flag(args, "keepRemoteDatFile"),
+                )
+            ):
+                print(
+                    f"downloaded {resp.processed} bytes "
+                    f"({resp.processed_percentage:.0f}%)",
+                    file=out,
+                )
+        print(f"volume {vid} dat restored locally", file=out)
+
+
+# ----------------------------------------------------------------------
 # operator surfaces over the master's and the servers' HTTP routes
 
 
@@ -977,6 +1203,93 @@ def _http_json(url: str, timeout: float = 10.0) -> dict:
 
     with urllib.request.urlopen(url, timeout=timeout) as r:
         return _json.loads(r.read())
+
+
+@register
+class ScrubStatus(Command):
+    name = "scrub.status"
+    help = (
+        "scrub.status [-json] — per-node background-scrub health: sweep "
+        "progress, corruption counts, quarantined shards"
+    )
+
+    def run(self, env, args, out):
+        import json as _json
+
+        dump = env.collect_topology()
+        report = {}
+        for n in dump.nodes:
+            try:
+                report[n.url] = _http_json(f"http://{n.url}/status")
+            except OSError as e:
+                report[n.url] = {"error": str(e)}
+        if _has_flag(args, "json"):
+            print(
+                _json.dumps(
+                    {
+                        url: {
+                            "Scrub": st.get("Scrub"),
+                            "QuarantinedShards": st.get("QuarantinedShards"),
+                            "error": st.get("error"),
+                        }
+                        for url, st in report.items()
+                    }
+                ),
+                file=out,
+            )
+            return
+        for url, st in sorted(report.items()):
+            if "error" in st and "Scrub" not in st:
+                print(f"{url}: unreachable ({st['error']})", file=out)
+                continue
+            scrub = st.get("Scrub") or {}
+            quarantined = st.get("QuarantinedShards") or {}
+            if scrub.get("Disabled"):
+                print(f"{url}: scrub disabled", file=out)
+            else:
+                vols = scrub.get("Volumes") or []
+                corrupt = sum(v.get("corruptions_found", 0) for v in vols)
+                scanned = sum(v.get("scanned_bytes", 0) for v in vols)
+                print(
+                    f"{url}: sweeps {scrub.get('SweepsCompleted', 0)}"
+                    f"{' (running)' if scrub.get('SweepRunning') else ''}, "
+                    f"{len(vols)} volume(s) tracked, "
+                    f"{scanned >> 20} MiB verified, "
+                    f"{corrupt} corruption(s)",
+                    file=out,
+                )
+                for v in vols:
+                    if v.get("last_error"):
+                        print(
+                            f"  vid {v['volume_id']}"
+                            f"{' (ec)' if v.get('is_ec') else ''}: "
+                            f"{v['last_error']}",
+                            file=out,
+                        )
+            for vid, sids in sorted(quarantined.items()):
+                print(f"  vid {vid}: quarantined shards {sids}", file=out)
+
+
+@register
+class ScrubTrigger(Command):
+    name = "scrub.trigger"
+    help = (
+        "scrub.trigger [-volumeId vid] [-node host:port] — start a sweep "
+        "now (all nodes, or one node; with -volumeId that volume first)"
+    )
+
+    def run(self, env, args, out):
+        vid = _flag(args, "volumeId")
+        node = _flag(args, "node")
+        dump = env.collect_topology()
+        urls = [node] if node else [n.url for n in dump.nodes]
+        qs = f"?volumeId={int(vid)}" if vid else ""
+        for url in urls:
+            try:
+                _http_json(f"http://{url}/scrub/trigger{qs}")
+                print(f"{url}: sweep triggered", file=out)
+            except OSError as e:
+                print(f"{url}: trigger failed: {e}", file=out)
 
 
 @register
@@ -1562,35 +1875,156 @@ class ProfileCapture(Command):
 
 
 # ----------------------------------------------------------------------
+# tiering plane operator surface (docs/TIERING.md)
+
+
+def _http_json_post(url: str, timeout: float = 10.0) -> dict:
+    import json as _json
+    import urllib.request
+
+    req = urllib.request.Request(url, method="POST", data=b"")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return _json.loads(r.read())
+
+
+@register
+class TierStatus(Command):
+    name = "tier.status"
+    help = (
+        "tier.status [-json] — scheduler rules + recent moves from the "
+        "master, and per-node tiered-volume state from every holder"
+    )
+
+    def run(self, env, args, out):
+        import json as _json
+
+        try:
+            sched = _http_json(f"http://{env.master}/cluster/tier")
+        except (OSError, ValueError) as e:
+            sched = {"error": str(e)}
+        nodes = {}
+        dump = env.collect_topology()
+        for n in dump.nodes:
+            try:
+                nodes[n.url] = _http_json(f"http://{n.url}/tier/status")
+            except (OSError, ValueError) as e:
+                nodes[n.url] = {"error": str(e)}
+        if _has_flag(args, "json"):
+            print(_json.dumps({"Scheduler": sched, "Nodes": nodes}), file=out)
+            return
+        if sched.get("Disabled"):
+            print(
+                "tier scheduler disabled on this master (-tierInterval 0); "
+                "tiering is manual (tier.move)",
+                file=out,
+            )
+        elif "error" in sched:
+            print(f"master unreachable: {sched['error']}", file=out)
+        else:
+            rules = sched.get("Rules") or {}
+            print(
+                f"scheduler: every {sched.get('IntervalSeconds')}s, "
+                f"backend '{rules.get('Backend', '')}', "
+                f"min age {rules.get('MinAgeSeconds')}s, "
+                f"cold <= {rules.get('ColdReadsPerSec')}/s, "
+                f"hot > {rules.get('HotReadsPerSec')}/s, "
+                f"active {sched.get('Active', 0)}, "
+                f"started {sched.get('MovesStarted', 0)}, "
+                f"failed {sched.get('MovesFailed', 0)}",
+                file=out,
+            )
+            for h in (sched.get("History") or [])[-10:]:
+                print(
+                    f"  {h['Direction']} vid {h['VolumeId']} @ {h['Holder']} "
+                    f"in {h['Seconds']}s"
+                    + (f" ERROR: {h['Error']}" if h.get("Error") else ""),
+                    file=out,
+                )
+        for url, st in sorted(nodes.items()):
+            if "error" in st:
+                print(f"{url}: unreachable ({st['error']})", file=out)
+                continue
+            rows = [
+                (int(vid), row) for vid, row in st.items()
+                if isinstance(row, dict)
+            ]
+            if not rows:
+                continue
+            print(f"{url}:", file=out)
+            for vid, row in sorted(rows):
+                if row.get("Tiered"):
+                    print(
+                        f"  vid {vid}: TIERED -> {row.get('Backend')} "
+                        f"(remote {row.get('RemoteShards')}, "
+                        f"local {row.get('LocalShards')})",
+                        file=out,
+                    )
+                else:
+                    print(
+                        f"  vid {vid}: local shards {row.get('LocalShards')}",
+                        file=out,
+                    )
+
+
+@register
+class TierMove(Command):
+    name = "tier.move"
+    help = (
+        "tier.move -volumeId vid -dest backend.name [-in] "
+        "[-node host:port] — move an EC volume's shards out to the "
+        "backend (or back in with -in) on every holder"
+    )
+
+    def run(self, env, args, out):
+        import json as _json
+
+        vid = _flag(args, "volumeId")
+        if not vid:
+            print("tier.move: -volumeId required", file=out)
+            return
+        direction = "in" if _has_flag(args, "in") else "out"
+        dest = _flag(args, "dest")
+        if direction == "out" and not dest:
+            print("tier.move: -dest backend.name required for tier-out", file=out)
+            return
+        node = _flag(args, "node")
+        if node:
+            urls = [node]
+        else:
+            # every node that holds shards of this volume (tier-out is
+            # per-holder: each node streams its OWN shards out)
+            urls = []
+            dump = env.collect_topology()
+            for n in dump.nodes:
+                try:
+                    st = _http_json(f"http://{n.url}/tier/status")
+                except (OSError, ValueError):
+                    continue
+                if vid in st:
+                    urls.append(n.url)
+        if not urls:
+            print(f"tier.move: no holder found for vid {vid}", file=out)
+            return
+        qs = f"volumeId={vid}&direction={direction}"
+        if direction == "out":
+            qs += f"&destination={dest}"
+        for url in urls:
+            try:
+                result = _http_json_post(
+                    f"http://{url}/tier/move?{qs}", timeout=600.0
+                )
+            except (OSError, ValueError) as e:
+                print(f"{url}: FAILED ({e})", file=out)
+                continue
+            print(f"{url}: {_json.dumps(result)}", file=out)
+
+
+# ----------------------------------------------------------------------
 # verbs whose planes the port does not have yet
 
 
 WAITING = {
     # name: (ROADMAP item, what it needs, the reference's help)
-    "ec.verify": (9, "the scrub engine's verify core",
-                  "ec.verify [-volumeId vid] [-rate MB/s] [-json] — scrub: stream "
-                  "shards, recompute + compare parity (rate-limited via the scrub "
-                  "engine's token bucket)"),
-    "scrub.status": (9, "the scrub engine",
-                     "scrub.status [-json] — per-node background-scrub health: sweep "
-                     "progress, corruption counts, quarantined shards"),
-    "scrub.trigger": (9, "the scrub engine",
-                      "scrub.trigger [-volumeId vid] [-node host:port] — start a sweep "
-                      "now (all nodes, or one node; with -volumeId that volume first)"),
-    "volume.tier.upload": (9, "the tier-move verbs",
-                           "volume.tier.upload -volumeId <vid> -dest <backendName> "
-                           "[-keepLocalDatFile] — move a sealed volume's .dat to a "
-                           "remote tier"),
-    "volume.tier.download": (9, "the tier-move verbs",
-                             "volume.tier.download -volumeId <vid> [-keepRemoteDatFile] "
-                             "— bring a tiered volume's .dat back to local disk"),
-    "tier.status": (9, "the tier engine's /tier/status route",
-                    "tier.status [-json] — scheduler rules + recent moves from the "
-                    "master, and per-node tiered-volume state from every holder"),
-    "tier.move": (9, "the tier engine's /tier/move route",
-                  "tier.move -volumeId vid -dest backend.name [-in] [-node host:port] "
-                  "— move an EC volume's shards out to the backend (or back in with "
-                  "-in) on every holder"),
     "capsule.capture": (13, "the incident-capsule surface",
                         "capsule.capture [-node host:port] [-reason R] [-json] — "
                         "snapshot an incident capsule (blackbox ring, traces, folded "

@@ -3,9 +3,10 @@ text exposition.
 
 The port carries the families its modules name (the EC pipelines, the
 degraded read, the store, the volume server, its mini loop and write
-path, the master's health plane, the client's retries and the push
-loop); the reference's telemetry, scrub-engine, tier and replication
-families come with those planes.
+path, the master's health plane, the scrub engine and repair
+scheduler, the tier engine, the client's retries and the push loop);
+the reference's telemetry and replication families come with those
+planes.
 
 A Registry renders Prometheus text format 0.0.4 so any scraper
 understands it (weed/stats/metrics.go:14-60). The push loop to a
@@ -313,10 +314,47 @@ SPAN_HISTOGRAM = DEFAULT_REGISTRY.histogram(
 )
 
 # --- scrub & self-healing plane (docs/SCRUB.md) -----------------------------
+SCRUB_SCANNED = DEFAULT_REGISTRY.counter(
+    "weed_scrub_scanned_bytes_total",
+    "bytes verified by the background scrubber",
+    ("server", "kind"),  # kind: plain | ec
+)
+SCRUB_CORRUPTIONS = DEFAULT_REGISTRY.counter(
+    "weed_scrub_corruptions_found_total",
+    "corruption events found by the scrubber",
+    ("server", "kind"),
+)
+SCRUB_ECC_FALLBACK = DEFAULT_REGISTRY.counter(
+    "weed_scrub_ecc_fallback_total",
+    "scrub sweeps that expected a .ecc sidecar but fell back to the "
+    "full parity re-verify (sidecar missing or stale)",
+    ("server", "reason"),  # reason: missing | stale
+)
 SCRUB_QUARANTINED = DEFAULT_REGISTRY.gauge(
     "scrub_quarantined_shards",
     "EC shards currently quarantined on this server",
     ("server",),
+)
+REPAIR_STARTED = DEFAULT_REGISTRY.counter(
+    "weed_repair_started_total",
+    "repairs launched by the master scheduler",
+    ("kind",),  # kind: ec_rebuild | replicate | replace
+)
+REPAIR_SUCCEEDED = DEFAULT_REGISTRY.counter(
+    "weed_repair_succeeded_total",
+    "repairs completed by the master scheduler",
+    ("kind",),
+)
+REPAIR_FAILED = DEFAULT_REGISTRY.counter(
+    "weed_repair_failed_total",
+    "repairs that errored (will back off and retry)",
+    ("kind",),
+)
+TIME_TO_REPAIR = DEFAULT_REGISTRY.histogram(
+    "weed_time_to_repair_seconds",
+    "first detection of damage to verified repair",
+    ("kind",),
+    buckets=(1.0, 5.0, 15.0, 60.0, 300.0, 900.0, 3600.0, 14400.0),
 )
 
 # --- QoS / tail-latency plane (docs/QOS.md) ---------------------------------
@@ -392,6 +430,16 @@ VOLUME_READS = DEFAULT_REGISTRY.counter(
     "access-temperature signal (scraped off the node by the collector)",
     ("volume",),
 )
+TIER_MOVES = DEFAULT_REGISTRY.counter(
+    "weed_tier_moves_total",
+    "EC volume tier transitions completed on this node",
+    ("direction", "result"),  # direction: out | in; result: ok | error
+)
+TIER_BYTES = DEFAULT_REGISTRY.counter(
+    "weed_tier_bytes_total",
+    "shard bytes moved to/from the tier backend",
+    ("direction",),  # out | in
+)
 TIER_REMOTE_READS = DEFAULT_REGISTRY.counter(
     "weed_tier_remote_read_total",
     "ranged sub-shard reads served from the tier backend",
@@ -400,6 +448,31 @@ TIER_REMOTE_READ_ERRORS = DEFAULT_REGISTRY.counter(
     "weed_tier_remote_read_errors_total",
     "tier backend reads that failed (the read degraded to "
     "peer-fetch/reconstruction instead)",
+)
+# --- the port's CUDA kernels ------------------------------------------------
+# Read off the wrappers' launch counters (_build.COUNTERS) at every
+# exposition: a process's launches on its card, so a run that drives
+# servers in processes of their own can see which kernels each ran.
+KERNEL_LAUNCHES = DEFAULT_REGISTRY.gauge(
+    "weed_kernel_launches",
+    "CUDA kernel launches by this process's wrappers since they were last "
+    "reset (a plain version's run on the CPU is not a launch)",
+    ("kernel",),
+)
+
+
+def _publish_kernel_launches() -> None:
+    from seaweedfs_tpu_torch import _build
+
+    for name, counter in list(_build.COUNTERS.items()):
+        KERNEL_LAUNCHES.set(counter.value, name)
+
+
+DEFAULT_REGISTRY.add_prerender_hook(_publish_kernel_launches)
+TIERED_VOLUMES = DEFAULT_REGISTRY.gauge(
+    "weed_tiered_volumes",
+    "EC volumes currently holding a remote tier attachment on this node",
+    ("server",),
 )
 ARBITER_BYTES = DEFAULT_REGISTRY.counter(
     "weed_arbiter_bytes_total",

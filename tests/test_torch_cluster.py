@@ -794,13 +794,22 @@ def test_volume_server_heartbeats_to_the_other_packages_master(
         c.stop()
 
 
-@pytest.mark.parametrize("kw, item", [({"repair_interval": 60.0}, "ROADMAP item 9"),
-                                      ({"tier_interval": 60.0}, "ROADMAP item 9"),
+@pytest.mark.parametrize("kw, item", [({"repair_interval": 60.0}, None),
+                                      ({"tier_interval": 60.0}, None),
                                       ({"telemetry_interval": 15.0}, "ROADMAP item 13")],
                          ids=["repair", "tier", "telemetry"])
 def test_unported_master_planes_raise(kw, item):
     """The master's planes that wait refuse up front, naming their item
-    (the reference starts them); off, the master comes up."""
-    with pytest.raises(NotImplementedError, match=item):
-        PortMaster(port=free_port(), **kw)
+    (the reference starts them); off, the master comes up. The repair
+    and tier schedulers are ported (ROADMAP item 9): on, the master
+    builds them as the reference's does."""
+    if item is None:
+        (name, value), = kw.items()
+        plane = "repair" if name == "repair_interval" else "tier"
+        port, ref = PortMaster(port=free_port(), **kw), RefMaster(port=free_port(), **kw)
+        assert getattr(port, plane).interval == getattr(ref, plane).interval == value
+        assert type(getattr(port, plane)).__name__ == type(getattr(ref, plane)).__name__
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            PortMaster(port=free_port(), **kw)
     PortMaster(port=free_port(), **{k: 0.0 for k in kw})

@@ -895,3 +895,35 @@ def test_server_batch_generate_on_the_card(card, tmp_path):
                     assert a.read() == b.read(), (vid, ext)
     finally:
         vs.stop()
+
+
+@pytest.mark.parametrize("corrupt", [(), ((3, 1000),), ((12, (4 << 20) - 7),),
+                                     ((1, 5), (13, 77))], ids=["clean", "data", "parity", "pair"])
+def test_scrub_verify_and_localize_4mib_tile_equal_plain(card, corrupt):
+    """The scrub's parity re-verify on one 4 MiB tile of 14 shards, and
+    the localization of its culprits: on the card (K1, one re-encode
+    launch for the tile, then the hypotheses' decodes and re-encodes)
+    and on K1's plain version, with the same mismatch counts and
+    culprits."""
+    from seaweedfs_tpu_torch.scrub.verify import verify_parity_stream
+
+    tile = 4 << 20
+    rng = np.random.default_rng(5)
+    shards = [rng.integers(0, 256, tile, dtype=np.uint8) for _ in range(10)] + [None] * 4
+    new_encoder(backend="cuda", device="cpu").encode(shards)
+    tiles = [bytearray(s.tobytes()) for s in shards]
+    for sid, off in corrupt:
+        tiles[sid][off] ^= 0x5A
+    tiles = [bytes(t) for t in tiles]
+    readers = [lambda off, size, _t=t: _t[off: off + size] for t in tiles]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        before = codec_cuda.LAUNCHES.value
+        res = verify_parity_stream(readers, rs=new_encoder(backend="cuda", device=dev),
+                                   tile_bytes=tile)
+        got[dev] = (res.mismatch, res.culprits, res.unlocalized, res.bad_tiles,
+                    res.bytes_per_shard, codec_cuda.LAUNCHES.value - before)
+    assert got["cuda"][:5] == got["cpu"][:5]
+    assert got["cpu"][5] == 0  # plain versions are not launches
+    assert got["cuda"][5] == 1 if not corrupt else got["cuda"][5] > 1
+    assert sorted(got["cuda"][1]) == sorted(sid for sid, _ in corrupt)

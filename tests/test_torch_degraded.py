@@ -7,6 +7,9 @@ backend, and opened with EcVolume.load (the port has no Store yet); the
 EcVolume decodes through its cuda backend with device="cpu", i.e. K1's
 plain version. Where the reference's modules are pure host code the
 port's copies are also held against them on the same inputs.
+TestDegradedServingEndToEnd runs on each package's own cluster (a
+master and three volume servers), the port's on the cuda backend with
+device="cpu".
 """
 
 import inspect
@@ -704,3 +707,119 @@ class TestRepairSession:
         shard_len = os.path.getsize(base + ".ec00")
         assert pig["read_bytes"] == 10 * (shard_len - pig["stats"]["used_donated_bytes"] // 2)
         assert sorted(runs["repair_parity"]["stats"]["shard_crcs"]) == [10, 13]
+
+
+# ---------------------------------------------------------------------------
+# live mini-cluster, one per package: degraded serving + piggybacked
+# rebuild end to end (tests/test_ec_degraded.py's TestDegradedServingEndToEnd)
+@pytest.fixture(scope="module", params=("ref", "port"))
+def degraded_cluster(request, tmp_path_factory):
+    from seaweedfs_tpu.server.master_server import MasterServer as RefMaster
+    from seaweedfs_tpu.server.volume_server import VolumeServer as RefVolume
+    from seaweedfs_tpu_torch.server.master_server import MasterServer as PortMaster
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer as PortVolume
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    side = request.param
+    Master, Volume = (RefMaster, RefVolume) if side == "ref" else (PortMaster, PortVolume)
+    codec = dict(ec_codec="cpu") if side == "ref" else dict(ec_codec="cuda", device="cpu")
+    master = Master(port=free_port(), volume_size_limit_mb=64, vacuum_interval=0,
+                    repair_interval=0)
+    master.start()
+    servers = []
+    for i in range(3):
+        vs = Volume([str(tmp_path_factory.mktemp(f"{side}-deg{i}"))], port=free_port(),
+                    master=f"127.0.0.1:{master.port}", rack=f"rack{i}",
+                    heartbeat_interval=0.2, max_volume_counts=[100], scrub_interval=0,
+                    **codec)
+        vs.start()
+        servers.append(vs)
+    deadline = time.time() + 45
+    while time.time() < deadline and len(master.topology.data_nodes()) != 3:
+        time.sleep(0.1)
+    assert len(master.topology.data_nodes()) == 3
+    yield side, master, servers
+    for vs in servers:
+        vs.stop()
+    master.stop()
+
+
+class TestDegradedServingEndToEnd:
+    """A shard killed over the operator route on a live cluster: degraded
+    GETs from a surviving holder are byte-identical, the second pass is
+    all tile-cache hits, and a rebuild on the warm node takes the cached
+    tiles as donated ranges. The same seeded writes on each package's own
+    cluster; the port's decodes run K1's plain version."""
+
+    def _seed_and_encode(self, side, master, n=24):
+        import io
+        import json
+        import urllib.request
+
+        if side == "ref":
+            from seaweedfs_tpu.shell.command_env import CommandEnv
+            from seaweedfs_tpu.shell.commands import do_ec_encode
+        else:
+            from seaweedfs_tpu_torch.shell.command_env import CommandEnv
+            from seaweedfs_tpu_torch.shell.commands import do_ec_encode
+        rng = random.Random(11)
+        keys = {}
+        vid = None
+        for i in range(n):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{master.port}/dir/assign", timeout=10) as r:
+                a = json.loads(r.read())
+            data = bytes(rng.randbytes(1800 + i))
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://{a['url']}/{a['fid']}", data=data, method="POST",
+                headers={"Content-Type": "application/octet-stream"}), timeout=10).close()
+            keys[a["fid"]] = data
+            vid = int(a["fid"].partition(",")[0])
+        do_ec_encode(CommandEnv([f"127.0.0.1:{master.port}"]), vid, "", io.StringIO())
+        return vid, keys
+
+    def test_degraded_get_tile_cache_and_piggybacked_rebuild(self, degraded_cluster):
+        import urllib.request
+
+        import seaweedfs_tpu.stats.metrics as ref_metrics
+        import seaweedfs_tpu_torch.stats.metrics as port_metrics
+        from seaweedfs_tpu_torch.pb import rpc, volume_pb2
+        from tests.faults import DeadShard
+
+        side, master, servers = degraded_cluster
+        metrics = ref_metrics if side == "ref" else port_metrics
+        vid, keys = self._seed_and_encode(side, master)
+        holder = next(vs for vs in servers if (ev := vs.store.find_ec_volume(vid)) is not None
+                      and 0 in ev.shards)
+        assert DeadShard(vid, sid=0, addr=f"127.0.0.1:{holder.port}").kill() == 0
+        server = next(vs for vs in servers if vs.store.find_ec_volume(vid) is not None
+                      and vs.store.find_ec_volume(vid).shard_ids())
+        d0 = metrics.EC_DEGRADED_READS.value()
+
+        def get_all():
+            for fid, data in keys.items():
+                with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/{fid}",
+                                            timeout=30) as r:
+                    assert r.read() == data, f"degraded GET {fid} corrupt"
+
+        def tiles():
+            return metrics.EC_TILE_CACHE.value("hit"), metrics.EC_TILE_CACHE.value("miss")
+
+        get_all()
+        assert metrics.EC_DEGRADED_READS.value() > d0
+        h1, m1 = tiles()
+        get_all()
+        h2, m2 = tiles()
+        assert m2 == m1 and h2 > h1, "warm pass must be all cache hits"
+        don0 = metrics.EC_REPAIR_DONATED_BYTES.value()
+        with rpc.dial(f"127.0.0.1:{server.port + 10000}") as ch:
+            resp = rpc.volume_stub(ch).VolumeEcShardsRebuild(
+                volume_pb2.VolumeEcShardsRebuildRequest(volume_id=vid), timeout=120)
+        assert list(resp.rebuilt_shard_ids) == [0]
+        assert metrics.EC_REPAIR_DONATED_BYTES.value() > don0, \
+            "piggyback: cached degraded tiles never reached the rebuild"
+        server.store.mount_ec_shards(vid, "", [0])
+        for fid, data in list(keys.items())[:5]:
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/{fid}",
+                                        timeout=30) as r:
+                assert r.read() == data

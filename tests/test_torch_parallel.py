@@ -241,8 +241,8 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-# the volume server's, the master tier's and the admin plane's slices:
-# every module they added is walked too
+# the volume server's, the master tier's, the admin plane's and the
+# command line's slices: every module they added is walked too
 SERVER_SLICE = (
     "pb/rpc.py", "pb/volume_pb2.py", "pb/master_pb2.py", "pb/filer_pb2.py",
     "pb/raft_pb2.py", "pb/tikv_pb2.py", "util/deadline.py", "util/http_range.py",
@@ -262,6 +262,12 @@ SERVER_SLICE = (
     "client/vid_map.py", "client/masterclient.py", "shell/__init__.py",
     "shell/command_env.py", "shell/ec_common.py", "shell/commands.py",
     "shell/shell_runner.py",
+    # the command line and the integrity plane's slice
+    "__main__.py", "command/__init__.py", "command/servers.py", "command/tools.py",
+    "command/benchmark.py", "command/filer_tools.py", "util/config.py",
+    "util/profiling.py", "scrub/__init__.py", "scrub/ratelimit.py", "scrub/state.py",
+    "scrub/verify.py", "scrub/engine.py", "scrub/repair.py", "tier/__init__.py",
+    "tier/rules.py", "tier/ec_tier.py", "tier/scheduler.py",
 )
 
 

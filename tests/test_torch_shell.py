@@ -13,12 +13,15 @@ runner. Shard bytes must equal the reference encoder's
 of each .dat. One mixed case runs the reference's shell against a port
 cluster and the port's shell against a reference cluster, with the same
 writes on both, and requires the same shard bytes. The tolerance is
-equality. TestFsCommands waits for the filer (ROADMAP item 11) and
-TestEcVerify for the scrub engine (item 9); their verbs are held to
-raise naming those items.
+equality. TestEcVerify runs the port's ec.verify (K1's plain version)
+and the reference's on the same shards of a port cluster, clean and
+with a flipped parity or data byte, and requires the same counts and
+the same report. TestFsCommands waits for the filer (ROADMAP item 11);
+its verbs are held to raise naming that item.
 """
 
 import io
+import json
 import os
 import random
 import shutil
@@ -265,6 +268,11 @@ class TestVolumePlanners:
 def test_command_names_equal_the_references():
     assert sorted(COMMANDS) == sorted(REF_COMMANDS)
     assert len([n for n in COMMANDS if n.startswith("fs.")]) == 11
+    # the integrity plane's verbs run (ROADMAP item 9); the filer's,
+    # the capsules' and replication's still wait
+    assert sorted(port_commands.WAITING) == sorted(
+        [n for n in COMMANDS if n.startswith("fs.")]
+        + ["capsule.capture", "capsule.collect", "replication.lag"])
     for name, cmd in COMMANDS.items():
         assert cmd.name == name and cmd.help == REF_COMMANDS[name].help, name
 
@@ -609,3 +617,63 @@ def test_each_shell_encodes_on_the_other_packages_cluster(mixed, tmp_path):
         assert http_get(f"http://{a['url']}/{a['fid']}") == (200, payload), side
         shards[side] = got
     assert shards["ref"] == shards["port"]
+
+
+class TestEcVerify:
+    """ec.verify on a port cluster: clean volumes verify 0 mismatches; a
+    flipped byte in a PARITY shard shows only in its own row, a flipped
+    byte in a DATA shard disagrees with every parity row. The reference's
+    do_ec_verify on the same shards gives the same counts and text."""
+
+    def test_verify_clean_then_corrupt(self, cluster):
+        from seaweedfs_tpu_torch.ec.codec import new_encoder
+
+        master, volume_servers = cluster
+        env = CommandEnv([f"127.0.0.1:{master.port}"])
+        _, assign = http_json(f"http://127.0.0.1:{master.port}/dir/assign?collection=scrub")
+        post(f"http://{assign['url']}/{assign['fid']}", b"scrub me " * 4096)
+        vid = int(assign["fid"].split(",")[0])
+        run_command(env, f"ec.encode -collection scrub -volumeId {vid}")
+        assert wait_for(lambda: _registered(master, vid))
+
+        def verify():
+            got = {}
+            for side, cmds, env_mod in (("port", port_commands, port_env),
+                                        ("ref", ref_commands, ref_env)):
+                out = io.StringIO()
+                kw = {"rs": new_encoder(backend="cuda", device="cpu")} if side == "port" else {}
+                mism = cmds.do_ec_verify(env_mod.CommandEnv([f"127.0.0.1:{master.port}"]),
+                                         vid, out, **kw)
+                got[side] = (mism, out.getvalue())
+            assert got["port"] == got["ref"]
+            return got["port"]
+
+        def shard_path(sid):
+            for vs in volume_servers:
+                for loc in vs.store.locations:
+                    p = os.path.join(loc.directory, f"scrub_{vid}.ec{sid:02d}")
+                    if os.path.exists(p):
+                        return p
+            return None
+
+        def flip(sid, off, xor):
+            with open(shard_path(sid), "r+b") as f:
+                f.seek(off)
+                b = f.read(1)
+                f.seek(off)
+                f.write(bytes([b[0] ^ xor]))
+
+        mism, text = verify()
+        assert mism == [0, 0, 0, 0] and "verified clean" in text
+        flip(12, 100, 0x5A)
+        mism, text = verify()
+        assert mism[2] > 0 and mism[0] == mism[1] == mism[3] == 0
+        assert "parity shard(s) corrupt" in text and "culprit shard(s) [12]" in text
+        flip(12, 100, 0x5A)
+        flip(3, 200, 0x77)
+        mism, text = verify()
+        assert all(m > 0 for m in mism) and "data shard corruption" in text
+        flip(3, 200, 0x77)
+        assert verify()[0] == [0, 0, 0, 0]
+        out = run_command(env, f"ec.verify -volumeId {vid} -json")
+        assert json.loads(out)["corrupt"] is False

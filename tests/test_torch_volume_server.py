@@ -596,11 +596,12 @@ def _ecc_crcs(d, vid):
         return json.load(f)
 
 
-# item None: the master tier (ROADMAP item 7) is ported, and the
-# parameter that waited for it is now taken as given
+# item None: the master tier (ROADMAP item 7) and the scrub engine
+# (item 9) are ported, and the parameters that waited for them are now
+# taken as given
 WAITS = [
     ({"master": "127.0.0.1:9333"}, None),
-    ({"scrub_interval": 600.0}, "ROADMAP item 9"),
+    ({"scrub_interval": 600.0}, None),
     ({"internal_port": 1}, "ROADMAP item 8"),
     ({"shard_writes": True}, "ROADMAP item 8"),
     ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11"),
@@ -626,6 +627,8 @@ def test_waiting_parameters_raise(tmp_path, kw, item):
         (name, value), = kw.items()
         if name == "announce":
             assert f"{vs.announce_host}:{vs.announce_port}" == value
+        elif name == "scrub_interval":
+            assert vs.scrub.interval == value
         else:
             assert getattr(vs, name) == value
     finally:
@@ -633,14 +636,25 @@ def test_waiting_parameters_raise(tmp_path, kw, item):
 
 
 def test_the_reference_default_scrub_interval_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="scrub_interval"):
-        PortServer([str(tmp_path)], device="cpu")
+    """It raised until the scrub engine was ported (ROADMAP item 9); the
+    reference's default now builds the engine as the reference's does."""
+    vs = PortServer([str(tmp_path)], device="cpu")
+    os.makedirs(tmp_path / "ref")
+    ref = RefServer([str(tmp_path / "ref")], ec_codec="cpu")
+    try:
+        assert (vs.scrub.interval, vs.scrub.rate_mb_s) == (ref.scrub.interval,
+                                                           ref.scrub.rate_mb_s) == (600.0, 64.0)
+    finally:
+        vs.store.close()
+        ref.store.close()
 
 
 VERBS = [
     ("Query", pb.QueryRequest(), "ROADMAP item 11"),
-    ("VolumeTierMoveDatToRemote", pb.VolumeTierMoveDatToRemoteRequest(), "ROADMAP item 9"),
-    ("VolumeTierMoveDatFromRemote", pb.VolumeTierMoveDatFromRemoteRequest(), "ROADMAP item 9"),
+    # ported with the tier engine (ROADMAP item 9): a volume that is not
+    # there aborts NOT_FOUND, as the reference's does
+    ("VolumeTierMoveDatToRemote", pb.VolumeTierMoveDatToRemoteRequest(), None),
+    ("VolumeTierMoveDatFromRemote", pb.VolumeTierMoveDatFromRemoteRequest(), None),
     # ported with the master tier (ROADMAP item 7): they serve the request
     ("VolumeEcShardsCopy", pb.VolumeEcShardsCopyRequest(source_data_node="127.0.0.1:1"),
      None),
@@ -667,12 +681,13 @@ def test_waiting_verbs_raise(tmp_path, verb, req, item):
 
         try:
             got = getattr(vs, verb)(req, Context())
-            if verb == "CopyFile":
+            if verb != "VolumeEcShardsCopy":
                 got = list(got)
         except grpc.RpcError:
             got = None
-        assert (aborted, got) == (([grpc.StatusCode.NOT_FOUND], None) if verb == "CopyFile"
-                                  else ([], pb.VolumeEcShardsCopyResponse()))
+        assert (aborted, got) == (([], pb.VolumeEcShardsCopyResponse())
+                                  if verb == "VolumeEcShardsCopy"
+                                  else ([grpc.StatusCode.NOT_FOUND], None))
     finally:
         vs.store.close()
 
