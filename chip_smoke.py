@@ -75,11 +75,17 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      both must launch, and every K5 launch on K5's tensor-core arm); last,
      two VolumeEcShardsGenerate calls at once
      on two 64 MiB volumes, equal to the same encodes run one after the
-     other; after stop() no thread the server started may be left;
+     other; after stop() no thread the server started may be left. The
+     server runs the C epoll loop and the C POST: /status's ServeStats
+     are printed around each pass, every plain-volume GET must be
+     answered from C and both EC passes handed off to threads; the POST
+     and plain-volume GET passes are repeated on a second server over a
+     fresh directory on the threaded arm (native_serve=False, the Python
+     POST) and both arms printed side by side;
  3e. the cluster (run_cluster_phase): a master and three volume servers
      booted by availability.start_cluster on the card in this process;
      one volume grown through the master on server A and filled with
-     1 GiB through /dir/assign; VolumeEcShardsGenerate on A (K1 + K4),
+     256 MiB (CUT_BYTES) through /dir/assign; VolumeEcShardsGenerate on A (K1 + K4),
      spread as ec.balance would (A 0-3, B 4-8, C 9-13, by
      VolumeEcShardsCopy); every needle GET through B healthy, then with
      A stopped, tile cache on (K1) and off (K5, on its tensor-core arm,
@@ -89,7 +95,7 @@ Phases, each of which raises on a fault (the script then exits nonzero):
  3f. the admin plane (run_admin_phase), driven through the port's shell
      (shell.run_command on a CommandEnv) against a master and three
      volume servers on the card, 256 sealed 4 MiB volumes written into
-     the first one's directory before it boots: ec.encode of a 1 GiB
+     the first one's directory before it boots: ec.encode of a 256 MiB
      volume filled through /dir/assign (K1 + K4; shards byte-identical to
      the native codec's encode of its snapshot, CRCs equal to the .ecc,
      the source deleted, every needle read back), ec.balance, four shards
@@ -103,7 +109,7 @@ Phases, each of which raises on a fault (the script then exits nonzero):
  3g. the command line and the integrity plane (run_cli_phase): a master
      and three volume servers started as `python -m seaweedfs_tpu_torch
      master|volume` processes, every server on the card (no -ec.codec),
-     data in /dev/shm; one volume filled with 1 GiB by `python -m
+     data in /dev/shm; one volume filled with 256 MiB by `python -m
      seaweedfs_tpu_torch benchmark`; ec.encode and ec.balance through a
      `shell` process (no server holds all 14 shards); bytes flipped in a
      4 MiB tile of a data shard and of a parity shard on two servers;
@@ -122,6 +128,20 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      compute apps, the verify core runs clean after the repair (one K1
      launch a tile) and SIGTERM ends every process with exit code 0;
      each server's launches are read off its /metrics;
+ 3h. the serving edge from the command line (run_edge_phase): a master
+     (-telemetryInterval 0) and one `volume` process on the card, data in
+     /dev/shm, three arms in turn over fresh directories: the threaded
+     arm (WEED_NATIVE_SERVE=0 WEED_NATIVE_POST=0), the C loop, and the C
+     loop with -workers 4; each loaded by the port's `benchmark -c 16 -n
+     65536 -size 1024` (upstream's -n 1048576 cut 16x), its write and read
+     req/s, p50 and p99 and the lead's ServeStats printed, and on the
+     workers arm the connections and CPU seconds of each pid; then
+     ec.encode through a `shell` process, shards {0, 5, 10, 13}
+     unmounted and deleted, and every needle GET through the shared port
+     equal to its payload's SHA-256: the workers proxy those reads to the
+     lead, whose K1 launches rise on its /metrics, while no worker maps
+     libcuda or torch and nvidia-smi lists exactly one more compute app;
+     SIGTERM ends every process with exit code 0;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -200,6 +220,10 @@ SIG_MAX_INPUTS = 1024
 DEG_TILE_LANES = 65536
 DEG_RUN_LANES = 2097152
 STORE_BYTES = 1 << 30  # the store phase's volume: BASELINE.json config 1
+# the cluster, admin and cli phases' volume: config 1's 1 GiB cut 4x, so
+# that the smoke, grown by the serving-edge phase, stays near half of its
+# 1200 s time limit (those phases' sizes are depth, not width)
+CUT_BYTES = 256 << 20
 
 
 def log(msg: str) -> None:
@@ -2100,6 +2124,75 @@ def _server_leftovers(before: set, pinned_start: dict | None) -> dict:
     return out
 
 
+def _serve_stats(port: int) -> dict:
+    """The C serving core's counters off a server's /status (ServeStats:
+    responses the C loop wrote, connections handed off to Python threads,
+    304s, plan-cache hits; process-wide, so a -workers lead's own)."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/status", timeout=30) as r:
+        return json.loads(r.read())["ServeStats"]
+
+
+def _stats_delta(a: dict, b: dict, probe: int = 1) -> dict:
+    """Counters between two _serve_stats readings `a` and `b`. A /status
+    request is itself handed off by a C loop, so `b` counts its own
+    probe's handoff: `probe` (1) is taken off, 0 where no C loop served
+    the probe."""
+    out = {k: b.get(k, 0) - a.get(k, 0) for k in ("served", "handoffs", "not_modified",
+                                                   "cache_hits", "shed")}
+    out["handoffs"] -= probe
+    return out
+
+
+def _threaded_arm(workdir: str, fids: dict, live: list, seed: int, device, card: str) -> dict:
+    """Phase 3d's POST and plain-volume GET passes on the threaded arm: a
+    second VolumeServer over a fresh directory with native_serve=False
+    (the threaded mini loop) and the C POST declined as WEED_NATIVE_POST=0
+    declines it, driven by the same load generator with the same
+    payloads. Its GETs must not move the C loop's counters."""
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as pb
+    from seaweedfs_tpu_torch.server import write_path
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+
+    vdir = os.path.join(workdir, "server_threaded")
+    os.mkdir(vdir)
+    port = _free_port()
+    vs = VolumeServer([vdir], port=port, ec_codec="cuda", device=device, scrub_interval=0,
+                      max_volume_counts=[8], native_serve=False)
+    vs.start()
+    vid = SERVER_VID
+    items = lambda which: [[fid, seed + vid, *fids[fid]] for fid in which]  # noqa: E731
+    try:
+        with rpc.dial(f"127.0.0.1:{vs.grpc_port}") as ch:
+            rpc.volume_stub(ch).AllocateVolume(pb.AllocateVolumeRequest(volume_id=vid),
+                                               timeout=60)
+        write_path.NATIVE_POST_ENABLED = False
+        try:
+            post = _load_client(port, "post", items(fids), workdir)
+        finally:
+            write_path.NATIVE_POST_ENABLED = True
+        st0 = _serve_stats(port)
+        got = _load_client(port, "get", items(live), workdir)
+        st1 = _serve_stats(port)
+        if any(_stats_delta(st0, st1, probe=0).values()):
+            raise AssertionError(f"server threaded arm: the C loop served its GETs "
+                                 f"({st0} -> {st1})")
+        lat = [dt for _, dt, _ in got["results"]]
+        posted = sum(size for _, size in fids.values())
+        run = {"post_s": post["wall_s"], "get_s": got["wall_s"], "bytes": posted,
+               "get_p50_ms": _pct(lat, 50), "get_p99_ms": _pct(lat, 99)}
+        log(f"server threaded arm on {card}: {len(fids)} needles POSTed on the Python path "
+            f"in {run['post_s']:.4f} s ({posted / run['post_s'] / 1e9:.4f} GB/s, "
+            f"{len(fids) / run['post_s']:.1f} req/s); {len(live)} GETs on the threaded mini "
+            f"loop in {run['get_s']:.4f} s ({len(live) / run['get_s']:.1f} req/s), p50 "
+            f"{run['get_p50_ms']:.3f} ms, p99 {run['get_p99_ms']:.3f} ms; ServeStats "
+            f"unmoved {st1}")
+        return run
+    finally:
+        vs.stop()
+        shutil.rmtree(vdir, ignore_errors=True)
+
+
 def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
                      card: str = "", smi: str = "", conc_bytes: int = CONC_BYTES) -> dict:
     """The port's VolumeServer on `device` (None: the card), standalone
@@ -2160,10 +2253,14 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
             got = _load_client(port, "get", items(v, fids, live), workdir)
             return got["wall_s"], [(fid, dt) for fid, dt, _ in got["results"]]
 
-        # --- write a volume over HTTP ---
+        # --- write a volume over HTTP: the C loop hands each connection's
+        # POSTs off to a thread, which takes the one-pass C POST ---
         stub.AllocateVolume(pb.AllocateVolumeRequest(volume_id=vid), timeout=60)
         fids = needles_of(vid, volume_bytes, 1)
+        st0 = _serve_stats(port)
         post_s, etags = post_all(vid, fids)
+        st1 = _serve_stats(port)
+        log(f"server ServeStats around the POST pass: before {st0}, after {st1}")
         posted = sum(size for _, size in fids.values())
         deleted = [fid for fid, (nid, _) in fids.items() if nid % 16 == 0]
         dels = _fan(port, SERVER_THREADS, deleted,
@@ -2171,7 +2268,14 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
         if set(dels) != {202}:
             raise AssertionError(f"DELETE statuses {set(dels)}")
         live = [fid for fid in fids if fid not in set(deleted)]
+        st0 = _serve_stats(port)
         get_s, got = get_all(vid, fids, live)
+        st1 = _serve_stats(port)
+        get_stats = _stats_delta(st0, st1)
+        log(f"server ServeStats around the plain-volume GET pass: before {st0}, after {st1}")
+        if get_stats["served"] < len(live) or get_stats["handoffs"]:
+            raise AssertionError(f"server: the plain-volume GETs were not answered from C: "
+                                 f"{get_stats} for {len(live)} GETs")
         lat = [dt for _, dt in got]
         cond = live[:COND_GETS]
         got = _fan(port, 4, cond, lambda c, f: _http(c, "GET", f"/{f}", headers={
@@ -2180,13 +2284,24 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
         if set(got) != {304} or set(gone) != {404}:
             raise AssertionError(f"conditional GETs {set(got)}, deleted GETs {set(gone)}")
         runs["server_write"] = {"post_s": post_s, "bytes": posted, "needles": len(fids),
-                                "get_s": get_s, "deleted": len(deleted)}
+                                "get_s": get_s, "deleted": len(deleted),
+                                "get_p50_ms": _pct(lat, 50), "get_p99_ms": _pct(lat, 99),
+                                "get_stats": get_stats}
         log(f"server write on {card}: {len(fids)} needles, {posted} bytes POSTed from "
             f"{SERVER_THREADS} keep-alive threads in {post_s:.4f} s "
             f"({posted / post_s / 1e9:.4f} GB/s, {len(fids) / post_s:.1f} req/s); "
             f"{len(deleted)} DELETEd (202), then 404; {len(live)} live GETs equal in "
             f"{get_s:.4f} s ({len(live) / get_s:.1f} req/s), p50 {_pct(lat, 50):.3f} ms, "
             f"p99 {_pct(lat, 99):.3f} ms; {len(cond)} conditional GETs 304")
+        runs["server_threaded"] = _threaded_arm(workdir, fids, live, seed, device, card)
+        c_arm, t_arm = runs["server_write"], runs["server_threaded"]
+        log(f"server arms side by side on {card} (same payloads, same load generator): "
+            f"POST GB/s C loop + C POST {posted / c_arm['post_s'] / 1e9:.4f} vs threaded + "
+            f"Python POST {posted / t_arm['post_s'] / 1e9:.4f}; POST req/s "
+            f"{len(fids) / c_arm['post_s']:.1f} vs {len(fids) / t_arm['post_s']:.1f}; GET "
+            f"req/s {len(live) / c_arm['get_s']:.1f} vs {len(live) / t_arm['get_s']:.1f}; GET "
+            f"p50 {c_arm['get_p50_ms']:.3f} vs {t_arm['get_p50_ms']:.3f} ms, p99 "
+            f"{c_arm['get_p99_ms']:.3f} vs {t_arm['get_p99_ms']:.3f} ms")
 
         # --- encode through the verbs, against a native encode ---
         base = vs.store.find_volume(vid).base_name
@@ -2254,8 +2369,13 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
         def serve(label: str) -> dict:
             _reset_counts()
             s0 = trace.totals("ec.degraded")
+            st0 = _serve_stats(port)
             wall, got = get_all(vid, fids, live)
+            st1 = _serve_stats(port)
             spans = _span_delta("ec.degraded", s0)
+            log(f"server ServeStats around the {label}: before {st0}, after {st1}")
+            if not _stats_delta(st0, st1)["handoffs"]:
+                raise AssertionError(f"server {label}: no connection was handed off")
             lost_lat = [dt for fid, dt in got if fid in on_lost]
             ok_lat = [dt for fid, dt in got if fid not in on_lost]
             run = {"wall_s": wall, "launches": _read_counts(), "sigs": _read_sigs(),
@@ -2264,7 +2384,8 @@ def run_server_phase(workdir: str, volume_bytes: int, seed: int, device=None,
                    "p50_ms_healthy": _pct(ok_lat, 50), "p99_ms_healthy": _pct(ok_lat, 99),
                    "lost_get_s": sum(lost_lat), "decodes": spans["count"],
                    "decode_s": spans["stages"].get("decode", 0.0),
-                   "gather_s": spans["stages"].get("gather", 0.0)}
+                   "gather_s": spans["stages"].get("gather", 0.0),
+                   "serve_stats": _stats_delta(st0, st1)}
             log(f"server {label} on {card}: shards {LOST} lost, {len(live)} live needles "
                 f"GET from {SERVER_THREADS} threads, each equal to its payload, wall "
                 f"{wall:.4f} s; on a lost shard ({len(lost_lat)}) p50 "
@@ -3650,6 +3771,417 @@ CLI_PATHS = ("cli_encode", "cli_verify_before", "cli_scrub", "cli_repair", "cli_
              "cli_verify_after")
 
 
+# --- phase 3h: the serving edge from the command line -----------------------
+
+EDGE_FILES = 65536  # benchmark -n: upstream's documented -n 1048576 cut 16x
+EDGE_SIZE = 1024  # benchmark -size, upstream's documented run
+EDGE_CONC = 16  # benchmark -c, its default
+EDGE_WORKERS = 4  # volume -workers
+# (arm, environment, volume flags): the threaded arm is what the
+# switches select, the C loop the default, then the C loop with workers
+EDGE_ARMS = (
+    ("threaded", {"WEED_NATIVE_SERVE": "0", "WEED_NATIVE_POST": "0"}, []),
+    ("c_loop", {}, []),
+    ("workers", {}, ["-workers", str(EDGE_WORKERS)]),
+)
+
+
+def _edge_port() -> int:
+    """A port p below the kernel's ephemeral range with p + 10000 (gRPC)
+    free (availability.free_port), odd, and with the -workers internal
+    port p + 20000 free too, probed as the servers bind (SO_REUSEADDR).
+    Odd, because a busy host's closed client connections (TIME_WAIT) sit
+    on even ephemeral ports, where the internal port lands."""
+    import socket
+
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    for _ in range(400):
+        p = free_port()
+        if p % 2 == 0:
+            continue
+        try:
+            with socket.socket() as s:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind(("127.0.0.1", p + 20000))
+        except OSError:
+            continue
+        return p
+    raise RuntimeError("no free port triple for the volume server")
+
+
+def _listeners(port: int) -> int:
+    """TCP sockets listening on `port` (each SO_REUSEPORT sibling one)."""
+    with open("/proc/net/tcp") as f:
+        rows = [line.split() for line in f.readlines()[1:]]
+    return sum(1 for r in rows if r[3] == "0A" and int(r[1].rsplit(":", 1)[1], 16) == port)
+
+
+def _children(pid: int) -> list:
+    """The pids whose parent is `pid`."""
+    out = []
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == pid:
+                out.append(int(name))
+    return sorted(out)
+
+
+def _cpu_s(pid: int) -> float:
+    """A process's CPU seconds (user + system), from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class _AcceptSampler:
+    """Which process holds each connection accepted on `port`: the
+    kernel's table of established sockets (/proc/net/tcp) joined with
+    each pid's socket fds, sampled every 50 ms on a thread while the
+    block runs. `seen` maps pid -> the set of client endpoints."""
+
+    def __init__(self, port: int, pids: list):
+        self.port, self.pids = port, pids
+        self.seen = {pid: set() for pid in pids}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="edge-accepts")
+
+    def _sample(self) -> None:
+        with open("/proc/net/tcp") as f:
+            rows = [line.split() for line in f.readlines()[1:]]
+        by_inode = {r[9]: r[2] for r in rows
+                    if r[3] == "01" and int(r[1].rsplit(":", 1)[1], 16) == self.port}
+        for pid in self.pids:
+            try:
+                fds = os.listdir(f"/proc/{pid}/fd")
+            except OSError:
+                continue
+            for fd in fds:
+                try:
+                    link = os.readlink(f"/proc/{pid}/fd/{fd}")
+                except OSError:
+                    continue
+                if link.startswith("socket:[") and link[8:-1] in by_inode:
+                    self.seen[pid].add(by_inode[link[8:-1]])
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def _maps_has(pid: int, *names) -> dict:
+    with open(f"/proc/{pid}/maps") as f:
+        text = f.read()
+    return {n: n in text for n in names}
+
+
+def _compute_apps() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def _bench_report(text: str) -> dict:
+    """{"write"|"read": {completed, failed, req_s, p50_ms, p99_ms}} off
+    the port's `benchmark` report (the reference's stats printer)."""
+    out = {}
+    for key, title in (("write", "Writing Benchmark"), ("read", "Random Read Benchmark")):
+        i = text.find(title)
+        if i < 0:
+            raise AssertionError(f"edge: the benchmark printed no {title!r} report")
+        sec = text[i:].split("\n------------ ", 1)[0]
+
+        def num(pattern):
+            return float(re.search(pattern, sec, re.M).group(1))
+
+        out[key] = {"completed": int(num(r"Complete requests:\s+(\d+)")),
+                    "failed": int(num(r"Failed requests:\s+(\d+)")),
+                    "wall_s": num(r"Time taken for tests:\s+([0-9.]+)"),
+                    "req_s": num(r"Requests per second:\s+([0-9.]+)"),
+                    "p50_ms": num(r"^\s+50%\s+([0-9.]+) ms"),
+                    "p99_ms": num(r"^\s+99%\s+([0-9.]+) ms")}
+    return out
+
+
+def run_edge_phase(workdir: str, seed: int, device=None, card: str = "", smi: str = "",
+                   files: int = EDGE_FILES) -> dict:
+    """The serving edge as users start it: every process `python -m
+    seaweedfs_tpu_torch`, data in `workdir` (/dev/shm). For each arm of
+    EDGE_ARMS in turn, over a fresh directory: a master (-telemetryInterval
+    0) and one `volume` process on `device` (None: the card; "cpu" runs
+    it with -ec.codec cpu, a rehearsal), one volume grown, and the port's
+    `benchmark -c EDGE_CONC -n files -size EDGE_SIZE` writing and then
+    reading; each arm's write and read req/s, p50 and p99 and the lead's
+    ServeStats are printed (the threaded arm must not load the C loop;
+    the others must answer GETs from it), and in the workers arm the CPU
+    seconds and bytes written of the lead and each worker pid. Then, on
+    the workers arm: ec.encode of the volume through a `shell` process,
+    shards LOST unmounted and deleted on the server, and every needle
+    GET through the shared port, each equal to its payload's SHA-256.
+    The workers proxy those reads to the lead, whose decodes run on the
+    card: K1 launches rise on the lead's /metrics, the workers map
+    neither libcuda nor torch, nvidia-smi lists exactly one more compute
+    app than before the arm started, and the lead handed connections off
+    to threads. SIGTERM ends every process with exit code 0 (a lead's
+    code covers its workers). Raises on any fault; returns edge_<arm>
+    rows and edge_ec."""
+    import hashlib
+    import random as _random
+    import signal
+
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as pb
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+
+    on_card = device is None
+    here = os.path.dirname(os.path.abspath(__file__))
+    switches = ("WEED_EC_CODEC", "WEED_NATIVE_SERVE", "WEED_NATIVE_POST", "WEED_SERVE_CACHE")
+    base_env = {k: v for k, v in os.environ.items() if k not in switches}
+    if not on_card:
+        base_env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    logs = os.path.join(workdir, "logs")
+    os.mkdir(logs)
+    procs: dict = {}
+    rcs: dict = {}
+
+    def _tail(name: str) -> str:
+        with open(os.path.join(logs, name + ".log"), errors="replace") as f:
+            return f.read()[-3000:]
+
+    def spawn(name: str, args: list, env: dict) -> subprocess.Popen:
+        procs[name] = subprocess.Popen(cli + args, cwd=here, env=env,
+                                       stdout=open(os.path.join(logs, name + ".log"), "w"),
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except (OSError, ValueError, KeyError):
+                pass
+            for name, p in procs.items():
+                if name not in rcs and p.poll() is not None:
+                    raise AssertionError(f"edge: {name} exited ({p.returncode}) while "
+                                         f"waiting for {what}: {_tail(name)}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"edge: {what} not seen within {timeout} s")
+            time.sleep(0.05)
+
+    def stop(names) -> None:
+        """SIGTERM, then every exit code must be 0."""
+        for n in names:
+            if procs[n].poll() is None:
+                procs[n].send_signal(signal.SIGTERM)
+        for n in names:
+            try:
+                rcs[n] = procs[n].wait(120)
+            except subprocess.TimeoutExpired:
+                procs[n].kill()
+                rcs[n] = procs[n].wait(10)
+        bad = {n: rcs[n] for n in names if rcs[n] != 0}
+        if bad:
+            raise AssertionError(f"edge: processes exited non-zero {bad}: "
+                                 f"{ {n: _tail(n) for n in bad} }")
+
+    rng = _random.Random(1)  # the benchmark's one payload, as it makes it
+    want_sha = hashlib.sha256(bytes(rng.randrange(256) for _ in range(EDGE_SIZE))).hexdigest()
+    phase_t0 = time.perf_counter()
+    runs: dict = {}
+    shell = None
+    try:
+        for arm, arm_env, arm_args in EDGE_ARMS:
+            env = dict(base_env, **arm_env)
+            d = os.path.join(workdir, arm)
+            os.mkdir(d)
+            mport, vport = _edge_port(), _edge_port()
+            maddr = f"127.0.0.1:{mport}"
+            apps0 = _compute_apps() if on_card else []
+            t0 = time.perf_counter()
+            spawn(f"{arm}-master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                                    "-telemetryInterval", "0"], env)
+            wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                                timeout=2).close() is None, "the master")
+            lead = spawn(f"{arm}-volume", ["volume", "-ip", "127.0.0.1", "-port", str(vport),
+                                           "-dir", d, "-max", "8", "-mserver", maddr,
+                                           "-scrubInterval", "0"] + codec_args + arm_args, env)
+
+            def grown() -> bool:
+                with urllib.request.urlopen(
+                        f"http://{maddr}/vol/grow?collection=edge&count=1", timeout=60) as r:
+                    return json.loads(r.read()).get("count") == 1
+
+            wait(grown, "the benchmark's volume grown on the volume server")
+            group = [lead.pid]
+            if arm_args:
+                wait(lambda: _listeners(vport) == EDGE_WORKERS,
+                     f"{EDGE_WORKERS} listeners on the shared port")
+                group += _children(lead.pid)
+                if len(group) != EDGE_WORKERS:
+                    raise AssertionError(f"edge: the lead runs {group[1:]} as workers")
+            up_s = time.perf_counter() - t0
+            st0 = _serve_stats(vport)
+            cpu0 = {pid: _cpu_s(pid) for pid in group}
+            with _AcceptSampler(vport, group) as accepts:
+                bench = subprocess.run(cli + ["benchmark", "-master", maddr, "-c",
+                                              str(EDGE_CONC), "-n", str(files), "-size",
+                                              str(EDGE_SIZE), "-collection", "edge"],
+                                       cwd=here, env=env, capture_output=True, text=True,
+                                       timeout=900)
+            cpu1 = {pid: _cpu_s(pid) for pid in group}
+            st1 = _serve_stats(vport)
+            if bench.returncode:
+                raise AssertionError(f"edge {arm}: the benchmark failed (rc "
+                                     f"{bench.returncode}): {bench.stderr[-2000:]}")
+            rep = _bench_report(bench.stdout)
+            if rep["write"]["failed"] or rep["read"]["failed"] or (
+                    rep["write"]["completed"] != files or rep["read"]["completed"] != files):
+                raise AssertionError(f"edge {arm}: the benchmark reported {rep}")
+            delta = _stats_delta(st0, st1) if st1 else {}
+            if arm == "threaded" and (st0 or st1):
+                raise AssertionError(f"edge threaded arm: the C loop ran ({st0} -> {st1})")
+            # alone, the lead answers most reads from C; with workers, its
+            # SO_REUSEPORT share (each worker's loop counts in its own process)
+            if arm != "threaded" and delta["served"] < (1 if arm_args else files // 2):
+                raise AssertionError(f"edge {arm}: the C loop answered {delta} of {files} "
+                                     f"GETs from C")
+            spread = {pid: {"cpu_s": cpu1[pid] - cpu0[pid],
+                            "connections": len(accepts.seen[pid])} for pid in group}
+            runs[f"edge_{arm}"] = {"bench": rep, "serve_stats": delta, "spread": spread,
+                                   "up_s": up_s}
+            log(f"edge {arm} on {card}: {files} x {EDGE_SIZE} B, -c {EDGE_CONC}; servers up "
+                f"in {up_s:.3f} s; write {rep['write']['req_s']:.2f} req/s, p50 "
+                f"{rep['write']['p50_ms']:.1f} ms, p99 {rep['write']['p99_ms']:.1f} ms; read "
+                f"{rep['read']['req_s']:.2f} req/s, p50 {rep['read']['p50_ms']:.1f} ms, p99 "
+                f"{rep['read']['p99_ms']:.1f} ms (the benchmark's own report); lead ServeStats "
+                f"before {st0}, after {st1}; {smi}")
+            if arm_args:
+                total = sum(u["cpu_s"] for u in spread.values()) or 1.0
+                log(f"edge {arm}: spread over the benchmark, by pid (lead first): "
+                    + "; ".join(f"{pid} accepted {u['connections']} connection(s), cpu "
+                                f"{u['cpu_s']:.2f} s ({u['cpu_s'] / total:.0%})"
+                                for pid, u in spread.items()))
+            if arm != "workers":
+                stop([f"{arm}-volume", f"{arm}-master"])
+                continue
+
+            # --- the workers arm: EC reads proxied to the lead, decoded on the card ---
+            dats = [f for f in os.listdir(d) if f.startswith("edge_") and f.endswith(".dat")]
+            if len(dats) != 1:
+                raise AssertionError(f"edge: the benchmark filled {dats}, not one volume")
+            vid = int(dats[0][5:-4])
+            needles = [(nd.id, nd.cookie) for nd, _ in scan_volume_file(os.path.join(d, dats[0]))]
+            if len(needles) != files:
+                raise AssertionError(f"edge: volume {vid} holds {len(needles)} needles")
+            shell = _CliShell(cli + ["shell", "-master", maddr], env,
+                              os.path.join(logs, "shell.log"))
+            procs["shell"] = shell.proc
+            enc_s, _ = shell.run(f"ec.encode -volumeId {vid}")
+
+            def registered() -> int:
+                with rpc.dial(f"127.0.0.1:{mport + 10000}") as ch:
+                    resp = rpc.master_stub(ch).LookupEcVolume(
+                        master_pb2.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+                return sum(1 for e in resp.shard_id_locations if e.locations)
+
+            wait(lambda: registered() == 14, "14 registered shards", 60)
+            rcs["shell"] = shell.exit()
+            if rcs["shell"]:
+                raise AssertionError(f"edge: the shell exited {rcs['shell']}")
+            with rpc.dial(f"127.0.0.1:{vport + 10000}") as ch:
+                rpc.volume_stub(ch).VolumeEcShardsUnmount(pb.VolumeEcShardsUnmountRequest(
+                    volume_id=vid, shard_ids=list(LOST)), timeout=60)
+            for i in LOST:
+                os.remove(os.path.join(d, f"edge_{vid}.ec{i:02d}"))
+            k0 = _cli_launches(_cli_metrics(vport))
+            st0 = _serve_stats(vport)
+            cpu0 = {pid: _cpu_s(pid) for pid in group}
+
+            def get(conn, item):
+                fid = f"{vid},{item[0]:x}{item[1]:08x}"
+                status, _, body = _http(conn, "GET", f"/{fid}")
+                if status != 200 or hashlib.sha256(body).hexdigest() != want_sha:
+                    raise AssertionError(f"edge: GET {fid} answered {status} with another "
+                                         f"body")
+
+            t0 = time.perf_counter()
+            with _AcceptSampler(vport, group) as accepts:
+                _fan(vport, 2 * EDGE_WORKERS, needles, get)
+            get_s = time.perf_counter() - t0
+            cpu1 = {pid: _cpu_s(pid) for pid in group}
+            k1 = _cli_launches(_cli_metrics(vport))
+            st1 = _serve_stats(vport)
+            launches = {k: k1[k] - k0[k] for k in k1}
+            delta = _stats_delta(st0, st1)
+            apps1 = _compute_apps() if on_card else []
+            maps = {pid: _maps_has(pid, "libcuda", "libtorch") for pid in group}
+            log(f"edge EC GETs on {card}: ec.encode -volumeId {vid} through the shell "
+                f"{enc_s:.3f} s; shards {LOST} unmounted and deleted; {len(needles)} needles "
+                f"GET through the shared port from {2 * EDGE_WORKERS} keep-alive connections, "
+                f"each equal to its payload's SHA-256, in {get_s:.3f} s "
+                f"({len(needles) / get_s:.1f} req/s); the lead's launches {launches}, its "
+                f"ServeStats {st0} -> {st1}; connections accepted and CPU seconds by pid "
+                f"(lead first) { {p: (len(accepts.seen[p]), round(cpu1[p] - cpu0[p], 2)) for p in group} }; "
+                f"libcuda/libtorch mapped by pid {maps}; nvidia-smi compute apps before the "
+                f"arm {apps0}, now {apps1}")
+            if any(any(m.values()) for pid, m in maps.items() if pid != lead.pid):
+                raise AssertionError(f"edge: a worker process maps the card's libraries {maps}")
+            if not delta["handoffs"]:
+                raise AssertionError(f"edge: the lead handed no connection off ({delta})")
+            if on_card:
+                _must_launch("edge EC GETs", launches, ("gf_apply",))
+                if len(apps1) != len(apps0) + 1:
+                    raise AssertionError(f"edge: nvidia-smi lists {apps1} after the EC GETs, "
+                                         f"{apps0} before the serving group started")
+            runs["edge_ec"] = {"wall_s": get_s, "launches": launches, "sigs": {},
+                               "encode_s": enc_s, "serve_stats": delta,
+                               "needles": len(needles)}
+            stop([f"{arm}-volume", f"{arm}-master"])
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        for name, p in procs.items():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            if name not in rcs:
+                try:
+                    rcs[name] = p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rcs[name] = p.wait(10)
+    arms = [runs[f"edge_{a}"]["bench"] for a, _, _ in EDGE_ARMS]
+    log(f"edge arms side by side on {card} (threaded / C loop / C loop with {EDGE_WORKERS} "
+        f"workers): write req/s " + " / ".join(f"{a['write']['req_s']:.2f}" for a in arms)
+        + "; write p50/p99 ms " + " / ".join(f"{a['write']['p50_ms']:.1f}/"
+                                             f"{a['write']['p99_ms']:.1f}" for a in arms)
+        + "; read req/s " + " / ".join(f"{a['read']['req_s']:.2f}" for a in arms)
+        + "; read p50/p99 ms " + " / ".join(f"{a['read']['p50_ms']:.1f}/"
+                                            f"{a['read']['p99_ms']:.1f}" for a in arms)
+        + f"; SIGTERM exit codes {rcs}; the phase took "
+        f"{time.perf_counter() - phase_t0:.1f} s")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -3978,10 +4510,12 @@ def main() -> int:
     log(f"device: {name}, count {count}, nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    _build.build(_build.CUDA_SOURCES + ("crc32c.c", "gf256.c"))
-    log(f"built {_build.CUDA_SOURCES}, the host CRC shim and the native GF(2^8) codec in "
-        f"{time.perf_counter() - t0:.2f} s; host {host_line()}")
+    smoke_t0 = t0 = time.perf_counter()
+    _build.build(_build.CUDA_SOURCES + ("crc32c.c", "gf256.c") + tuple(_build.EXT_MODULES))
+    log(f"built {_build.CUDA_SOURCES}, the host CRC shim, the native GF(2^8) codec and the "
+        f"CPython extensions {tuple(_build.EXT_MODULES)} (the needle codec with the one-pass "
+        f"POST, the epoll serving core) in {time.perf_counter() - t0:.2f} s; host "
+        f"{host_line()}")
     for line in ptxas_summary(_build.build_logs) or ["none: every library was already built"]:
         log(f"  ptxas {line}")
 
@@ -4032,43 +4566,30 @@ def main() -> int:
         f"({time.perf_counter() - t0:.2f} s)")
 
     root = "/dev/shm" if os.path.isdir("/dev/shm") else None
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
-    try:
-        runs = run_main_path(workdir, args.volume_mib << 20, args.seed, None, card)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=root)
-    try:
-        runs.update(run_store_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_server_", dir=root)
-    try:
-        runs.update(run_server_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_cluster_", dir=root)
-    try:
-        runs.update(run_cluster_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_admin_", dir=root)
-    try:
-        runs.update(run_admin_phase(workdir, STORE_BYTES, BATCH_VOLUMES, BATCH_VOLUME_BYTES,
-                                    args.seed, None, card, smi))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=root)
-    try:
-        runs.update(run_cli_phase(workdir, STORE_BYTES, args.seed, None, card, smi))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_batch_", dir=root)
-    try:
-        runs.update(run_batch_phase(workdir, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
-                                    None, card))
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    # phases 3-4, each in a fresh directory of its own, timed
+    phases = (
+        ("3 main path", lambda w: run_main_path(w, args.volume_mib << 20, args.seed, None, card)),
+        ("3c store", lambda w: run_store_phase(w, STORE_BYTES, args.seed, None, card, smi)),
+        ("3d server", lambda w: run_server_phase(w, STORE_BYTES, args.seed, None, card, smi)),
+        ("3e cluster", lambda w: run_cluster_phase(w, CUT_BYTES, args.seed, None, card, smi)),
+        ("3f admin", lambda w: run_admin_phase(w, CUT_BYTES, BATCH_VOLUMES, BATCH_VOLUME_BYTES,
+                                               args.seed, None, card, smi)),
+        ("3g cli", lambda w: run_cli_phase(w, CUT_BYTES, args.seed, None, card, smi)),
+        ("3h edge", lambda w: run_edge_phase(w, args.seed, None, card, smi)),
+        ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
+                                              None, card)),
+    )
+    runs: dict = {}
+    walls = {"1-2 device and kernels": time.perf_counter() - smoke_t0}
+    for phase, run_phase in phases:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
+        t0 = time.perf_counter()
+        try:
+            runs.update(run_phase(workdir))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        walls[phase] = time.perf_counter() - t0
+    log(f"phase walls (s) on {card}: { {k: round(v, 1) for k, v in walls.items()} }")
     log(f"encode and rebuild walls on {card}: through the server's verbs "
         f"{runs['server_encode']['wall_s']:.4f} / {runs['server_rebuild4']['wall_s']:.4f} s, "
         f"direct ec_files calls of the store phase {runs['store_encode']['wall_s']:.4f} / "
@@ -4086,7 +4607,7 @@ def main() -> int:
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
-             "batch_encode", "batch_rebuild", "batch_verify")
+             "edge_ec", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -4095,7 +4616,8 @@ def main() -> int:
         f"with and without the tile cache and rack-gather rebuild, the shell's ec.encode, "
         f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, the command "
         f"line's ec.encode, scrub sweeps and scheduled repair in the servers' processes "
-        f"and the verify core in this one, batch encode, rebuild and verify) on {card}: "
+        f"and the verify core in this one, the serving edge's EC GETs on a -workers lead, "
+        f"batch encode, rebuild and verify) on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]

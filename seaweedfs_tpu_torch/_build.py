@@ -6,14 +6,19 @@ Every source under ``csrc/`` is compiled into ``_build/`` (listed in
   *.cu  ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
         into a shared library with a plain C interface (no PyTorch
         headers: that build takes minutes, this one seconds);
-  *.c   the host shims, with the system C compiler.
+  *.c   the host shims, with the system C compiler; those named in
+        EXT_MODULES are CPython extensions (the needle codec with the
+        one-pass POST, and the epoll serving core), built against the
+        running interpreter's headers.
 
-Libraries are loaded with ctypes. An artifact's name carries a digest
-of its source (with the shared ``*.cuh`` headers) and flags, so an
-edited source is never served stale code, and it is published by
-rename, so concurrent test workers that build the same source race
-harmlessly. A failed build raises: there is no fallback to a plain
-version behind the caller's back.
+Plain libraries are loaded with ctypes (`load`), extensions imported
+from their file (`load_ext`). An artifact's name carries a digest of
+its source, of every file it reaches through ``#include "..."``, and of
+its flags, so an edited source or header is never served stale code,
+and it is published by rename, so concurrent test workers that build
+the same source race harmlessly. A failed build raises RuntimeError
+carrying the compiler's output: there is no fallback to a plain version
+behind the caller's back.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,9 +43,16 @@ NVCC_FLAGS = (
 CC_FLAGS = ("-O2", "-shared", "-fPIC", "-Wall", "-Wextra", "-Werror")
 
 CUDA_SOURCES = ("gf_apply.cu", "gf_verify.cu", "crc32c_rows.cu", "gf_bits.cu")
+# CPython extension sources → the module name their PyInit_ declares
+EXT_MODULES = {"needle_ext.c": "_needle_ext", "serve_ext.c": "_serve_ext"}
+# the host C compilers tried, in order
+COMPILERS = ("cc", "gcc", "clang")
+
+_INCLUDE_RE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_exts: dict[str, object] = {}
 # compiler output per source (ptxas register/shared-memory report)
 build_logs: dict[str, str] = {}
 
@@ -56,24 +69,51 @@ def _nvcc() -> str:
 
 
 def _cc() -> str:
-    for name in ("cc", "gcc", "clang"):
+    for name in COMPILERS:
         found = shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no C compiler found: the host CRC shim cannot be built")
+    raise RuntimeError(
+        f"no C compiler found (tried {', '.join(COMPILERS)}): the host "
+        "shims cannot be built"
+    )
+
+
+def _python_includes() -> tuple[str, ...]:
+    import sysconfig
+
+    paths = sysconfig.get_paths()
+    return tuple(dict.fromkeys((paths["include"], paths["platinclude"])))
+
+
+def _include_closure(src: str) -> list[str]:
+    """`src` and every csrc file it reaches through `#include "..."`,
+    in first-reached order (a missing file is left to the compiler)."""
+    seen: list[str] = []
+    todo = [src]
+    while todo:
+        name = todo.pop(0)
+        path = os.path.join(CSRC, name)
+        if name in seen or not os.path.exists(path):
+            continue
+        seen.append(name)
+        with open(path, "rb") as f:
+            text = f.read()
+        todo.extend(m.group(1).decode() for m in _INCLUDE_RE.finditer(text))
+    return seen
 
 
 def _command(src: str) -> tuple[list[str], str]:
     path = os.path.join(CSRC, src)
-    with open(path, "rb") as f:
-        body = f.read()
+    body = b""
+    for name in _include_closure(src):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            body += name.encode() + b"\0" + f.read()
     if src.endswith(".cu"):
         tool, flags = _nvcc(), NVCC_FLAGS
-        # the shared headers are part of every CUDA source's digest
-        for name in sorted(os.listdir(CSRC)):
-            if name.endswith(".cuh"):
-                with open(os.path.join(CSRC, name), "rb") as f:
-                    body += f.read()
+    elif src in EXT_MODULES:
+        tool = _cc()
+        flags = CC_FLAGS + tuple(f"-I{i}" for i in _python_includes())
     else:
         tool, flags = _cc(), CC_FLAGS
     digest = hashlib.sha256(body + " ".join(flags).encode()).hexdigest()[:16]
@@ -120,6 +160,29 @@ def load(src: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[src] = ctypes.CDLL(build((src,))[src])
         return lib
+
+
+def load_ext(src: str):
+    """The CPython extension module built from csrc/`src` (built on
+    first use, imported from its artifact; EXT_MODULES names it).
+    Raises RuntimeError carrying the compiler's or loader's message."""
+    mod = _exts.get(src)
+    if mod is not None:
+        return mod
+    with _lock:
+        mod = _exts.get(src)
+        if mod is None:
+            import importlib.util
+
+            path = build((src,))[src]
+            try:
+                spec = importlib.util.spec_from_file_location(EXT_MODULES[src], path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+            except (ImportError, OSError) as e:
+                raise RuntimeError(f"{src}: the built extension cannot be loaded: {e}") from e
+            _exts[src] = mod
+        return mod
 
 
 def check(err: int, what: str) -> None:

@@ -6,18 +6,21 @@ seaweedfs_tpu/command/servers.py.
 
 `master`, `volume`, `server` (master + volume server in one process)
 and `shell` run on the port's servers, whose EC paths run on the card
-unless `-ec.codec` names a host codec. What needs a plane the port does
-not have yet exits 2 naming its ROADMAP item: `filer`, `s3`, `webdav`
-and `mount`, and `server`'s -filer/-s3/-webdav (item 11); the
-`volume.worker` processes of `-workers N` (item 8); the telemetry
-collector, `-telemetryInterval` > 0 (item 13, so a master started from
-the command line passes -telemetryInterval 0); and the disk-fault shim
-that WEED_CHAOS_DISK arms (item 14)."""
+unless `-ec.codec` names a host codec. `volume -workers N` adds N-1
+`volume.worker` processes on the same port (SO_REUSEPORT) that serve
+plain reads from disk and never touch the card; with `-shardWrites`
+they also own the writes of their share of the volumes. What needs a
+plane the port does not have yet exits 2 naming its ROADMAP item:
+`filer`, `s3`, `webdav` and `mount`, and `server`'s -filer/-s3/-webdav
+(item 11); the telemetry collector, `-telemetryInterval` > 0 (item 13,
+so a master started from the command line passes -telemetryInterval 0);
+and the disk-fault shim that WEED_CHAOS_DISK arms (item 14)."""
 
 from __future__ import annotations
 
 import argparse
 import signal
+import subprocess
 import threading
 
 from seaweedfs_tpu_torch.command import Command, Waiting, register
@@ -175,6 +178,25 @@ def _add_admission_flags(p: argparse.ArgumentParser) -> None:
         "-serveProcs/-workers > 1; empty with a single process = the "
         "in-process bucket",
     )
+
+
+def _admission_shm_path(args, group_size: int, port: int) -> str:
+    """Resolve the shared admission bucket file for a multi-process
+    port group: the operator's -admissionShmPath wins; otherwise one is
+    auto-created per (port, lead pid) so every sibling the lead spawns
+    attaches to the same bucket while two independent clusters on one
+    host never collide. Single-process groups (or rate 0) keep the
+    in-process bucket — no file, no mmap."""
+    if args.admissionShmPath:
+        return args.admissionShmPath
+    if args.admissionRate > 0 and group_size > 1:
+        import os
+        import tempfile
+
+        return os.path.join(
+            tempfile.gettempdir(), f"weed-adm-{port}-{os.getpid()}.tb"
+        )
+    return ""
 
 
 def _apply_trace_flags(args) -> None:
@@ -493,12 +515,22 @@ class VolumeCommand(Command):
         maxes = [int(m) for m in args.max.split(",")]
         if len(maxes) == 1:
             maxes = maxes * len(dirs)
-        if args.workers > 1:
-            raise NotImplementedError(
-                "-workers > 1 needs server/volume_workers.py, not ported "
-                "yet (ROADMAP item 8)"
-            )
         _configure_tls("volume")
+        workers = max(1, args.workers)
+        internal_port = 0
+        if workers > 1:
+            # loopback listener the read workers proxy through; +20000
+            # mirrors the gRPC +10000 convention, wrapping below the
+            # ephemeral range when the public port sits too high
+            internal_port = args.port + 20000
+            if internal_port > 65535:
+                internal_port = args.port - 20000
+            if not 0 < internal_port <= 65535:
+                print(f"volume: no usable internal port for -port {args.port}")
+                return 1
+        guard = _load_guard()
+        shard_writes = args.shardWrites and workers > 1
+        admission_shm = _admission_shm_path(args, workers, args.port)
         server = VolumeServer(
             dirs,
             host=args.ip,
@@ -510,10 +542,14 @@ class VolumeCommand(Command):
             max_volume_counts=maxes,
             heartbeat_interval=args.heartbeat,
             read_redirect=args.readRedirect,
-            guard=_load_guard(),
+            guard=guard,
             ec_codec=args.ec_codec,
             storage_backends=load_config("master").sub("storage.backend"),
             needle_map_kind=args.index,
+            reuse_port=workers > 1,
+            internal_port=internal_port,
+            shard_writes=shard_writes,
+            n_writers=workers if shard_writes else 1,
             scrub_interval=args.scrubInterval,
             scrub_rate_mb_s=args.scrubRate,
             serve_idle_ms=args.serveIdleMs,
@@ -525,36 +561,92 @@ class VolumeCommand(Command):
             admission_rate=args.admissionRate,
             admission_burst=args.admissionBurst,
             admission_inflight=args.admissionInflight,
-            admission_procs=args.admissionProcs or 1,
-            admission_shm_path=args.admissionShmPath,
+            # the read workers enforce admission too: with a shm path
+            # all of them charge ONE shared bucket (global rate under
+            # any connection spread); without one the group divides
+            # the per-client budget by its size — the legacy
+            # -serveProcs sibling convention
+            admission_procs=args.admissionProcs or workers,
+            admission_shm_path=admission_shm,
             announce=args.announce,
         )
         from seaweedfs_tpu_torch.util.profiling import CpuProfile
 
         with CpuProfile(args.cpuprofile):
             server.start()
+            procs = []
+            if workers > 1:
+                from seaweedfs_tpu_torch.server.volume_workers import spawn_read_workers
+
+                procs = spawn_read_workers(
+                    workers - 1,
+                    dirs,
+                    args.ip,
+                    args.port,
+                    f"127.0.0.1:{internal_port}",
+                    shard_writes=shard_writes,
+                    n_writers=workers,
+                    master=args.mserver,
+                    internal_base=internal_port,
+                    admission_rate=args.admissionRate,
+                    admission_burst=args.admissionBurst,
+                    admission_inflight=args.admissionInflight,
+                    admission_procs=args.admissionProcs or workers,
+                    admission_shm_path=admission_shm,
+                    commit_window_us=args.commitWindowUs,
+                    commit_bytes=args.commitBytes,
+                    commit_batch=args.commitBatch,
+                    commit_fsync=args.commitFsync,
+                )
             wlog.info(
-                "volume server %s:%d -> master %s",
-                args.ip, args.port, args.mserver,
+                "volume server %s:%d -> master %s (%d worker(s))",
+                args.ip, args.port, args.mserver, workers,
             )
-            drained = False
+            drained, rc = False, 1
             try:
                 rc, drained = _wait_with_drain()
-                return rc
             finally:
                 if drained:
                     # SIGTERM = graceful drain (docs/HEALTH.md): stop
-                    # taking assignments, finish in-flight, deregister
+                    # taking assignments, finish in-flight, deregister.
+                    # Workers are terminated AFTER the drain window so
+                    # their in-flight reads finish while the master
+                    # learns of the drain — killing them first would
+                    # break the finish-in-flight contract for most of
+                    # the read traffic.
                     server.drain()
+                    for pr in procs:
+                        pr.terminate()
                 else:
+                    for pr in procs:
+                        pr.terminate()
                     server.stop()
+                # the lead outlives its workers: each is reaped, and one
+                # that does not end cleanly fails the lead's exit code
+                for pr in procs:
+                    try:
+                        if pr.wait(timeout=30):
+                            rc = 1
+                    except subprocess.TimeoutExpired:
+                        pr.kill()
+                        pr.wait()
+                        rc = 1
+                if admission_shm and not args.admissionShmPath:
+                    # auto-created bucket file: best-effort removal
+                    # (attached mmaps keep working; a crashed lead just
+                    # leaves a 8KiB tmp file behind)
+                    import contextlib
+                    import os
+
+                    with contextlib.suppress(OSError):
+                        os.unlink(admission_shm)
+            return rc
 
 
 @register
-class VolumeWorkerCommand(Waiting):
+class VolumeWorkerCommand(Command):
     name = "volume.worker"
     help = "internal: one SO_REUSEPORT read worker (spawned by volume -workers N)"
-    item = 8
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-ip", default="127.0.0.1", help="bind address")
@@ -611,6 +703,43 @@ class VolumeWorkerCommand(Waiting):
             "-v", type=int, default=0,
             help="log verbosity (0=warning .. 3=trace)",
         )
+
+    def run(self, args) -> int:
+        from seaweedfs_tpu_torch.server.volume_workers import VolumeReadWorker
+
+        wlog.set_verbosity(args.v)
+        _apply_trace_flags(args)
+        worker = VolumeReadWorker(
+            args.dir.split(","),
+            host=args.ip,
+            port=args.port,
+            lead=args.lead,
+            worker_port=args.workerPort,
+            shard_writes=args.shardWrites,
+            writer_index=args.writerIndex,
+            n_writers=args.writers,
+            master=args.mserver,
+            internal_port=args.internalPort,
+            # same security.toml as the lead: sharded local writes
+            # enforce the identical JWT/white-list gate
+            guard=_load_guard(),
+            admission_rate=args.admissionRate,
+            admission_burst=args.admissionBurst,
+            admission_inflight=args.admissionInflight,
+            # spawn passes the group size explicitly; a bare-launched
+            # worker defaults to enforcing the full budget alone
+            admission_procs=args.admissionProcs or 1,
+            admission_shm_path=args.admissionShmPath,
+            commit_window_us=args.commitWindowUs,
+            commit_bytes=args.commitBytes,
+            commit_batch=args.commitBatch,
+            commit_fsync=args.commitFsync,
+        )
+        worker.start()
+        try:
+            return _wait_forever()
+        finally:
+            worker.stop()
 
 
 @register

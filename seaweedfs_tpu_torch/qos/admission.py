@@ -13,11 +13,13 @@ requests pass through, including connections the C epoll loop hands
 off — so shed requests still get spans, status-labelled request
 counters, and correct keep-alive accounting for free.
 
-`-serveProcs` process groups: each sibling runs its own controller at
-rate/N — exact only when the kernel spreads connections uniformly
-across SO_REUSEPORT listeners. The reference's shared-memory bucket
-(`shm_path`, native/serve.c weed_shm_admit) waits for the C serving
-core (ROADMAP item 5).
+`-serveProcs` process groups: with `shm_path` set, every sibling
+charges ONE shared-memory GCRA bucket per client key (mmap'd file,
+lock-free CAS — csrc/serve.c weed_shm_admit), so the GLOBAL rate
+holds under arbitrarily skewed connection spread, and the C epoll
+loop sheds over-budget requests without leaving C. Without it, each
+sibling runs its own controller at rate/N — exact only when the
+kernel spreads connections uniformly across SO_REUSEPORT listeners.
 """
 
 from __future__ import annotations
@@ -62,17 +64,33 @@ class AdmissionController:
         shm_path: str = "",
     ):
         procs = max(1, procs)
-        # The reference's shared-bucket mode (one mmap'd GCRA bucket per
-        # client key for every -serveProcs/-workers sibling) lives in the
-        # C serving core, which is not ported yet (ROADMAP item 5).
-        if shm_path:
-            raise NotImplementedError(
-                "admission shm_path: the shared admission bucket needs the "
-                "C serving core (ROADMAP item 5)"
+        # shared-bucket mode: every `-serveProcs`/`-workers`
+        # sibling charges ONE mmap'd GCRA bucket per client key, so the
+        # GLOBAL rate holds even when the kernel parks every connection
+        # on one listener. No rate/N split; the in-flight cap stays
+        # process-local (queue length is a per-process resource). The
+        # C epoll loop enforces the same bucket natively when it serves
+        # a request without handing off. A bucket that cannot be
+        # attached raises: a quiet per-process split would let the
+        # group admit N times the configured rate.
+        self.shared = False
+        self.shm_path = shm_path
+        if shm_path and rate > 0:
+            from seaweedfs_tpu_torch.util import native_serve
+
+            self.shared = native_serve.admission_shm_attach(
+                shm_path,
+                rate,
+                max(rate, burst or 2.0 * rate),
+                retry_after_s,
             )
-        # per-process share of the GLOBAL per-client budget
-        self.rate = rate / procs
-        self.burst = max(self.rate, (burst or 2.0 * rate) / procs)
+        if self.shared:
+            self.rate = rate
+            self.burst = max(rate, burst or 2.0 * rate)
+        else:
+            # per-process share of the GLOBAL per-client budget
+            self.rate = rate / procs
+            self.burst = max(self.rate, (burst or 2.0 * rate) / procs)
         self.max_inflight = max_inflight
         self.label = label
         self.retry_after_s = retry_after_s
@@ -108,7 +126,17 @@ class AdmissionController:
                 self.rejected += 1
                 ADMISSION_REJECTED.labels(self.label).inc()
                 return self.retry_after_s, False
-            if self.rate > 0:
+            if self.shared:
+                from seaweedfs_tpu_torch.util import native_serve
+
+                # one CAS against the mmap'd bucket all siblings share;
+                # the retry value already carries the retry_after floor
+                retry = native_serve.admission_shm_admit(key)
+                if retry > 0.0:
+                    self.rejected += 1
+                    ADMISSION_REJECTED.labels(self.label).inc()
+                    return retry, False
+            elif self.rate > 0:
                 tokens, ts = self._buckets.get(key, (self.burst, now))
                 tokens = min(self.burst, tokens + (now - ts) * self.rate)
                 if tokens < 1.0:
@@ -173,6 +201,6 @@ class AdmissionController:
                 "Inflight": self._inflight,
                 "Clients": len(self._buckets),
                 "Rejected": self.rejected,
-                "Shared": False,
-                "ShmPath": "",
+                "Shared": self.shared,
+                "ShmPath": self.shm_path if self.shared else "",
             }

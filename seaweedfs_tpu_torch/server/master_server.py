@@ -1390,6 +1390,8 @@ class MasterServer:
             t = threading.Thread(target=loop, daemon=True)
             t.start()
             self._threads.append(t)
+        # a serve loop that could not arm raises here, not later
+        self._http_server.wait_armed()
         if self.repair is not None:
             self.repair.start()
         if self.tier is not None:

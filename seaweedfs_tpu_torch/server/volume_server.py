@@ -19,20 +19,28 @@ reads use, and a localized corrupt shard is quarantined. The tier verbs
 move a volume's .dat, and /tier/move an EC volume's shards, to a
 storage backend and back.
 
+The HTTP listener runs the C epoll serving core (csrc/serve.c through
+util/native_serve): a plain GET/HEAD of a needle in a local volume is
+answered from C through `_make_fast_resolver` (one pread, or a sendfile
+from a dup'd fd), and everything else — EC reads and their decodes on
+the card included — is handed off to a thread on the threaded mini
+loop. A POST takes the one-pass C path (csrc/post.c, through
+write_path.try_native_post) unless group commit is installed or the
+request needs the Python path. WEED_NATIVE_SERVE=0 and WEED_NATIVE_POST=0
+select the reference's byte-identical threaded and Python arms. With
+`internal_port` the server also listens on loopback for its -workers
+read processes (server/volume_workers.py), and with `shard_writes` it
+shares the writes of its volumes with them by vid.
+
 What needs a part of the reference that the port does not have yet
 raises NotImplementedError naming its ROADMAP item, at construction for
 a parameter and at the call for a verb; it never silently does less:
-the -workers internal listener and write sharding (item 8) and Query
-(item 11). The
-batch EC verbs run the batch arm (K2, with K4 fused into the encode) on
-a one-device mesh of `device`; VolumeCopy and the tail verbs pull from
-a peer over gRPC. The hinted-handoff spool waits for item 10: until
-then a replica's failure fails the write (the reference's
-WEED_HANDOFF=0 contract), so no write is acknowledged with fewer
-copies than its placement asks for. The
-reference's C serving core and C POST path wait for items 5 and 8:
-requests run on the threaded mini loop and the Python write path, the
-reference's own byte-identical arms.
+the s3 storage backend and Query (item 11). The batch EC verbs run the
+batch arm (K2, with K4 fused into the encode) on a one-device mesh of
+`device`; VolumeCopy and the tail verbs pull from a peer over gRPC. The
+hinted-handoff spool waits for item 10: until then a replica's failure
+fails the write (the reference's WEED_HANDOFF=0 contract), so no write
+is acknowledged with fewer copies than its placement asks for.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from seaweedfs_tpu_torch import qos, trace
 from seaweedfs_tpu_torch.scrub.arbiter import get_arbiter
 from seaweedfs_tpu_torch.stats.metrics import VOLUME_READS
 from seaweedfs_tpu_torch.util import deadline as _op_deadline
+from seaweedfs_tpu_torch.util import native_serve as _native_serve
 from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.ec import ec_files
 from seaweedfs_tpu_torch.ec.ec_volume import NotEnoughShards
@@ -113,6 +122,212 @@ def _parse_manifest_chunks(data: bytes) -> list[dict] | None:
         return None
 
 
+def make_needle_plan_core():
+    """Build the per-needle fast-path plan closure shared by the lead's
+    resolver and every worker's — ONE implementation
+    of "map a live needle record to a pre-rendered response", so the
+    lead, the SO_REUSEPORT read workers, and the threaded do_GET arm
+    can never drift apart on bytes.
+
+    plan(v, fid, rng, head_only, gen, cacheable) takes a storage
+    Volume `v` whose map view the caller has already refreshed, and
+    returns:
+
+      None          decline — semantics only the threaded handler has
+                    (gzip/ttl/pairs/manifest flags, torn records,
+                    .idx/.dat disagreement, remote-tier volumes)
+      ("notfound",) missing/tombstoned needle — the caller maps it to
+                    ITS 404 body (lead: empty, workers: JSON)
+      ("cookie",)   cookie mismatch; distinct because the workers'
+                    threaded arm serves a different 404 body for it
+                    (the lead serves the same empty 404 for both)
+      ("plan", t)   a widened 10-tuple (status, prefix, body, fd, off,
+                    count, etag, prefix304, gen, cacheable) ready for
+                    the C loop: etag/prefix304 let it answer
+                    If-None-Match with a 304, gen/cacheable feed the
+                    fd/offset plan cache
+
+    Eligibility is wide: name/mime/last-modified flagged
+    needles render Content-Type / Content-Disposition / Last-Modified
+    exactly as do_GET does for a bare /<vid>,<fid> URL (no query
+    string reaches here, so dl= and resize params can't)."""
+    import os as _os
+    from mimetypes import types_map as _types_map
+    from os.path import splitext as _splitext
+
+    from seaweedfs_tpu_torch.storage import types as t
+    from seaweedfs_tpu_torch.storage.needle import (
+        FLAG_HAS_LAST_MODIFIED_DATE as _F_LM,
+        FLAG_HAS_MIME as _F_MIME,
+        FLAG_HAS_NAME as _F_NAME,
+        get_actual_size as _actual_size,
+    )
+    from seaweedfs_tpu_torch.util.crc import crc32c as _crc32c, masked_value as _masked
+    from seaweedfs_tpu_torch.util.http_range import (
+        RangeNotSatisfiable,
+        parse_range,
+    )
+    from seaweedfs_tpu_torch.util.httpd import reply_prefix
+
+    tomb = t.TOMBSTONE_FILE_SIZE
+    pread = _os.pread
+    dup = _os.dup
+    # records at or under this take the one-pread in-memory path
+    # (CRC verified, no fd duplication); larger go sendfile
+    small = 65536
+    octet_prefix = b"application/octet-stream"
+    allowed = _F_NAME | _F_MIME | _F_LM
+    prefix_304 = reply_prefix(304)
+
+    def plan(v, fid, rng, head_only, gen, cacheable):
+        with v._lock:
+            fd = v._fd
+            if fd is None:
+                return None  # remote-tier volume
+            nv = v.nm.get(fid.key)
+            if nv is None or nv.offset == 0 or nv.size == tomb:
+                return ("notfound",)
+            size = nv.size
+            if size < 5:
+                return None  # v2/v3 body is at least data_size+flags
+            off0 = nv.actual_offset
+            rec_len = _actual_size(size, v.version)
+            body_fd = -1
+            if rec_len <= small:
+                blob = pread(fd, rec_len, off0)
+                if len(blob) < 20 + size + 4:
+                    return None  # torn record: Python raises loudly
+            else:
+                blob = pread(fd, 20, off0)
+                if len(blob) < 20:
+                    return None
+                body_fd = fd  # dup'd below once the record checks out
+            if blob[12:16] != size.to_bytes(4, "big"):
+                return None  # .idx/.dat disagree: Python path decides
+            if int.from_bytes(blob[0:4], "big") != fid.cookie:
+                return ("cookie",)  # CookieMismatch serves 404
+            data_len = int.from_bytes(blob[16:20], "big")
+            meta_len = size - 4 - data_len
+            if meta_len < 1:
+                return None
+            if body_fd < 0:
+                tail = blob[20 + data_len : 16 + size + 4]
+            else:
+                tail = pread(fd, meta_len + 4, off0 + 20 + data_len)
+                if len(tail) < meta_len + 4:
+                    return None
+            flags = tail[0]
+            if flags & ~allowed:
+                return None  # gzip/ttl/pairs/manifest
+            # incremental meta walk mirroring needle._parse_body_v2;
+            # every meta byte must be accounted for, or this record is
+            # not what the parser thinks it is
+            pos = 1
+            name = mime = b""
+            lm = 0
+            if flags & _F_NAME:
+                if pos >= meta_len:
+                    return None
+                ln = tail[pos]
+                pos += 1
+                if pos + ln > meta_len:
+                    return None
+                name = bytes(tail[pos : pos + ln])
+                pos += ln
+            if flags & _F_MIME:
+                if pos >= meta_len:
+                    return None
+                ln = tail[pos]
+                pos += 1
+                if pos + ln > meta_len:
+                    return None
+                mime = bytes(tail[pos : pos + ln])
+                pos += ln
+            if flags & _F_LM:
+                if pos + 5 > meta_len:
+                    return None
+                lm = int.from_bytes(tail[pos : pos + 5], "big")
+                pos += 5
+            if pos != meta_len:
+                return None
+            stored = int.from_bytes(tail[meta_len : meta_len + 4], "big")
+            if body_fd < 0:
+                data = blob[20 : 20 + data_len]
+                crc = _crc32c(data)
+                if _masked(crc) != stored:
+                    return None  # corrupt: the Python read raises
+            else:
+                data = None
+                # ETag is the RAW crc; the trailer stores the
+                # LevelDB-masked value — rotl17+const, so invert
+                rot = (stored - 0xA282EAD8) & 0xFFFFFFFF
+                crc = ((rot >> 17) | (rot << 15)) & 0xFFFFFFFF
+                body_fd = dup(fd)
+                # the dup keeps the CURRENT .dat alive for the
+                # sendfile even if a vacuum commit swaps the
+                # volume's fd before the response drains
+        etag = f'"{crc:08x}"'
+        headers = {"ETag": etag, "Content-Type": "application/octet-stream"}
+        # header assembly order mirrors do_GET's dict insertion for a
+        # bare fid URL: Content-Type override, Content-Disposition,
+        # Last-Modified, Accept-Ranges, then a Content-Range
+        fname = name.decode("latin-1") if name else ""
+        if mime and not mime.startswith(octet_prefix):
+            headers["Content-Type"] = mime.decode("latin-1")
+        elif fname:
+            ext = _splitext(fname)[1]
+            guessed = _types_map.get(ext.lower()) if ext else None
+            if guessed:
+                headers["Content-Type"] = guessed
+        if fname:
+            escaped = fname.replace("\\", "\\\\").replace('"', '\\"')
+            headers["Content-Disposition"] = f'inline; filename="{escaped}"'
+        if flags & _F_LM:
+            headers["Last-Modified"] = _http_date(lm)
+        headers["Accept-Ranges"] = "bytes"
+        etag_b = etag.encode()
+        if rng:
+            try:
+                span = parse_range(rng.strip(), data_len)
+            except RangeNotSatisfiable:
+                if body_fd >= 0:
+                    _os.close(body_fd)
+                return ("plan", (
+                    416,
+                    reply_prefix(
+                        416, {"Content-Range": f"bytes */{data_len}"}
+                    ),
+                    b"", -1, 0, 0,
+                    etag_b, prefix_304, gen, 0,
+                ))
+            if span is not None:
+                start, end = span
+                headers["Content-Range"] = f"bytes {start}-{end}/{data_len}"
+                if data is not None:
+                    return ("plan", (
+                        206, reply_prefix(206, headers),
+                        data[start : end + 1], -1, 0, 0,
+                        etag_b, prefix_304, gen, 0,
+                    ))
+                return ("plan", (
+                    206, reply_prefix(206, headers), None,
+                    body_fd, off0 + 20 + start, end - start + 1,
+                    etag_b, prefix_304, gen, 0,
+                ))
+        if data is not None:
+            return ("plan", (
+                200, reply_prefix(200, headers), data, -1, 0, 0,
+                etag_b, prefix_304, gen, cacheable,
+            ))
+        return ("plan", (
+            200, reply_prefix(200, headers), None,
+            body_fd, off0 + 20, data_len,
+            etag_b, prefix_304, gen, cacheable,
+        ))
+
+    return plan
+
+
 class VolumeServer:
     def __init__(
         self,
@@ -150,20 +365,9 @@ class VolumeServer:
         admission_shm_path: str = "",
         announce: str = "",
         device=None,
+        native_serve: bool = True,
     ):
         # the planes the port does not have yet refuse up front
-        if internal_port or shard_writes:
-            raise NotImplementedError(
-                "internal_port / shard_writes: the -workers processes are "
-                "not ported yet (ROADMAP item 8)"
-            )
-        # more writer processes: a value other than the reference's
-        # default is refused, not ignored
-        if n_writers != 1:
-            raise NotImplementedError(
-                f"n_writers={n_writers!r} needs the -workers processes, "
-                "not ported yet (ROADMAP item 8)"
-            )
         if storage_backends and "s3" in storage_backends:
             raise NotImplementedError(
                 "storage backend s3: the s3api client is not ported yet "
@@ -178,6 +382,9 @@ class VolumeServer:
         # enc.ReconstructData).
         self.ec_codec = ec_codec or None
         self.device = device
+        # False pins this server's listeners to the threaded mini loop
+        # (the per-server arm of WEED_NATIVE_SERVE=0)
+        self.native_serve = native_serve
         if storage_backends:
             # remote-tier backends (storage.backend config tree; the
             # reference ships this from master config in heartbeats,
@@ -239,9 +446,22 @@ class VolumeServer:
         self._grpc_pool: futures.ThreadPoolExecutor | None = None
         self._profiling = False
         self._http_server: WeedHTTPServer | None = None
-        # SO_REUSEPORT on the public listener (the reference's -workers
-        # read processes share the port through it)
+        # -workers mode (server/volume_workers.py): SO_REUSEPORT on the
+        # public listener so read-worker processes can share the port,
+        # plus a loopback internal listener the workers proxy through
         self.reuse_port = reuse_port
+        self.internal_port = internal_port
+        self._internal_server: WeedHTTPServer | None = None
+        # -shardWrites: volume-ownership write sharding across the
+        # -workers processes. Writer k of n_writers owns vids with
+        # vid % n_writers == k (lead is writer 0) and is the ONLY
+        # process that appends those volumes' .dat/.idx — the
+        # single-writer-per-volume invariant the reference enforces
+        # in-process (volume_read_write.go:66), partitioned across
+        # processes. Ownership of a vid reverts permanently to the
+        # lead (self._shard_taken) before any file-rewriting admin op
+        # — vacuum, EC encode, readonly, delete — via _ensure_owned's
+        # release handshake with the owning worker.
         # scrub plane (docs/SCRUB.md): background integrity sweeps over
         # every local volume, rate-limited so foreground p99 survives.
         # scrub_interval <= 0 disables the engine; quarantine reporting
@@ -307,6 +527,14 @@ class VolumeServer:
                 label="volume",
                 shm_path=admission_shm_path,
             )
+        self.shard_writes = shard_writes
+        self.n_writers = max(1, n_writers)
+        self._shard_taken: set[int] = set()
+        self._shard_lock = threading.Lock()  # guards the sets/dicts only
+        # per-vid handshake locks: the release round-trip can block for
+        # seconds on a wedged worker and must not serialize takeovers
+        # (or hop-writes) of unrelated vids behind one global lock
+        self._shard_vid_locks: dict[int, threading.Lock] = {}
 
     # ------------------------------------------------------------------
     # status UI (server/volume_server_ui/templates.go role)
@@ -378,6 +606,13 @@ class VolumeServer:
                 # state to a liveness sweep or a leader change)
                 self._force_full_heartbeat.clear()
                 last_vids = None
+            if self.shard_writes:
+                # worker-owned volumes: fold the owners' appended .idx
+                # entries in so file counts ride the beat accurately
+                for loc in self.store.locations:
+                    for vid, v in list(loc.volumes.items()):
+                        if self._shard_is_foreign(vid):
+                            v.refresh_from_idx()
             hb = self.store.collect_heartbeat()
             req = master_pb2.HeartbeatRequest(
                 ip=self.announce_host,
@@ -579,20 +814,24 @@ class VolumeServer:
         return pb.AllocateVolumeResponse()
 
     def VolumeDelete(self, req: pb.VolumeDeleteRequest, context):
+        self._ensure_owned(req.volume_id)
         self.store.delete_volume(req.volume_id)
         return pb.VolumeDeleteResponse()
 
     def VolumeMount(self, req, context):
+        self._ensure_owned(req.volume_id)
         if not self.store.mount_volume(req.volume_id):
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
         return pb.VolumeMountResponse()
 
     def VolumeUnmount(self, req, context):
+        self._ensure_owned(req.volume_id)
         if not self.store.unmount_volume(req.volume_id):
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
         return pb.VolumeUnmountResponse()
 
     def VolumeMarkReadonly(self, req, context):
+        self._ensure_owned(req.volume_id)
         self.store.mark_volume_readonly(req.volume_id)
         return pb.VolumeMarkReadonlyResponse()
 
@@ -642,12 +881,20 @@ class VolumeServer:
 
     # vacuum 4-phase (volume_grpc_vacuum.go)
     def VacuumVolumeCheck(self, req, context):
+        # read-only phase: an accurate garbage ratio needs the owner's
+        # appended entries folded in, NOT a permanent ownership seizure
+        # (the master's periodic sweep checks every volume — takeover
+        # here would collapse -shardWrites to lead-only in one sweep)
+        v0 = self.store.find_volume(req.volume_id)
+        if v0 is not None and self._shard_is_foreign(req.volume_id):
+            v0.refresh_from_idx()
         v = self.store.find_volume(req.volume_id)
         if v is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
         return pb.VacuumVolumeCheckResponse(garbage_ratio=v.garbage_level())
 
     def VacuumVolumeCompact(self, req, context):
+        self._ensure_owned(req.volume_id)
         v = self.store.find_volume(req.volume_id)
         if v is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
@@ -655,6 +902,7 @@ class VolumeServer:
         return pb.VacuumVolumeCompactResponse()
 
     def VacuumVolumeCommit(self, req, context):
+        self._ensure_owned(req.volume_id)
         v = self.store.find_volume(req.volume_id)
         if v is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
@@ -662,6 +910,7 @@ class VolumeServer:
         return pb.VacuumVolumeCommitResponse()
 
     def VacuumVolumeCleanup(self, req, context):
+        self._ensure_owned(req.volume_id)
         v = self.store.find_volume(req.volume_id)
         if v is not None:
             v.cleanup_compact()
@@ -671,6 +920,7 @@ class VolumeServer:
     def VolumeCopy(self, req: pb.VolumeCopyRequest, context):
         """Replicate a whole volume from another node by pulling its
         .dat/.idx over the CopyFile stream (volume_grpc_copy.go:25)."""
+        self._ensure_owned(req.volume_id)
         if self.store.has_volume(req.volume_id):
             context.abort(
                 grpc.StatusCode.ALREADY_EXISTS,
@@ -839,6 +1089,7 @@ class VolumeServer:
         return new_encoder(backend=self.ec_codec, device=self.device)
 
     def VolumeEcShardsGenerate(self, req, context):
+        self._ensure_owned(req.volume_id)
         v = self.store.find_volume(req.volume_id)
         if v is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"volume {req.volume_id} not found")
@@ -1344,6 +1595,7 @@ class VolumeServer:
     def VolumeEcShardsToVolume(self, req, context):
         """Decode mounted shards back into a normal volume
         (volume_grpc_erasure_coding.go:329)."""
+        self._ensure_owned(req.volume_id)
         ev = self.store.find_ec_volume(req.volume_id)
         if ev is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"ec volume {req.volume_id} not found")
@@ -1383,6 +1635,7 @@ class VolumeServer:
     def VolumeTierMoveDatToRemote(self, req, context):
         """Copy a sealed volume's .dat to a remote backend, streaming
         progress; the volume then serves reads via ranged GETs."""
+        self._ensure_owned(req.volume_id)
         v = self.store.find_volume(req.volume_id)
         if v is None:
             context.abort(
@@ -1604,6 +1857,48 @@ class VolumeServer:
             def _json(self, obj, status=200):
                 self._reply(status, json.dumps(obj).encode(), _JSON_HDR)
 
+            def _route_shard_write(self, fid, body: bytes) -> bool:
+                """-shardWrites: forward POST/DELETE for a worker-owned
+                vid to that worker's internal listener. True = replied
+                (routed); False = this process handles the write (it is
+                the owner, took ownership back, or the worker died and
+                ownership fell back here)."""
+                if not server._shard_is_foreign(fid.volume_id):
+                    return False
+                if self.headers.get("x-shard-hop"):
+                    # hop signaling is trusted from the loopback
+                    # internal listener ONLY (workers proxy through
+                    # it): honored from the public port, an anonymous
+                    # client could force _ensure_owned per vid and
+                    # strip write ownership from healthy workers
+                    if self.server is server._internal_server:
+                        # the owner could not serve this (unparsed
+                        # form, manifest cascade, mid-commit volume):
+                        # take the vid over and handle it here -
+                        # routing back would loop
+                        server._ensure_owned(fid.volume_id)
+                        return False
+                    self.headers.pop("x-shard-hop", None)
+                result = server._proxy_to_writer(
+                    server._shard_owner(fid.volume_id),
+                    self.command,
+                    self.path,
+                    body,
+                    self.headers,
+                )
+                if result is None:
+                    # dead worker: permanent takeover, then local write
+                    server._ensure_owned(fid.volume_id)
+                    return False
+                status, rheaders, data = result
+                out = {
+                    k: v
+                    for k, v in rheaders.items()
+                    if k not in ("connection", "keep-alive", "content-length")
+                }
+                self.fast_reply(status, data, out)
+                return True
+
             def _parse_fid(self):
                 """(FileId, query, filename, ext) from any of the
                 reference's addressing forms (common.go:152
@@ -1640,6 +1935,14 @@ class VolumeServer:
                         server._render_ui().encode(),
                         {"Content-Type": "text/html; charset=utf-8"},
                     )
+                if url_path == "/__shard/taken":
+                    # write-sharding control surface (workers sync the
+                    # taken-over vid list at startup) — loopback
+                    # internal listener ONLY; on the public port an
+                    # anonymous client must not even learn it exists
+                    if self.server is not server._internal_server:
+                        return self._json({"error": "not found"}, 404)
+                    return self._json(sorted(server._shard_taken))
                 if url_path == "/status":
                     from seaweedfs_tpu_torch import images
 
@@ -1679,10 +1982,9 @@ class VolumeServer:
                                 if images.resizing_enabled()
                                 else "disabled"
                             ),
-                            # C serving-edge counters: the C core is not
-                            # ported (ROADMAP item 5), so empty, as the
-                            # reference reports them without it
-                            "ServeStats": {},
+                            # C serving-edge counters: fast-path hits,
+                            # handoffs, 304s and plan-cache ratios
+                            "ServeStats": _native_serve.serve_stats(),
                         }
                     )
                 if url_path == "/scrub/status":
@@ -1794,6 +2096,7 @@ class VolumeServer:
                 try:
                     v = server.store.find_volume(fid.volume_id)
                     if v is not None:
+                        server._shard_refresh(v)
                         n = v.read_needle(fid.key, cookie=fid.cookie)
                     else:
                         ev = server.store.find_ec_volume(fid.volume_id)
@@ -2113,45 +2416,85 @@ class VolumeServer:
                 get_arbiter().note_serve()
                 length = int(self.headers.get("content-length", "0"))
                 body = self.rfile.read(length)
-                # the tracing plane's parse/assemble/crc/pwrite/reply
-                # stages, attached to the mini loop's volume.post span
-                # (handed to us as _trace_span by serve_connection). The
-                # reference's one-pass C POST loop is not ported
-                # (ROADMAP item 8); this is its byte-identical Python arm.
+                if server.shard_writes:
+                    routed = self._route_shard_write(fid, body)
+                    if routed:
+                        return
+                # one-pass C hot loop (csrc/post.c): extraction →
+                # needle → CRC → pwrite → reply bytes, GIL released;
+                # None = this request needs the Python path below
+                # (which stays byte-identical for what C handles).
+                # Both branches converge on ONE replicate-then-reply
+                # tail so the fan-out/error contract cannot drift.
+                # `stages` (tracing plane): both paths emit the same
+                # parse/assemble/crc/pwrite/reply names, attached to
+                # the mini loop's volume.post span (handed to us as
+                # _trace_span by serve_connection — reading the warm
+                # handler attr keeps trace-module objects off the hot
+                # path)
                 req_span = getattr(self, "_trace_span", None)
                 stages = {} if req_span is not None else None
-                n, fname, err = write_path.build_upload_needle(
-                    fid,
-                    q,
-                    body,
-                    self.headers,
-                    url_filename,
-                    server.fix_jpg_orientation,
-                    stages=stages,
-                )
-                if err is not None:
-                    return self._json({"error": err}, 400)
                 try:
-                    size, unchanged = server._commit_write(
-                        fid.volume_id, n, stages=stages
-                    )
-                except NeedleNotFound:
-                    return self._json({"error": "volume not found"}, 404)
-                except (VolumeReadOnly, CookieMismatch) as e:
-                    return self._json({"error": str(e)}, 409)
+                    if server.group_commit is not None:
+                        # QoS group commit (docs/QOS.md): the C one-call
+                        # append can't join a commit window (and fsync-only
+                        # mode needs the post-write flush), so the fast
+                        # path declines wholesale while a committer is
+                        # installed — the Python path below routes through
+                        # it and stays byte-identical
+                        reply = None
+                    else:
+                        reply = write_path.try_native_post(
+                            server.store.find_volume(fid.volume_id),
+                            fid,
+                            q,
+                            body,
+                            self.headers,
+                            url_filename,
+                            server.fix_jpg_orientation,
+                            stages=stages,
+                        )
                 except OSError as e:
+                    # disk watchdog (docs/HEALTH.md): an EIO/ENOSPC on
+                    # the append path strikes toward lame-duck mode and
+                    # fails THIS write loudly; anything else (deadline,
+                    # connection) keeps its existing handling
                     if not server.watchdog.note_io_error(e):
                         raise
-                    return self._json(
-                        {"error": f"write failed: {e}"}, 500
+                    return self._json({"error": f"write failed: {e}"}, 500)
+                if reply is None:
+                    n, fname, err = write_path.build_upload_needle(
+                        fid,
+                        q,
+                        body,
+                        self.headers,
+                        url_filename,
+                        server.fix_jpg_orientation,
+                        stages=stages,
                     )
-                t_reply = time.perf_counter() if stages is not None else 0.0
-                reply = (
-                    b'{"name": %s, "size": %d, "eTag": "%s"}'
-                    % (_esc_json(fname).encode(), size, n.etag().encode())
-                )
-                if stages is not None:
-                    stages["reply"] = time.perf_counter() - t_reply
+                    if err is not None:
+                        return self._json({"error": err}, 400)
+                    try:
+                        size, unchanged = server._commit_write(
+                            fid.volume_id, n, stages=stages
+                        )
+                    except NeedleNotFound:
+                        return self._json({"error": "volume not found"}, 404)
+                    except (VolumeReadOnly, CookieMismatch) as e:
+                        return self._json({"error": str(e)}, 409)
+                    except OSError as e:
+                        if not server.watchdog.note_io_error(e):
+                            raise
+                        return self._json(
+                            {"error": f"write failed: {e}"}, 500
+                        )
+                    t_reply = time.perf_counter() if stages is not None else 0.0
+                    reply = (
+                        b'{"name": %s, "size": %d, "eTag": "%s"}'
+                        % (_esc_json(fname).encode(), size, n.etag().encode())
+                    )
+                    if stages is not None:
+                        stages["reply"] = time.perf_counter() - t_reply
                 if stages:
                     req_span.add_stages(stages)
                 if q.get("type") != "replicate":
@@ -2167,6 +2510,8 @@ class VolumeServer:
                 if not self._check_write_auth():
                     return
                 if self._shed_unwritable():
+                    return
+                if server.shard_writes and self._route_shard_write(fid, b""):
                     return
                 n = Needle(cookie=fid.cookie, id=fid.key)
                 try:
@@ -2205,6 +2550,77 @@ class VolumeServer:
                 self._json({"size": size}, 202)
 
         return Handler
+
+    # ------------------------------------------------------------------
+    # zero-copy GET fast path the C epoll loop calls
+    # this resolver for plain GET/HEAD requests; it maps a bare
+    # /<vid>,<fid> path to a pre-formatted response the loop finishes
+    # without ever entering do_GET — small records from one pread (CRC
+    # verified), large ones zero-copy via sendfile from a dup'd fd.
+    # Anything with richer semantics (query params, filename/extension
+    # segments, EC volumes, redirects, gzip/name/mime/ttl/pairs/
+    # chunk-manifest needles, conditional headers — those never reach
+    # here, the C loop hands them off) returns None and the request
+    # takes the threaded Python path, whose responses are byte-
+    # identical for everything this path does serve (the shared
+    # reply_prefix/parse_range helpers make that true by construction).
+    def _make_fast_resolver(self):
+        from seaweedfs_tpu_torch.util.httpd import reply_prefix
+        from seaweedfs_tpu_torch.util.native_serve import generation as _generation
+
+        find_volume = self.store.find_volume
+        shard_refresh = self._shard_refresh
+        plan_core = make_needle_plan_core()
+        prefix_304 = reply_prefix(304)
+        # a 404 carries no validator (etag None): the C loop can never
+        # answer a conditional against it, matching do_GET (which 404s
+        # before the ETag compare)
+        not_found = (404, reply_prefix(404), b"", -1, 0, 0,
+                     None, prefix_304, 0, 0)
+        # plan caching is sound only while EVERY .dat mutation happens
+        # in THIS process (the generation hooks in storage/volume.py
+        # are process-local atomics): -shardWrites workers append from
+        # sibling processes the lead only notices inside the resolve
+        # path — which a cache hit skips — so they disable it. Plain
+        # -workers read processes never write, so the lead stays
+        # cacheable under them.
+        cacheable = 0 if self.shard_writes else 1
+
+        def resolver(path, rng, head_only):
+            adm = self.admission
+            if adm is not None and not getattr(adm, "shared", False):
+                # a per-process token bucket runs in the mini loop's
+                # dispatch funnel only; declining routes every request
+                # through it. The SHARED (shm) bucket is enforced by
+                # the C loop itself, so the fast path stays native.
+                return None
+            if "?" in path:
+                return None
+            vid_s, fid_s, filename, ext, vid_only = parse_url_path(path)
+            if vid_only or not fid_s or filename or ext:
+                return None
+            try:
+                fid = parse_path_fid(vid_s, fid_s)
+            except ValueError:
+                return None  # Python's invalid-file-id 400 JSON
+            v = find_volume(fid.volume_id)
+            if v is None:
+                return None  # EC / redirect lookup: Python path
+            if v.version not in (2, 3):
+                return None
+            # generation BEFORE the map read: a write landing between
+            # here and the pread bumps past `gen`, so the C loop
+            # refuses to cache the (now possibly stale) plan
+            gen = _generation()
+            shard_refresh(v)
+            out = plan_core(v, fid, rng, head_only, gen, cacheable)
+            if out is None:
+                return None
+            if out[0] in ("notfound", "cookie"):
+                return not_found  # do_GET 404s both with an empty body
+            return out[1]
+
+        return resolver
 
     def _self_urls(self) -> set[str]:
         """Every address the master may report THIS server under: the
@@ -2304,6 +2720,108 @@ class VolumeServer:
             except OSError:
                 continue
 
+    # --- -shardWrites: volume-ownership write sharding -----------------
+    def _shard_owner(self, vid: int) -> int:
+        return vid % self.n_writers
+
+    def _writer_internal_addr(self, writer_index: int) -> str:
+        return f"127.0.0.1:{self.internal_port + writer_index}"
+
+    def _shard_is_foreign(self, vid: int) -> bool:
+        """True while a WORKER owns this vid's writes (so this process
+        must route writes and refresh before reads)."""
+        return (
+            self.shard_writes
+            and self._shard_owner(vid) != 0
+            and vid not in self._shard_taken
+        )
+
+    def _shard_refresh(self, v) -> None:
+        """Replay the owner's .idx tail before serving a read of a
+        worker-owned volume (read-your-writes across processes)."""
+        if self._shard_is_foreign(v.id):
+            v.refresh_from_idx()
+
+    def _ensure_owned(self, vid: int) -> None:
+        """Take a vid's write ownership back from its worker before a
+        file-rewriting admin op (vacuum, EC encode, readonly, delete,
+        copy). Permanent: ownership never returns to the worker (the
+        worker proxies that vid's writes here from then on). The
+        handshake is synchronous — the op must not start while the
+        worker could still append; a connection refusal means the
+        worker is dead, which is an implicit release."""
+        if not self.shard_writes:
+            return
+        owner = self._shard_owner(vid)
+        if owner == 0:
+            return
+        with self._shard_lock:
+            if vid in self._shard_taken:
+                return
+            vlock = self._shard_vid_locks.setdefault(vid, threading.Lock())
+        with vlock:
+            with self._shard_lock:
+                if vid in self._shard_taken:
+                    return
+            import urllib.request
+
+            try:
+                # weedlint: ignore[no-deadline] — localhost worker-to-worker control hop, 10 s cap; no request budget exists on this path
+                urllib.request.urlopen(
+                    urllib.request.Request(
+                        f"http://{self._writer_internal_addr(owner)}"
+                        f"/__shard/release?vid={vid}",
+                        method="POST",
+                    ),
+                    timeout=10,
+                ).close()
+            except ConnectionError:
+                pass  # dead worker: implicit release
+            except OSError as e:
+                if not isinstance(getattr(e, "reason", None), ConnectionError):
+                    raise  # alive-but-failing worker: do NOT double-write
+            v = self.store.find_volume(vid)
+            if v is not None:
+                v.refresh_from_idx()
+            with self._shard_lock:
+                # weedlint: ignore[race-check-then-act] — the per-vid vlock (from _shard_vid_locks, invisible to the lint's self-attr span tracking) is held continuously from the re-check through the handshake to this add; _shard_lock only guards the set's memory
+                self._shard_taken.add(vid)
+
+    def _proxy_to_writer(
+        self, writer_index: int, method: str, path: str, body: bytes, headers
+    ):
+        """Forward a write to its owning worker's internal listener.
+        Returns (status, headers, data) or None when unreachable."""
+        from seaweedfs_tpu_torch.client.operation import _drop_conn, _pooled_conn
+
+        addr = self._writer_internal_addr(writer_index)
+        fwd = {
+            k: v
+            for k, v in headers.items()
+            if k not in ("connection", "keep-alive", "content-length", "host")
+        }
+        # re-stamp the trace header with THIS hop's span so the worker's
+        # span parents here, not at the client's original header
+        trace.inject(fwd)
+        try:
+            c, reused = _pooled_conn(addr, 30.0)
+            try:
+                c.send_request(method, path, body, fwd)
+                status, rheaders, data, will_close = c.read_response(method)
+            except OSError:
+                _drop_conn(addr)
+                if not reused:
+                    raise
+                c, _ = _pooled_conn(addr, 30.0)
+                c.send_request(method, path, body, fwd)
+                status, rheaders, data, will_close = c.read_response(method)
+            if will_close:
+                _drop_conn(addr)
+            return status, rheaders, data
+        except OSError:
+            _drop_conn(addr)
+            return None
+
     def _replicate(self, fid: FileId, q: dict, method: str, body: bytes, headers) -> str | None:
         """Fan the write to replica peers (store_replicate.go:44-80):
         all-or-error. A peer that fails fails the write, and the client
@@ -2355,14 +2873,34 @@ class VolumeServer:
         # request, labeled with this daemon's role and address
         self._http_server.trace_name = "volume"
         self._http_server.trace_node = f"{self.host}:{self.port}"
-        # the knobs bound keep-alive lifetimes on the mini loop
+        # event-driven serving core: the epoll loop answers plain needle
+        # GETs through this resolver without touching the handler; the
+        # knobs bound keep-alive lifetimes on both serving paths
+        self._http_server.fast_resolver = self._make_fast_resolver()
         self._http_server.serve_idle_ms = self.serve_idle_ms
         self._http_server.serve_max_reqs = self.serve_max_reqs
         # QoS plane: the mini loop counts in-flight dispatches (heartbeat
         # load signal) and runs per-client admission when configured
         self._http_server.load_tracker = self.load
         self._http_server.admission = self.admission
-        threading.Thread(target=self._http_server.serve_forever, daemon=True).start()
+        listeners = [self._http_server]
+        self._http_server.native_serve = self.native_serve
+        if self.internal_port:
+            self._internal_server = WeedHTTPServer(
+                ("127.0.0.1", self.internal_port), handler
+            )
+            self._internal_server.trace_name = "volume"
+            self._internal_server.trace_node = f"{self.host}:{self.port}"
+            # no idle/max-req knobs here: the -workers proxy pool keeps
+            # long-lived internal connections by design
+            self._internal_server.fast_resolver = self._http_server.fast_resolver
+            self._internal_server.native_serve = self.native_serve
+            listeners.append(self._internal_server)
+        for srv in listeners:
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+        # a serve loop that could not arm raises here, not later
+        for srv in listeners:
+            srv.wait_armed()
         if self.master:
             self._hb_thread = threading.Thread(
                 target=self._heartbeat_loop, daemon=True, name="volume-heartbeat"
@@ -2416,6 +2954,9 @@ class VolumeServer:
         if self._http_server:
             self._http_server.shutdown()
             self._http_server.server_close()
+        if self._internal_server:
+            self._internal_server.shutdown()
+            self._internal_server.server_close()
         if self._grpc_server:
             rpc.stop_server(self._grpc_server, self._grpc_pool)
         if self._profiling:

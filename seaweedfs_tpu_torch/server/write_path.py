@@ -6,9 +6,12 @@ semantics of the reference — multipart forms (needle.go:85 ParseUpload),
 mime/name flags, JPEG orientation fixing, transparent + pre-gzipped
 compression, chunk-manifest flag, Seaweed-* pairs, ts=/ttl= params —
 and fans each write out to the replica peers the master names
-(store_replicate.go:44-80), all-or-error. The reference's one-pass C
-POST loop (native/post.c) waits for ROADMAP item 8, and the
-hinted-handoff seam of its fan-out for item 10.
+(store_replicate.go:44-80), all-or-error. What the one-pass C POST
+loop (csrc/post.c, `try_native_post`) can handle takes it; the rest,
+and every write with WEED_NATIVE_POST=0, takes the Python path, with
+byte-identical .dat, .idx and reply. The -shardWrites write workers
+(server/volume_workers.py) build their needles here too. The
+hinted-handoff seam of the fan-out waits for ROADMAP item 10.
 """
 
 from __future__ import annotations
@@ -17,12 +20,121 @@ import json
 import os
 import time
 
+from seaweedfs_tpu_torch.native.ext import needle_ext as _needle_ext
+from seaweedfs_tpu_torch.storage import types as t
 from seaweedfs_tpu_torch.storage.file_id import FileId
-from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.needle import (
+    FLAG_HAS_LAST_MODIFIED_DATE,
+    FLAG_HAS_PAIRS,
+    FLAG_IS_CHUNK_MANIFEST,
+    Needle,
+)
 
-# The write-path stage names the volume.post span carries, identical to
-# the reference's C hot loop and Python path (docs/TRACING.md).
+# switch for A/B measurement and the byte-identity tests
+# (WEED_NATIVE_POST=0 sends every write through the Python path)
+NATIVE_POST_ENABLED = os.environ.get("WEED_NATIVE_POST", "1") != "0"
+
+# The write-path stage names, identical on the C hot loop and the
+# Python path (docs/TRACING.md): a `--trace` breakdown and a
+# `/debug/traces` span read the same whichever path served the write.
 WRITE_STAGES = ("parse", "assemble", "crc", "pwrite", "reply")
+
+
+def try_native_post(
+    v,
+    fid: FileId,
+    q: dict,
+    body: bytes,
+    headers,
+    url_filename: str = "",
+    fix_jpg_orientation: bool = False,
+    stages: dict | None = None,
+) -> bytes | None:
+    """The volume POST hot path as ONE native call: payload extraction
+    (multipart or raw) → needle assembly → CRC32-C → pwrite at the
+    append cursor → 201 reply bytes, all with the GIL released
+    (csrc/post.c). Returns the reply body, or None when the request
+    needs the pure-Python path (build_upload_needle + write_needle) —
+    which produces byte-identical .dat/.idx/reply output for everything
+    the C path does handle (tests/test_torch_native_post.py).
+
+    Caller contract: `v` is a storage.volume.Volume (or None). The
+    needle map update + .idx append stay in Python (they are dict/16-
+    byte-append cheap); everything O(body) is the C pass."""
+    if (
+        not NATIVE_POST_ENABLED
+        or v is None
+        or getattr(v, "_fd", None) is None
+        or v.read_only
+        or v.version not in (2, 3)
+        or v.ttl.count != 0  # volume-level TTL injection: Python path
+        or q.get("ttl")  # per-needle TTL parse: Python path
+    ):
+        return None
+    base_flags = FLAG_HAS_LAST_MODIFIED_DATE
+    if q.get("cm") == "true":
+        base_flags |= FLAG_IS_CHUNK_MANIFEST
+    pairs = b""
+    pair_map = {
+        k[8:]: val
+        for k, val in headers.items()
+        if k.lower().startswith("seaweed-")
+    }
+    if pair_map:
+        pairs = json.dumps(pair_map).encode()
+        if len(pairs) >= 65536:
+            pairs = b""  # dropped silently, as build_upload_needle does
+        else:
+            base_flags |= FLAG_HAS_PAIRS
+    try:
+        last_modified = int(q.get("ts", "") or 0) or int(time.time())
+    except ValueError:
+        last_modified = int(time.time())
+    ctype = headers.get("content-type", "") or ""
+    raw_gz = headers.get("content-encoding", "").lower() == "gzip"
+    try:
+        ctype_b = ctype.encode("latin-1")
+        q_name_b = (q.get("filename", "") or "").encode("ascii")
+        url_name_b = (url_filename or "").encode("ascii")
+    except UnicodeEncodeError:
+        return None  # non-latin1 header / non-ascii names: Python path
+    with v._lock:
+        if v.read_only:
+            return None
+        if v.nm.get(fid.key) is not None:
+            return None  # overwrite/dedup/cookie semantics: Python path
+        offset = v._append_end
+        if offset % t.NEEDLE_PADDING_SIZE:
+            return None  # realign via the Python append path
+        append_at_ns = v._now_ns()
+        res = _needle_ext().post(
+            body,
+            ctype_b,
+            1 if raw_gz else 0,
+            q_name_b,
+            url_name_b,
+            pairs,
+            base_flags,
+            fid.cookie,
+            fid.key,
+            v.version,
+            last_modified,
+            append_at_ns,
+            v._fd,
+            offset,
+            1 if fix_jpg_orientation else 0,
+        )
+        if res is None:
+            return None
+        reply, total, size, stage_secs = res
+        if stages is not None:
+            stages.update(zip(WRITE_STAGES, stage_secs))
+        v._append_end = offset + total
+        v.last_append_at_ns = append_at_ns
+        v.nm.put(fid.key, t.offset_to_units(offset), size)
+        return reply
+
+
 
 
 def build_upload_needle(

@@ -30,6 +30,9 @@ from seaweedfs_tpu_torch.storage.ttl import TTL
 from seaweedfs_tpu_torch.util import bytesutil
 from seaweedfs_tpu_torch.util.crc import crc32c, masked_value
 
+# the one-call C record codec (csrc/needle_ext.c), built at first use
+from seaweedfs_tpu_torch.native.ext import needle_ext as _needle_ext
+
 FLAG_GZIP = 0x01
 FLAG_HAS_NAME = 0x02
 FLAG_HAS_MIME = 0x04
@@ -71,6 +74,10 @@ def get_actual_size(size: int, version: int) -> int:
 
 
 class CorruptNeedle(ValueError):
+    pass
+
+
+class CookieMismatch(ValueError):
     pass
 
 
@@ -210,6 +217,26 @@ class Needle:
         out += bytes(padding_length(self.size, version))
         return bytes(out)
 
+    def encode_record(self, version: int = VERSION3) -> bytes:
+        """`to_bytes` fast path: the whole record (header..padding) in
+        ONE native call (csrc/needle_ext.c — the prepareWriteBuffer
+        single-pass shape, needle_read_write.go:31). Byte-identical to
+        to_bytes."""
+        blob, self.size, self.checksum = _needle_ext().encode(
+            self.cookie,
+            self.id,
+            self.data,
+            self.flags,
+            self.name,
+            self.mime,
+            self.last_modified,
+            (self.ttl or TTL()).to_bytes() if self.has_ttl() else None,
+            self.pairs,
+            version,
+            self.append_at_ns,
+        )
+        return blob
+
     # --- decode ---
     @staticmethod
     def parse_header(blob: bytes) -> tuple[int, int, int]:
@@ -227,9 +254,39 @@ class Needle:
         """Parse a full on-disk record (ReadBytes, needle_read_write.go:163).
 
         `size` — expected stored size from the index; mismatch raises.
-        Verifies the data CRC. Pure Python: the C record codec of the
-        reference package is not part of the port yet.
+        Verifies the data CRC. Fast path: one native parse+verify call
+        (csrc/needle_ext.c decode); any native rejection re-parses in
+        Python so error messages and edge semantics stay identical.
         """
+        try:
+            (
+                cookie,
+                nid,
+                nsize,
+                data,
+                flags,
+                name,
+                mime,
+                last_modified,
+                ttl2,
+                pairs,
+                append_at_ns,
+                crc,
+            ) = _needle_ext().decode(blob, version, -1 if size is None else size)
+        except ValueError:
+            pass  # cold path: Python parse below raises the exact error
+        else:
+            n = Needle()
+            n.cookie, n.id, n.size = cookie, nid, nsize
+            n.data, n.flags, n.name, n.mime = data, flags, name, mime
+            n.last_modified = last_modified
+            if ttl2 is not None:
+                n.ttl = TTL.from_bytes(ttl2)
+            n.pairs = pairs
+            n.append_at_ns = append_at_ns
+            if nsize > 0:
+                n.checksum = crc
+            return n
         n = Needle()
         n.cookie, n.id, n.size = Needle.parse_header(blob)
         if size is not None and n.size != size:

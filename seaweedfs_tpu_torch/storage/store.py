@@ -325,8 +325,15 @@ class Store:
             # heartbeat STREAM with "dictionary changed size" — the
             # master then saw the node flap
             for v in list(loc.volumes.values()):
+                try:
+                    info = VolumeInfo.from_volume(v)
+                except ValueError:
+                    # closed by a delete or unmount since the snapshot
+                    # (its .dat seeks as a closed file): it is gone from
+                    # the next beat, and the stream must not break
+                    continue
                 hb.max_file_key = max(hb.max_file_key, v.max_file_key())
-                hb.volumes.append(VolumeInfo.from_volume(v))
+                hb.volumes.append(info)
             for vid, ev in list(loc.ec_volumes.items()):
                 bits = 0
                 # serving ids = local mounts ∪ tiered remote shards: a

@@ -20,9 +20,8 @@ volume_read_write.go + volume_loading.go + volume_checking.go:
 File naming (volume.go FileName): <dir>/<collection>_<vid> or
 <dir>/<vid> when the collection is empty.
 
-The port of seaweedfs_tpu/storage/volume.py. Records are serialized by
-the pure-Python Needle.to_bytes (byte-identical to the reference's C
-record codec, which the port does not have yet).
+The port of seaweedfs_tpu/storage/volume.py. Records are serialized in
+one call of the C record codec (Needle.encode_record, csrc/needle_ext.c).
 """
 
 from __future__ import annotations
@@ -44,12 +43,12 @@ from seaweedfs_tpu_torch.storage.super_block import CURRENT_VERSION, SuperBlock
 from seaweedfs_tpu_torch.storage.ttl import TTL
 from seaweedfs_tpu_torch.util import durable, wlog
 
-
-def _serve_cache_bump() -> int:
-    """Where the reference invalidates its C serving loop's plan cache
-    (util/native_serve) after a mutation. The port has no such loop
-    yet, so there is nothing to invalidate."""
-    return 0
+# Invalidates the C serving loop's plan cache (fd/offset/headers keyed
+# by path) on any mutation; util.native_serve imports only os/socket/
+# threading at top level, so there is no import cycle.
+from seaweedfs_tpu_torch.util.native_serve import (
+    bump_generation as _serve_cache_bump,
+)
 
 
 class NeedleNotFound(KeyError):
@@ -663,13 +662,13 @@ class Volume:
 
             n.append_at_ns = self._now_ns()
             if stages is None:
-                blob = n.to_bytes(self.version)
+                blob = n.encode_record(self.version)
                 offset = self._append_blob(blob)
             else:
                 import time as _time
 
                 t0 = _time.perf_counter()
-                blob = n.to_bytes(self.version)
+                blob = n.encode_record(self.version)
                 t1 = _time.perf_counter()
                 offset = self._append_blob(blob)
                 stages["crc"] = t1 - t0
@@ -774,10 +773,10 @@ class Volume:
                 n.append_at_ns = self._now_ns()
                 self.last_append_at_ns = n.append_at_ns
                 if stages is None:
-                    blob = n.to_bytes(self.version)
+                    blob = n.encode_record(self.version)
                 else:
                     t0 = time.perf_counter()
-                    blob = n.to_bytes(self.version)
+                    blob = n.encode_record(self.version)
                     stages["crc"] = time.perf_counter() - t0
                 blobs.append(blob)
                 metas.append((i, n, cursor))
@@ -851,7 +850,7 @@ class Volume:
             freed = nv.size
             n.data = b""
             n.append_at_ns = self._now_ns()
-            blob = n.to_bytes(self.version)
+            blob = n.encode_record(self.version)
             offset = self._append_blob(blob)
             self.last_append_at_ns = n.append_at_ns
             self.nm.delete(n.id, t.offset_to_units(offset))

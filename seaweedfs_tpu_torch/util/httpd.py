@@ -919,11 +919,58 @@ class WeedHTTPServer(ThreadingHTTPServer):
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, True)
         return sock, addr
 
-    # The C epoll serving core of the reference (util/native_serve.py,
-    # native/serve.c) is not part of the port yet (ROADMAP item 5):
-    # serve_forever and shutdown are socketserver's own, the threaded
-    # mini loop that is the reference's WEED_NATIVE_SERVE=0 arm, whose
-    # replies are byte-identical to the C loop's.
+    def serve_forever(self, poll_interval=0.5):
+        # event-driven serving core: unless a switch selects the
+        # threaded arm, the C epoll loop owns the accept/read/dispatch
+        # edge — fast-path GETs never leave C, everything else hands
+        # off into serve_connection threads. The threaded socketserver
+        # path below is the byte-identical arm the switches select
+        # (WEED_NATIVE_SERVE=0, or this server's native_serve False).
+        from seaweedfs_tpu_torch.util import native_serve
+
+        if native_serve.try_serve_forever(self):
+            return
+        super().serve_forever(poll_interval)
+
+    def wait_armed(self, timeout: float = 30.0) -> None:
+        """Block until a serve_forever running on another thread has
+        chosen its loop; raise RuntimeError if the C loop could not arm
+        (its extension failed to build, or its setup failed). A daemon's
+        start() calls this, so it never returns a server that answers
+        nothing."""
+        from seaweedfs_tpu_torch.util import native_serve
+
+        if not (native_serve.available() and getattr(self, "native_serve", True)):
+            return  # the threaded arm: socketserver is ready on entry
+        deadline = _time.monotonic() + timeout
+        while getattr(self, "_serve_native", None) is None:
+            if _time.monotonic() > deadline:
+                raise RuntimeError(f"the serve loop did not arm within {timeout} s")
+            _time.sleep(0.001)
+        err = getattr(self, "_serve_error", None)
+        if err is not None:
+            raise RuntimeError(f"the C serving loop could not arm: {err}") from err
+
+    def shutdown(self):
+        from seaweedfs_tpu_torch.util import native_serve
+
+        if native_serve.shutdown(self):
+            return
+        if native_serve.available() and getattr(self, "native_serve", True):
+            # start/stop race: the serve thread WILL choose the native
+            # loop — the predicate is deterministic — but may not have
+            # armed _serve_native yet. Falling through to
+            # socketserver.shutdown() here waits forever on an
+            # __is_shut_down event the stdlib loop (which never runs)
+            # will never set. Wait for the arming instead; a False
+            # marker means the loop failed to arm, and nothing runs.
+            deadline = _time.monotonic() + 5.0
+            while _time.monotonic() < deadline:
+                state = getattr(self, "_serve_native", None)
+                if state is not None and native_serve.shutdown(self):
+                    return
+                _time.sleep(0.001)
+        super().shutdown()
 
     def finish_request(self, request, client_address):
         # every in-repo serving path carries FastRequestMixin and rides

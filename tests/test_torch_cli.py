@@ -229,8 +229,7 @@ def test_help_lists_the_references_commands():
 @pytest.mark.parametrize("argv,item", [
     (["filer"], 11), (["s3"], 11), (["webdav"], 11), (["mount"], 11),
     (["filer.copy", "a", "http://127.0.0.1:1/x/"], 11), (["filer.replicate"], 12),
-    (["volume.worker", "-port", "1", "-dir", ".", "-lead", "x"], 8),
-    (["weedload"], 13), (["volume", "-workers", "2"], 8),
+    (["weedload"], 13),
     (["master", "-telemetryInterval", "10"], 13),
     (["master", "-telemetryInterval", "0", "-sequencer.etcd", "127.0.0.1:1"], 5),
     (["server", "-filer"], 11), (["server", "-s3"], 11), (["server", "-webdav"], 11),

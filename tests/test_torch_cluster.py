@@ -44,6 +44,7 @@ import pytest
 
 import seaweedfs_tpu.server.write_path as ref_write_path
 import seaweedfs_tpu.storage.volume as ref_volume
+import seaweedfs_tpu_torch.server.write_path as port_write_path
 import seaweedfs_tpu_torch.storage.volume as port_volume
 from seaweedfs_tpu.server.master_server import MasterServer as RefMaster
 from seaweedfs_tpu.server.volume_server import VolumeServer as RefVolume
@@ -67,15 +68,18 @@ def wait_for(cond, timeout=45.0, interval=0.05):
 
 @pytest.fixture(scope="module")
 def pinned_clock():
-    """Both packages' volume clocks pinned to one counter each; the
-    reference's C POST path off (it reads the clock before it may
+    """Both packages' volume clocks pinned to one counter each; both
+    packages' C POST paths off (each reads the clock before it may
     decline a body, a compressible one, to the Python path, which reads
-    it again, so the two packages' stamps would drift apart); and the
+    it again, so the two packages' stamps would drift apart; the C POST
+    is held to the Python path byte for byte in
+    tests/test_torch_native_post.py); and the
     health plane's verdicts off (`WEED_HEALTH=0`): on a loaded host a
     late heartbeat makes a node suspect on one side only, and the pick
     then skips its volumes there."""
     mp = pytest.MonkeyPatch()
     mp.setattr(ref_write_path, "NATIVE_POST_ENABLED", False)
+    mp.setattr(port_write_path, "NATIVE_POST_ENABLED", False)
     mp.setenv("WEED_HEALTH", "0")
     for mod in (ref_volume, port_volume):
         counter = itertools.count(1_700_000_000_000_000_000, 1000)

@@ -823,3 +823,45 @@ class TestDegradedServingEndToEnd:
             with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/{fid}",
                                         timeout=30) as r:
                 assert r.read() == data
+
+
+# ---------------------------------------------------------------------------
+class TestFastPathLoadSignal:
+    """The C loop's fast-path GETs count in the heartbeat load signal:
+    the port's native_serve._callbacks enter the server's
+    qos.LoadTracker in resolve() and exit it in complete()."""
+
+    def test_resolve_enters_complete_exits(self):
+        from seaweedfs_tpu_torch import qos
+        from seaweedfs_tpu_torch.util import native_serve
+
+        class Srv:
+            RequestHandlerClass = object
+            trace_name = "volume"
+            trace_node = "t:1"
+            load_tracker = qos.LoadTracker()
+
+            def fast_resolver(self, path, rng, head_only):
+                if path == "/miss":
+                    return None
+                return (200, b"HTTP/1.1 200 OK\r\n\r\n", b"hi", -1, 0, 0)
+
+        srv = Srv()
+        srv.fast_resolver = srv.fast_resolver.__get__(srv)
+        resolve, _handoff, complete = native_serve._callbacks(srv)
+        assert srv.load_tracker.inflight() == 0
+        plan = resolve("/1,abc", None, False, "", None)
+        assert plan is not None
+        assert srv.load_tracker.inflight() == 1, (
+            "fast-path GET invisible to the heartbeat load signal"
+        )
+        ctx = plan[7]
+        complete(ctx, 200, 2, 0.0, 0.0, 0.0, 1)
+        assert srv.load_tracker.inflight() == 0
+        # a declined resolve must not touch the counter
+        assert resolve("/miss", None, False, "", None) is None
+        assert srv.load_tracker.inflight() == 0
+        # a legacy 6-tuple plan cannot validate If-None-Match: a
+        # conditional GET must decline to the threaded arm
+        assert resolve("/1,abc", None, False, "", '"x"') is None
+        assert srv.load_tracker.inflight() == 0

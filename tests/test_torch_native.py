@@ -136,6 +136,67 @@ def test_a_failed_compile_raises_with_the_compiler_output(monkeypatch, tmp_path)
     )
 
 
+# --- the CPython extensions (needle codec, serving core) -----------------------
+
+
+def _fresh_ext_build(monkeypatch, tmp_path):
+    """An extension build state with nothing built or loaded yet."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_exts", {})
+
+
+def _csrc_copy(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    return csrc
+
+
+def test_extension_build_with_a_missing_compiler_raises(monkeypatch, tmp_path):
+    """No quiet pure-Python fallback: with no compiler to be found the
+    first use of either extension raises, naming what it tried."""
+    from seaweedfs_tpu_torch.native import ext
+    from seaweedfs_tpu_torch.storage.needle import Needle
+
+    _fresh_ext_build(monkeypatch, tmp_path)
+    monkeypatch.setattr(_build, "COMPILERS", ("no-such-cc-for-the-test",))
+    for load in (ext.needle_ext, ext.serve_ext):
+        with pytest.raises(RuntimeError, match="no C compiler found .*no-such-cc-for-the-test"):
+            load()
+    with pytest.raises(RuntimeError, match="no C compiler"):
+        Needle(cookie=1, id=2, data=b"x").encode_record()
+
+
+def test_extension_failed_compile_raises_with_the_compiler_output(monkeypatch, tmp_path):
+    """A compile error in a file the extension only includes (post.c,
+    under needle_ext.c) is raised with the compiler's message."""
+    from seaweedfs_tpu_torch.native import ext
+
+    csrc = _csrc_copy(tmp_path)
+    with open(csrc / "post.c", "a") as f:
+        f.write("\nint planted_break(void) { return undeclared_planted_name; }\n")
+    _fresh_ext_build(monkeypatch, tmp_path)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    with pytest.raises(RuntimeError, match="undeclared_planted_name"):
+        ext.needle_ext()
+    assert not any(n.endswith(".so") for n in os.listdir(tmp_path / "build"))
+
+
+@pytest.mark.parametrize("edited", ["needle_ext.c", "needle.c", "post.c", "crc32c.c"])
+def test_extension_digest_covers_the_include_graph(monkeypatch, tmp_path, edited):
+    """An edit to any file that needle_ext.c reaches through #include
+    (needle.c, post.c, and crc32c.c through needle.c) names a new
+    artifact, so a stale library is never served; serve_ext's does not
+    move."""
+    csrc = _csrc_copy(tmp_path)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {src: _build._command(src)[1] for src in _build.EXT_MODULES}
+    with open(csrc / edited, "a") as f:
+        f.write("\n/* edited */\n")
+    after = {src: _build._command(src)[1] for src in _build.EXT_MODULES}
+    assert after["needle_ext.c"] != before["needle_ext.c"]
+    assert after["serve_ext.c"] == before["serve_ext.c"]
+
+
 # --- shard files through the pipelined driver ---------------------------------
 
 BLOCKS = dict(large_block_size=1 << 20, small_block_size=16384)

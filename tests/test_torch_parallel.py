@@ -268,6 +268,10 @@ SERVER_SLICE = (
     "util/profiling.py", "scrub/__init__.py", "scrub/ratelimit.py", "scrub/state.py",
     "scrub/verify.py", "scrub/engine.py", "scrub/repair.py", "tier/__init__.py",
     "tier/rules.py", "tier/ec_tier.py", "tier/scheduler.py",
+    # the serving edge's slice
+    "native/ext.py", "util/native_serve.py", "server/volume_workers.py",
+    "storage/needle.py", "storage/volume.py", "analysis/__init__.py",
+    "analysis/fuzz_serve.py",
 )
 
 

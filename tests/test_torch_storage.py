@@ -613,6 +613,24 @@ class TestStore:
         assert p[-1] == ("VolumeReadOnly",)
         assert_same_files(os.path.join(a, "d1"), os.path.join(b, "d1"))
 
+    def test_heartbeat_skips_a_volume_closed_mid_collect(self, tmp_path):
+        """A delete that closes a volume after the heartbeat snapshotted
+        the volume list leaves it out of the beat instead of raising
+        (which ended the heartbeat stream, and the master then judged
+        the node dead)."""
+        store = PORT.Store([str(tmp_path)])
+        try:
+            store.add_volume(1)
+            store.add_volume(2)
+            store.write_needle(1, needle(PORT, 5, b"five"))
+            store.find_volume(2).close()  # as a delete racing the beat does
+            hb = store.collect_heartbeat()
+            assert [v.id for v in hb.volumes] == [1]
+            assert hb.max_file_key == 5
+        finally:
+            store.locations[0].volumes.pop(2, None)
+            store.close()
+
     def test_reload_scans_directories(self, tmp_path):
         def run(pkg, d):
             store = pkg.Store([d])
@@ -866,3 +884,97 @@ def test_chip_smoke_store_phase_on_the_cpu(tmp_path):
     assert len(runs["store_encode"]["stats"]["shard_crcs"]) == 14
     assert sorted(runs["store_rebuild4"]["stats"]["shard_crcs"]) == [0, 5, 10, 13]
     assert runs["store_tier"]["needles"] > 0 and runs["store_tier"]["remote_reads"] > 0
+
+
+# --- the C needle codec -----------------------------------------------------------
+
+
+class TestNativeNeedleCodec:
+    """The port's C record codec (csrc/needle_ext.c, built here with the
+    system compiler) against the port's Python serializer and parser and
+    against the reference's C codec, over a seeded property sweep. The
+    tolerance is byte identity of records and equality of every parsed
+    field."""
+
+    FIELDS = ("cookie", "id", "size", "data", "flags", "name", "mime", "pairs",
+              "last_modified", "append_at_ns", "checksum")
+
+    @staticmethod
+    def _random_needle(pkg, rng):
+        n = pkg.Needle(cookie=int(rng.integers(1 << 32)), id=int(rng.integers(1 << 63)))
+        n.data = rng.bytes(int(rng.choice([0, 1, 7, 8, 100, 1024, 65536])))
+        if n.data:
+            if rng.random() < 0.7:
+                n.name = rng.bytes(int(rng.integers(0, 300)))
+                n.set_has_name()
+            if rng.random() < 0.5:
+                n.mime = b"application/x-test"
+                n.set_has_mime()
+            if rng.random() < 0.5:
+                n.last_modified = int(rng.integers(1 << 40))
+                n.set_has_last_modified_date()
+            if rng.random() < 0.4:
+                n.ttl = pkg.TTL.parse("3m")
+                n.set_has_ttl()
+            if rng.random() < 0.4:
+                n.pairs = rng.bytes(int(rng.integers(0, 1000)))
+                n.set_has_pairs()
+        n.append_at_ns = int(rng.integers(1 << 63))
+        return n
+
+    def _pairs(self, seed, count=60):
+        """(reference needle, port needle) pairs made from the same draws."""
+        import numpy as np
+
+        ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+        return [(self._random_needle(REF, ra), self._random_needle(PORT, rb))
+                for _ in range(count)]
+
+    def test_encode_record_matches_to_bytes_and_reference(self):
+        import copy
+
+        for ref_n, n in self._pairs(7):
+            for version in (1, 2, 3):
+                a, b, r = copy.deepcopy(n), copy.deepcopy(n), copy.deepcopy(ref_n)
+                blob = bytes(b.encode_record(version))
+                assert a.to_bytes(version) == blob
+                assert bytes(r.encode_record(version)) == blob
+                assert (a.size, a.checksum) == (b.size, b.checksum) == (r.size, r.checksum)
+
+    def test_native_decode_matches_python_and_reference(self, monkeypatch):
+        import copy
+
+        class Declines:
+            """A codec that rejects every record: from_bytes re-parses in
+            Python, exactly where a rejected record re-parses."""
+
+            @staticmethod
+            def decode(*_args):
+                raise ValueError("declined")
+
+        for ref_n, n in self._pairs(11):
+            for version in (1, 2, 3):
+                blob = copy.deepcopy(n).to_bytes(version)
+                c = PORT.Needle.from_bytes(blob, version)
+                r = REF.Needle.from_bytes(blob, version)
+                with monkeypatch.context() as m:
+                    m.setattr(port_needle, "_needle_ext", lambda: Declines)
+                    py = PORT.Needle.from_bytes(blob, version)
+                for f in self.FIELDS:
+                    assert getattr(c, f) == getattr(py, f) == getattr(r, f), (version, f)
+                assert str(c.ttl or "") == str(py.ttl or "") == str(r.ttl or "")
+
+    def test_native_decode_error_parity(self):
+        for pkg in (PORT, REF):
+            n = pkg.Needle(cookie=1, id=2, data=b"hello")
+            blob = n.to_bytes(3)
+            corrupt = bytearray(blob)
+            corrupt[20] ^= 0xFF
+            with pytest.raises(port_needle.CorruptNeedle if pkg is PORT
+                               else ref_needle.CorruptNeedle) as e1:
+                pkg.Needle.from_bytes(bytes(corrupt), 3)
+            assert "CRC error" in str(e1.value)
+            with pytest.raises(ValueError, match="truncated"):
+                pkg.Needle.from_bytes(blob[:10], 3)
+            with pytest.raises(ValueError, match="entry not found"):
+                pkg.Needle.from_bytes(blob, 3, size=99)

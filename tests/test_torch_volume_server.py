@@ -596,14 +596,14 @@ def _ecc_crcs(d, vid):
         return json.load(f)
 
 
-# item None: the master tier (ROADMAP item 7) and the scrub engine
-# (item 9) are ported, and the parameters that waited for them are now
-# taken as given
+# item None: the master tier (ROADMAP item 7), the scrub engine (item 9)
+# and the -workers processes (item 8) are ported, and the parameters
+# that waited for them are now taken as given
 WAITS = [
     ({"master": "127.0.0.1:9333"}, None),
     ({"scrub_interval": 600.0}, None),
-    ({"internal_port": 1}, "ROADMAP item 8"),
-    ({"shard_writes": True}, "ROADMAP item 8"),
+    ({"internal_port": 1}, None),
+    ({"shard_writes": True}, None),
     ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11"),
     ({"public_url": "10.0.0.1:8080"}, None),
     ({"data_center": "dc1"}, None),
@@ -611,7 +611,7 @@ WAITS = [
     ({"announce": "10.0.0.1:8080"}, None),
     ({"heartbeat_interval": 5.0}, None),
     ({"read_redirect": True}, None),
-    ({"n_writers": 4}, "ROADMAP item 8"),
+    ({"n_writers": 4}, None),
 ]
 
 
