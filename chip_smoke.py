@@ -107,9 +107,10 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      .dat and .idx equal); each step's launches must include its
      kernels; after stop() no thread may be left;
  3g. the command line and the integrity plane (run_cli_phase): a master
-     and three volume servers started as `python -m seaweedfs_tpu_torch
-     master|volume` processes, every server on the card (no -ec.codec),
-     data in /dev/shm; one volume filled with 256 MiB by `python -m
+     (its telemetry collector scraping every second) and three volume
+     servers started as `python -m seaweedfs_tpu_torch master|volume`
+     processes, every server on the card (no -ec.codec), data in
+     /dev/shm; the collector scrapes all four; one volume filled with 256 MiB by `python -m
      seaweedfs_tpu_torch benchmark`; ec.encode and ec.balance through a
      `shell` process (no server holds all 14 shards); bytes flipped in a
      4 MiB tile of a data shard and of a parity shard on two servers;
@@ -119,13 +120,19 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      scrub.trigger on each culprit's holder in turn: its sweep finds and
      localizes the culprit with K1 and quarantines it (.bad), the
      master's /repair/queue shows the volume and its RepairScheduler
-     rebuilds the shard on a server's card (K1 + K4); ec.verify through
+     rebuilds the shard on a server's card (K1 + K4); after each round
+     /cluster/alerts shows scrub_corruptions firing for the culprit's
+     holder, which holds an incident capsule with trigger=alert (its
+     /capsule/list, and capsule.collect through the shell); cluster.slo
+     through the shell counts samples in the scrub and repair planes;
+     ec.verify through
      the shell (K1 in the shell's process) reports the volume clean, the
      rebuilt shards equal the saved copies and the .ecc, every holder
      completes a clean pass (its scanned-EC-bytes counter rising by the
      volume), every needle reads back with its payload's SHA-256, the
      volume servers' and the shell's processes appear in nvidia-smi's
-     compute apps, the verify core runs clean after the repair (one K1
+     compute apps and the master's does not (nor does it map libcuda),
+     the verify core runs clean after the repair (one K1
      launch a tile) and SIGTERM ends every process with exit code 0;
      each server's launches are read off its /metrics;
  3h. the serving edge from the command line (run_edge_phase): a master
@@ -142,6 +149,27 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      lead, whose K1 launches rise on its /metrics, while no worker maps
      libcuda or torch and nvidia-smi lists exactly one more compute app;
      SIGTERM ends every process with exit code 0;
+ 3i. the cluster telemetry plane (run_telemetry_phase): a master
+     (-telemetryInterval 1, -repairInterval 0) and three `volume`
+     processes on the card, data in /dev/shm, each process with its own
+     capsule directory; one volume filled with 256 MiB (CUT_BYTES) of
+     1 MiB files by `benchmark`, ec.encode and ec.balance -force through
+     a `shell` process; `weedload -duration 10 -writers 2 -readers 2
+     -size 1024` against the healthy cluster (its put and get p50, p99,
+     p99.9 and req/s printed); one shard holder SIGKILLed, then
+     weedload.run_load(readers=4, verify_bytes=1 MiB, duration_s=10) on
+     the needles that touch its shards, routed to the surviving holder
+     with the most shards: every GET reconstructs on that server's card
+     (its K1 launches rise on its /metrics) and is byte-verified, 0
+     errors; meanwhile scrape_staleness fires for the killed holder
+     within stale_after plus two cycles, the master captures an alert
+     capsule with its tsdb and cluster sections, and capsule.capture
+     through the shell captures one on every live server; the holder
+     restarted on its directory, the alert resolves; /cluster/top and the
+     master's TSDB window rank the surviving servers by the degraded
+     traffic; no weedload worker (of either run) and not the master maps
+     libcuda or torch; SIGTERM ends every process with exit code 0; each
+     step's wall printed beside the card's name and power limit;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -3313,6 +3341,60 @@ def _cli_verify_both(paths: dict, tile: int, device, what: str, card: str) -> di
             "bad_tiles": res.bad_tiles}
 
 
+def _scraped(master: str, targets: list) -> bool:
+    """True once the master's collector has scraped every one of
+    `targets` (host:port) and holds each up."""
+    with urllib.request.urlopen(f"http://{master}/cluster/health", timeout=10) as r:
+        rows = json.loads(r.read()).get("Targets", {})
+    return all(rows.get(t, {}).get("Up") for t in targets)
+
+
+def _alerts(master: str) -> dict:
+    with urllib.request.urlopen(f"http://{master}/cluster/alerts", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _firing(master: str, rule: str, target: str) -> bool:
+    return any(a["Alert"] == rule and a["Target"] == target
+               for a in _alerts(master)["Firing"])
+
+
+def _alert_capsule(node: str, rule: str) -> dict:
+    """The newest capsule on `node` that an alert of `rule` triggered
+    ({} while there is none), read through the node's /capsule/list."""
+    with urllib.request.urlopen(f"http://{node}/capsule/list", timeout=10) as r:
+        caps = json.loads(r.read())["Capsules"]
+    caps = [c for c in caps if c["Trigger"] == "alert" and rule in c["Reason"]]
+    return caps[-1] if caps else {}
+
+
+def _cli_telemetry(shell, holders: list, wait, card: str) -> dict:
+    """The telemetry plane's view of the cli phase through the shell
+    process: capsule.collect finds each culprit holder's alert capsule,
+    and cluster.slo counts samples (TotalSlow) in the scrub and repair
+    planes, from the sweeps and the scheduled rebuilds."""
+    _, out = shell.run("capsule.collect -reason scrub_corruptions -json")
+    rows = {n["Node"]: n for n in json.loads(out.strip().splitlines()[-1])["Nodes"]}
+    for node in holders:
+        row = rows.get(node) or {}
+        if row.get("Trigger") != "alert" or not row.get("Capsule"):
+            raise AssertionError(f"cli capsule.collect: no alert capsule on {node}: {rows}")
+    planes: dict = {}
+
+    def sampled() -> bool:
+        _, text = shell.run("cluster.slo -json")
+        snap = json.loads(text.strip().splitlines()[-1])
+        planes.update({o["Plane"]: o["TotalSlow"] for o in snap["Objectives"]
+                       if o["Kind"] == "latency"})
+        return planes.get("scrub", 0) > 0 and planes.get("repair", 0) > 0
+
+    slo_s = wait(sampled, "cluster.slo samples in the scrub and repair planes", 90)
+    log(f"cli telemetry on {card}: capsule.collect through the shell finds the alert capsules "
+        f"{ {n: rows[n]['Capsule'] for n in holders} }; cluster.slo samples by plane over "
+        f"its slow window {planes} ({slo_s:.3f} s to show both planes)")
+    return {"capsules": {n: rows[n]["Capsule"] for n in holders}, "slo_samples": planes}
+
+
 def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card: str = "",
                   smi: str = "") -> dict:
     """The port started from the command line, on `device` (None: the
@@ -3320,11 +3402,12 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
     verifies on K1's plain version, a rehearsal), its integrity plane
     driven as users drive it:
       1. `python -m seaweedfs_tpu_torch master` (-repairInterval 1,
-         -repairGrace CLI_REPAIR_GRACE, -telemetryInterval 0: the
-         telemetry collector is not ported) and three `volume` servers on
-         two racks, each a process of its own, with no -ec.codec (the
-         card), -scrubInterval a day (only scrub.trigger sweeps) and
-         -scrubRate 0; data in `workdir` (/dev/shm);
+         -repairGrace CLI_REPAIR_GRACE, -telemetryInterval 1) and three
+         `volume` servers on two racks, each a process of its own with a
+         capsule directory of its own, with no -ec.codec (the card),
+         -scrubInterval a day (only scrub.trigger sweeps) and -scrubRate
+         0; data in `workdir` (/dev/shm); the master's collector scrapes
+         itself and the three servers;
       2. one volume grown through /vol/grow and filled with about
          `volume_bytes` by `python -m seaweedfs_tpu_torch benchmark`
          (-size CLI_FILE_BYTES, -n to fill, -read=false): upstream's
@@ -3344,11 +3427,16 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
          master's /repair/queue shows the volume, its RepairScheduler
          rebuilds both shards on a server's card (K1 + K4), and
          ec.verify -volumeId V through the shell (K1 in the shell's
-         process) reports them clean;
+         process) reports them clean; after each round the collector's
+         scrub_corruptions alert fires for the culprit's holder and the
+         master's capsule coordinator leaves a capsule with
+         trigger=alert there (_cli_telemetry); cluster.slo counts
+         samples in the scrub and repair planes;
       5. the rebuilt shards equal the saved copies and their CRCs the
          .ecc; every needle reads back over HTTP with its payload's
          SHA-256; every volume server's process and the shell's appear
-         in nvidia-smi's compute apps; each holder's scrub counter of
+         in nvidia-smi's compute apps and the master's does not; each
+         holder's scrub counter of
          scanned EC bytes rose; the verify core once more in this
          process after the repair, clean, one K1 launch a tile; SIGTERM
          ends every process with exit code 0.
@@ -3379,7 +3467,9 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
     procs: dict = {}
 
     def spawn(name: str, args: list) -> subprocess.Popen:
-        procs[name] = subprocess.Popen(cli + args, cwd=here, env=env,
+        # each daemon keeps its incident capsules apart, as on hosts of their own
+        penv = dict(env, WEED_CAPSULE_DIR=os.path.join(workdir, "capsules", name))
+        procs[name] = subprocess.Popen(cli + args, cwd=here, env=penv,
                                        stdout=open(os.path.join(logs, name + ".log"), "w"),
                                        stderr=subprocess.STDOUT)
         return procs[name]
@@ -3415,7 +3505,7 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
         t0 = time.perf_counter()
         spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
                          "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval", "1",
-                         "-repairGrace", str(CLI_REPAIR_GRACE), "-telemetryInterval", "0"])
+                         "-repairGrace", str(CLI_REPAIR_GRACE), "-telemetryInterval", "1"])
         wait(lambda: urllib.request.urlopen(f"http://{master_addr}/cluster/status",
                                             timeout=2).close() is None, "the master")
         for i, (port, d) in enumerate(zip(ports, dirs)):
@@ -3428,6 +3518,12 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
         log(f"cli: master and three volume servers up as `python -m seaweedfs_tpu_torch` "
             f"processes (pids {[p.pid for p in procs.values()]}) in "
             f"{time.perf_counter() - t0:.3f} s")
+        nodes = [f"127.0.0.1:{p}" for p in ports]
+        scraped_s = wait(lambda: _scraped(master_addr, [master_addr] + nodes),
+                         "the collector scraping the master and three servers", 60)
+        log(f"cli: the master's collector scrapes the master and the three volume servers "
+            f"(all up, kinds master and volume) {scraped_s:.3f} s after they registered, on "
+            f"{card}")
 
         # --- 2. fill one volume with the benchmark ---
         with urllib.request.urlopen(f"http://{master_addr}/vol/grow?collection=cli&count=1",
@@ -3587,9 +3683,20 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
                 scrub[k] += sum(a[k] - b[k] for a, b in zip(mid, before))
                 repair[k] += sum(a[k] - b[k] for a, b in zip(end, mid))
             before = end
+            # the alert stays firing over the collector's window (120 s), so
+            # it is read after the round's timing, not in its way
+            fired_s = wait(lambda: _firing(master_addr, "scrub_corruptions", node),
+                           f"scrub_corruptions firing for {node}", 60)
+            capsule = {}
+            wait(lambda: capsule.update(_alert_capsule(node, "scrub_corruptions")) or capsule,
+                 f"an alert capsule on {node}", 60)
             rounds.append({"round": rnd, "quarantined": sid, "holder": node,
                            "trigger_to_quarantine_s": t_quarantine - t_trigger,
                            "quarantine_to_rebuilt_s": t_rebuilt - t_quarantine})
+            log(f"cli round {rnd} on {card}: /cluster/alerts shows scrub_corruptions firing for "
+                f"{node} ({fired_s:.3f} s after the rebuild was seen); its capsule {capsule['Id']} "
+                f"(trigger {capsule['Trigger']}, files "
+                f"{[(f['Name'], f['Ok']) for f in capsule['Files']]})")
             log(f"cli round {rnd} on {card}: scrub.trigger -volumeId {vid} -node {node} to "
                 f"shard {sid} quarantined (.bad) {t_quarantine - t_trigger:.3f} s; quarantine "
                 f"to rebuilt and mounted by the master's RepairScheduler "
@@ -3611,6 +3718,7 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
         log(f"cli scrub and repair on {card}: {len(rounds)} round(s) {rounds}; server "
             f"launches in the sweeps {scrub}, in the rebuilds {repair}; /repair/queue "
             f"showed the volume in {len(seen_queue)} polls; its history {history}")
+        runs["cli_telemetry"] = _cli_telemetry(shell, [r["holder"] for r in rounds], wait, card)
 
         # --- 5. what the phase holds ---
         now = shard_paths()
@@ -3713,8 +3821,13 @@ def run_cli_phase(workdir: str, volume_bytes: int, seed: int, device=None, card:
             with open(f"/proc/{pid}/maps") as f:
                 mapped[n] = "libcuda.so" in f.read()
         pids = {int(line.split(",")[0]) for line in listed}
+        master_maps = _maps_has(procs["master"].pid, "libcuda", "libtorch")
         log(f"cli nvidia-smi compute apps: {listed}; processes {need}, each mapping "
-            f"libcuda.so: {mapped}")
+            f"libcuda.so: {mapped}; the master (pid {procs['master'].pid}) maps "
+            f"{master_maps}")
+        if procs["master"].pid in pids or master_maps["libcuda"]:
+            raise AssertionError(f"cli: the master holds the card: nvidia-smi lists {listed}, "
+                                 f"its maps {master_maps}")
         served = [sum(_cli_launches(_cli_metrics(p)).values()) for p in ports]
         if on_card and (not all(served) or not (
                 set(need.values()) <= pids
@@ -4182,6 +4295,438 @@ def run_edge_phase(workdir: str, seed: int, device=None, card: str = "", smi: st
     return runs
 
 
+# --- phase 3i: the cluster telemetry plane -----------------------------------
+
+TELE_ROOM = 2 << 30  # the telemetry phase's peak in its directory (about 0.9 GiB)
+TELE_INTERVAL = 1  # the master's -telemetryInterval
+TELE_LOAD_S = 10.0  # each weedload run's -duration
+TELE_READERS = 4  # the degraded run's reader processes
+
+
+def _tsdb_gets(window: dict, t0: float, t1: float) -> dict:
+    """{target: GET requests it served from its last scrape at or before
+    t0 to its first at or after t1} off a capsule's tsdb section (the
+    master's ring TSDB): positive adjacent deltas of its
+    weed_http_request_total{method="GET"} series, as the ring's own
+    increase() counts them."""
+    out = {}
+    for url, series in window["Targets"].items():
+        total = 0.0
+        for key, pts in series.items():
+            if not key.startswith("weed_http_request_total{") or 'method="GET"' not in key:
+                continue
+            lo = max([i for i, (t, _) in enumerate(pts) if t <= t0] or [0])
+            hi = min([i for i, (t, _) in enumerate(pts) if t >= t1] or [len(pts) - 1])
+            pts = pts[lo:hi + 1]
+            total += sum(max(0.0, b[1] - a[1]) for a, b in zip(pts, pts[1:]))
+        out[url] = total
+    return out
+
+
+def run_telemetry_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                        card: str = "", smi: str = "") -> dict:
+    """The cluster telemetry plane watching a cluster that serves degraded
+    GETs on the card, every process `python -m seaweedfs_tpu_torch`, data
+    in `workdir` (/dev/shm), on `device` (None: the card; "cpu" runs the
+    servers with -ec.codec cpu, a rehearsal):
+      1. a master (-telemetryInterval TELE_INTERVAL, -repairInterval 0:
+         nothing rebuilds behind the load) and three `volume` servers,
+         each with a capsule directory of its own; the collector scrapes
+         all four;
+      2. one volume filled with about `volume_bytes` of 1 MiB files by
+         `benchmark`; ec.encode and ec.balance -force through a `shell`
+         process, so that no server holds all 14 shards;
+      3. `weedload -duration TELE_LOAD_S -writers 2 -readers 2 -size
+         1024` against the healthy cluster: its put and get p50, p99,
+         p99.9 and req/s; its exit code 0; its worker processes map
+         neither libcuda nor torch;
+      4. the holder of the most shards but one SIGKILLed; then
+         weedload.run_load(readers=TELE_READERS, verify_bytes=1 MiB) on
+         every needle with bytes on its shards, routed to the surviving
+         holder of the most shards: every GET reconstructs there, on the
+         card (its K1 launches rise on its /metrics), errors 0, and every
+         needle reads back afterwards with its payload's SHA-256;
+         meanwhile scrape_staleness fires for the killed holder within
+         stale_after plus two cycles and the master captures a capsule
+         with trigger=alert holding its tsdb and cluster sections;
+         capsule.capture through the shell captures one on every live
+         server; no run_load worker maps libcuda or torch;
+      5. the holder restarted on its directory: the alert resolves;
+         /cluster/top lists the surviving servers in order of req/s and
+         the master's TSDB window (a capsule's tsdb section) ranks the
+         serving holder first by the GETs of the degraded run;
+      6. the master maps no card library; SIGTERM ends every process
+         with exit code 0 (the killed holder aside).
+    Raises on any fault; returns tele_degraded with the serving holder's
+    launches, and the phase's walls and latencies."""
+    import hashlib
+    import multiprocessing
+    import random as _random
+    import signal
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.telemetry import weedload
+
+    _check_room(workdir, TELE_ROOM if volume_bytes >= 1 << 28 else 4 * volume_bytes + (1 << 27),
+                "the telemetry phase")
+    on_card = device is None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    logs = os.path.join(workdir, "logs")
+    os.mkdir(logs)
+    procs: dict = {}
+    rcs: dict = {}
+
+    def _tail(name: str) -> str:
+        with open(os.path.join(logs, name + ".log"), errors="replace") as f:
+            return f.read()[-3000:]
+
+    def spawn(name: str, args: list, node: str) -> subprocess.Popen:
+        penv = dict(env, WEED_CAPSULE_DIR=os.path.join(workdir, "capsules", node))
+        procs[name] = subprocess.Popen(cli + args, cwd=here, env=penv,
+                                       stdout=open(os.path.join(logs, name + ".log"), "w"),
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except (OSError, ValueError, KeyError):
+                pass
+            for name, p in procs.items():
+                if name not in rcs and p.poll() is not None:
+                    raise AssertionError(f"telemetry: {name} exited ({p.returncode}) while "
+                                         f"waiting for {what}: {_tail(name)}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"telemetry: {what} not seen within {timeout} s")
+            time.sleep(0.05)
+
+    def worker_maps(pids) -> dict:
+        out = {}
+        for pid in pids:
+            try:
+                out[pid] = _maps_has(pid, "libcuda", "libtorch")
+            except OSError:
+                continue
+        return out
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    # below the ephemeral range, so that the killed holder's port is
+    # still free for its restart
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    mport = free_port()
+    ports = [free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr = f"127.0.0.1:{mport}"
+    nodes = [f"127.0.0.1:{p}" for p in ports]
+
+    def volume_args(i: int) -> list:
+        return ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]), "-dir", dirs[i],
+                "-max", "100", "-mserver", maddr, "-rack", f"rack{i % 2}",
+                "-scrubInterval", "0"] + codec_args
+
+    try:
+        # --- 1. the cluster, its collector on ---
+        t0 = time.perf_counter()
+        spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                         "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval", "0",
+                         "-telemetryInterval", str(TELE_INTERVAL)], "master")
+        wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                            timeout=2).close() is None, "the master")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            spawn(f"volume{i}", volume_args(i), f"volume{i}")
+        cenv = CommandEnv([maddr])
+        wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+        wait(lambda: _scraped(maddr, [maddr] + nodes), "the collector scraping all four", 60)
+        with urllib.request.urlopen(f"http://{maddr}/cluster/health", timeout=10) as r:
+            health = json.loads(r.read())
+        stale_after, interval = health["StaleAfterSeconds"], health["IntervalSeconds"]
+        walls["up"] = time.perf_counter() - t0
+        log(f"telemetry: master (-telemetryInterval {TELE_INTERVAL}, stale_after "
+            f"{stale_after} s, window {health['WindowSeconds']} s) and three volume servers "
+            f"up and scraped in {walls['up']:.3f} s on {card}")
+
+        # --- 2. fill, encode, spread ---
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://{maddr}/vol/grow?collection=tele&count=1",
+                                    timeout=60) as r:
+            if json.loads(r.read()).get("count") != 1:
+                raise AssertionError("telemetry: /vol/grow of the benchmark's volume failed")
+        n = max(1, volume_bytes // CLI_FILE_BYTES)
+        bench = subprocess.run(cli + ["benchmark", "-master", maddr, "-c", "16", "-n", str(n),
+                                      "-size", str(CLI_FILE_BYTES), "-collection", "tele",
+                                      "-replication", "000", "-read=false"],
+                               cwd=here, env=env, capture_output=True, text=True, timeout=900)
+        if bench.returncode or "Failed requests:        0" not in bench.stdout:
+            raise AssertionError(f"telemetry benchmark failed (rc {bench.returncode}): "
+                                 f"{bench.stdout[-2000:]} {bench.stderr[-2000:]}")
+        dats = [os.path.join(d, f) for d in dirs for f in os.listdir(d)
+                if f.startswith("tele_") and f.endswith(".dat")]
+        if len(dats) != 1:
+            raise AssertionError(f"telemetry: the benchmark filled {dats}, not one volume")
+        vid = int(os.path.basename(dats[0])[5:-4])
+        dat_size = os.path.getsize(dats[0])
+        needles = [(nd.id, nd.cookie, off, nd.size) for nd, off in scan_volume_file(dats[0])]
+        if len(needles) != n:
+            raise AssertionError(f"telemetry: volume {vid} holds {len(needles)} needles")
+        walls["fill"] = time.perf_counter() - t0
+        shell = _CliShell(cli + ["shell", "-master", maddr], env,
+                          os.path.join(logs, "shell.log"))
+        procs["shell"] = shell.proc
+        t0 = time.perf_counter()
+        shell.run(f"ec.encode -volumeId {vid}")
+        shell.run("ec.balance -force")
+
+        def registered() -> dict:
+            with rpc.dial(f"127.0.0.1:{mport + 10000}") as ch:
+                resp = rpc.master_stub(ch).LookupEcVolume(
+                    master_pb2.LookupEcVolumeRequest(volume_id=vid), timeout=10)
+            return {e.shard_id: [loc.url for loc in e.locations]
+                    for e in resp.shard_id_locations if e.locations}
+
+        wait(lambda: len(registered()) == 14, "14 registered shards", 60)
+        held = {i: sorted(int(f[-2:]) for f in os.listdir(d)
+                          if f.startswith(f"tele_{vid}.ec") and f[-2:].isdigit())
+                for i, d in enumerate(dirs)}
+        if sorted(s for v in held.values() for s in v) != list(range(14)) or max(
+                len(v) for v in held.values()) >= 14:
+            raise AssertionError(f"telemetry: after ec.balance the shards lie {held}")
+        walls["encode_balance"] = time.perf_counter() - t0
+        log(f"telemetry: {n} x {CLI_FILE_BYTES} B into volume {vid} by the benchmark in "
+            f"{walls['fill']:.3f} s; ec.encode and ec.balance -force through the shell "
+            f"{walls['encode_balance']:.3f} s; shards by server {held}; {smi}")
+
+        # --- 3. weedload against the healthy cluster ---
+        t0 = time.perf_counter()
+        wl = subprocess.Popen(cli + ["weedload", "-master", maddr, "-duration",
+                                     str(int(TELE_LOAD_S)), "-writers", "2", "-readers", "2",
+                                     "-size", "1024"], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=open(
+                                  os.path.join(logs, "weedload.log"), "w"), text=True)
+        healthy_maps: dict = {}
+        while wl.poll() is None:
+            healthy_maps.update(worker_maps(_children(wl.pid)))
+            time.sleep(0.2)
+        out, _ = wl.communicate(timeout=60)
+        walls["weedload_healthy"] = time.perf_counter() - t0
+        if wl.returncode:
+            raise AssertionError(f"telemetry: weedload exited {wl.returncode}: "
+                                 f"{out[-2000:]} {_tail('weedload')}")
+        healthy = json.loads(out)
+        for mode in ("put", "get"):
+            if healthy[mode]["errors"] or not healthy[mode]["ops"]:
+                raise AssertionError(f"telemetry: healthy weedload {mode}: {healthy[mode]}")
+        if not healthy_maps or any(any(m.values()) for m in healthy_maps.values()):
+            raise AssertionError(f"telemetry: weedload's workers map {healthy_maps}")
+        log(f"telemetry weedload, healthy cluster, on {card}: -duration {TELE_LOAD_S:g} "
+            f"-writers 2 -readers 2 -size 1024: " + "; ".join(
+                f"{m} {healthy[m]['req_per_sec']} req/s, p50 {healthy[m]['p50_ms']} ms, p99 "
+                f"{healthy[m]['p99_ms']} ms, p99.9 {healthy[m]['p999_ms']} ms ({healthy[m]['ops']}"
+                f" ops, {healthy[m]['errors']} errors)" for m in ("put", "get"))
+            + f"; {len(healthy_maps)} worker processes, libcuda/libtorch mapped "
+            f"{healthy_maps}; wall {walls['weedload_healthy']:.3f} s; {smi}")
+
+        # --- 4. a holder killed, degraded GETs on a survivor's card ---
+        # two collector cycles first, so that the TSDB's samples around
+        # the kill hold none of the healthy run's requests
+        def cycles() -> tuple:
+            with urllib.request.urlopen(f"http://{maddr}/cluster/health", timeout=10) as r:
+                h = json.loads(r.read())
+            return h["Cycles"], h["LastCycleUnix"]
+
+        c0 = cycles()[0]
+        wait(lambda: cycles()[0] >= c0 + 2, "two collector cycles after the healthy run", 30)
+        order = sorted(held, key=lambda i: -len(held[i]))
+        serving, victim = order[0], order[1]
+        lost = set(held[victim])
+        serve_node, victim_node = nodes[serving], nodes[victim]
+        rng = _random.Random(1)  # the benchmark's one payload, as it makes it
+        want_sha = hashlib.sha256(bytes(rng.randrange(256)
+                                        for _ in range(CLI_FILE_BYTES))).hexdigest()
+        keys = []
+        for nid, cookie, off, size in needles:
+            shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                16 + size + 4 + 8)}
+            if shards & lost:
+                keys.append((f"{vid},{nid:x}{cookie:08x}", serve_node))
+        if not keys:
+            raise AssertionError(f"telemetry: no needle has bytes on shards {sorted(lost)}")
+        k0 = _cli_launches(_cli_metrics(ports[serving]))
+        events: dict = {}
+        load_maps: dict = {}
+        stop_poll = threading.Event()
+
+        def poll() -> None:
+            while not stop_poll.is_set():
+                try:
+                    if "fired" not in events and _firing(maddr, "scrape_staleness",
+                                                         victim_node):
+                        events["fired"] = time.perf_counter()
+                except (OSError, ValueError):
+                    pass
+                load_maps.update(worker_maps(
+                    [p.pid for p in multiprocessing.active_children()]))
+                stop_poll.wait(0.05)
+
+        poller = threading.Thread(target=poll, daemon=True, name="tele-poll")
+        poller.start()
+        at_kill = cycles()
+        procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t_kill_unix = time.time()
+        rcs[f"volume{victim}"] = procs[f"volume{victim}"].wait(30)
+        try:
+            degraded = weedload.run_load(maddr, duration_s=TELE_LOAD_S, writers=0,
+                                         readers=TELE_READERS, keys=keys,
+                                         verify_bytes=CLI_FILE_BYTES)
+            t_load_unix = time.time()
+            walls["weedload_degraded"] = time.perf_counter() - t_kill
+            wait(lambda: "fired" in events, "scrape_staleness firing for the killed holder",
+                 60)
+        finally:
+            stop_poll.set()
+            poller.join(10)
+        k1 = _cli_launches(_cli_metrics(ports[serving]))
+        launches = {k: k1[k] - k0[k] for k in k1}
+        row = degraded["get"]
+        if row["errors"] or not row["ops"]:
+            raise AssertionError(f"telemetry: degraded weedload {row}")
+        if on_card:
+            _must_launch("telemetry degraded GETs", launches, ("gf_apply",))
+        if not load_maps or any(any(m.values()) for m in load_maps.values()):
+            raise AssertionError(f"telemetry: run_load's workers map {load_maps}")
+        fire_s = events["fired"] - t_kill
+        # a cycle as the collector ran them meanwhile: -telemetryInterval
+        # apart, or longer where a wave of scrapes outlasted it
+        now_cycles = cycles()
+        cycle_s = max(interval, (now_cycles[1] - at_kill[1]) / max(1, now_cycles[0] - at_kill[0]))
+        if fire_s > stale_after + 2 * cycle_s:
+            raise AssertionError(f"telemetry: scrape_staleness fired {fire_s:.3f} s after the "
+                                 f"kill, past stale_after {stale_after} s + two cycles of "
+                                 f"{cycle_s:.3f} s")
+        capsule = {}
+        wait(lambda: capsule.update(_alert_capsule(maddr, "scrape_staleness")) or capsule,
+             "the master's alert capsule", 60)
+        sections = {f["Name"]: f["Ok"] for f in capsule["Files"]}
+        if not (sections.get("tsdb.json") and sections.get("cluster.json")):
+            raise AssertionError(f"telemetry: the master's capsule holds {sections}")
+        _, text = shell.run("capsule.capture -reason degraded")
+        live = [nodes[i] for i in range(3) if i != victim]
+        for node in live:
+            with urllib.request.urlopen(f"http://{node}/capsule/list", timeout=10) as r:
+                mine = [c for c in json.loads(r.read())["Capsules"] if c["Reason"] == "degraded"]
+            if not mine or mine[-1]["Node"] != node:
+                raise AssertionError(f"telemetry: no capsule on {node}: {text}")
+
+        def get(conn, item):
+            status, _, body = _http(conn, "GET", f"/{item[0]}")
+            if status != 200 or hashlib.sha256(body).hexdigest() != want_sha:
+                raise AssertionError(f"telemetry: GET {item[0]} answered {status} with "
+                                     f"another body")
+
+        t0 = time.perf_counter()
+        _fan(ports[serving], 8, keys, get)
+        sha_s = time.perf_counter() - t0
+        runs["tele_degraded"] = {"wall_s": walls["weedload_degraded"], "launches": launches,
+                                 "sigs": {}, "report": row, "keys": len(keys)}
+        log(f"telemetry degraded GETs on {card}: volume{victim} ({victim_node}, shards "
+            f"{sorted(lost)}) SIGKILLed; run_load(readers={TELE_READERS}, verify_bytes="
+            f"{CLI_FILE_BYTES}) over the {len(keys)} needles with bytes on them, routed to "
+            f"volume{serving} ({serve_node}, shards {held[serving]}): {row['req_per_sec']} "
+            f"req/s, p50 {row['p50_ms']} ms, p99 {row['p99_ms']} ms, p99.9 {row['p999_ms']} ms "
+            f"({row['ops']} ops, {row['errors']} errors, {row['mb_per_sec']} MB/s); the serving "
+            f"holder's launches {launches}; every needle then read back with its payload's "
+            f"SHA-256 in {sha_s:.3f} s; scrape_staleness fired {fire_s:.3f} s after the kill "
+            f"(stale_after {stale_after} s, cycles {cycle_s:.3f} s apart); the master's alert capsule "
+            f"{capsule['Id']} sections {sections}; capsule.capture on every live server; "
+            f"run_load workers' libcuda/libtorch {load_maps}; {smi}")
+
+        # --- 5. the holder back: the alert resolves; the ranking ---
+        t0 = time.perf_counter()
+        spawn(f"volume{victim}-restarted", volume_args(victim), f"volume{victim}")
+
+        def resolved() -> bool:
+            return (not _firing(maddr, "scrape_staleness", victim_node)
+                    and _scraped(maddr, [victim_node]))
+
+        wait(resolved, "scrape_staleness resolved after the restart", 120)
+        resolve_s = time.perf_counter() - t0
+        history = [a for a in _alerts(maddr)["History"]
+                   if a["Alert"] == "scrape_staleness" and a["Target"] == victim_node]
+        if not history:
+            raise AssertionError("telemetry: the resolved alert is not in the history")
+        with urllib.request.urlopen(f"http://{maddr}/cluster/top?n=10", timeout=10) as r:
+            top = json.loads(r.read())
+        rates = [r["ReqPerSec"] for r in top["Nodes"]]
+        listed = [r["Url"] for r in top["Nodes"]]
+        if rates != sorted(rates, reverse=True) or not set(live) <= set(listed):
+            raise AssertionError(f"telemetry: /cluster/top lists {top['Nodes']}")
+        _, text = shell.run(f"capsule.capture -node {maddr} -reason ranking")
+        with urllib.request.urlopen(f"http://{maddr}/capsule/list", timeout=10) as r:
+            cap = [c for c in json.loads(r.read())["Capsules"] if c["Reason"] == "ranking"][-1]
+        with urllib.request.urlopen(f"http://{maddr}/capsule/get?id={cap['Id']}&file=tsdb.json",
+                                    timeout=30) as r:
+            gets = _tsdb_gets(json.loads(r.read()), t_kill_unix, t_load_unix)
+        ranked = sorted(live, key=lambda u: -gets.get(u, 0.0))
+        if ranked[0] != serve_node or gets.get(serve_node, 0.0) < row["ops"]:
+            raise AssertionError(f"telemetry: the TSDB counts GETs {gets} over the degraded "
+                                 f"run ({row['ops']} ops to {serve_node})")
+        walls["restart_resolve"] = resolve_s
+        runs["tele"] = {"walls": walls, "healthy": {m: healthy[m] for m in ("put", "get")},
+                        "degraded": row, "fire_s": fire_s, "resolve_s": resolve_s,
+                        "stale_after": stale_after, "cycle_s": cycle_s}
+        log(f"telemetry on {card}: volume{victim} restarted on its directory; "
+            f"scrape_staleness resolved {resolve_s:.3f} s after the restart began; /cluster/top "
+            f"{[(r['Url'], r['Kind'], r['ReqPerSec'], r['P99Ms']) for r in top['Nodes']]} (req/s "
+            f"over its {health['WindowSeconds']} s window, the healthy run inside it); GETs "
+            f"over the degraded run in the master's TSDB by target "
+            f"{ {u: round(v) for u, v in gets.items()} }")
+        maps = _maps_has(procs["master"].pid, "libcuda", "libtorch")
+        if maps["libcuda"]:
+            raise AssertionError(f"telemetry: the master maps {maps}")
+        rcs["shell"] = shell.exit()
+        if rcs["shell"]:
+            raise AssertionError(f"telemetry: the shell exited {rcs['shell']}")
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        for name, p in procs.items():
+            if name not in rcs and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            if name not in rcs:
+                try:
+                    rcs[name] = p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rcs[name] = p.wait(10)
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"telemetry: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must be 0); "
+        f"step walls (s) { {k: round(v, 3) for k, v in walls.items()} } on {card}")
+    if bad:
+        raise AssertionError(f"telemetry: processes exited non-zero {bad}: "
+                             f"{ {n: _tail(n) for n in bad} }")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -4576,6 +5121,8 @@ def main() -> int:
                                                args.seed, None, card, smi)),
         ("3g cli", lambda w: run_cli_phase(w, CUT_BYTES, args.seed, None, card, smi)),
         ("3h edge", lambda w: run_edge_phase(w, args.seed, None, card, smi)),
+        ("3i telemetry", lambda w: run_telemetry_phase(w, CUT_BYTES, args.seed, None, card,
+                                                       smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -4607,7 +5154,7 @@ def main() -> int:
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
-             "edge_ec", "batch_encode", "batch_rebuild", "batch_verify")
+             "edge_ec", "tele_degraded", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -4617,7 +5164,8 @@ def main() -> int:
         f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, the command "
         f"line's ec.encode, scrub sweeps and scheduled repair in the servers' processes "
         f"and the verify core in this one, the serving edge's EC GETs on a -workers lead, "
-        f"batch encode, rebuild and verify) on {card}: "
+        f"the telemetry phase's degraded weedload GETs, batch encode, rebuild and verify) "
+        f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")
     deg = runs["degraded"]

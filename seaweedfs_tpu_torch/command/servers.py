@@ -12,9 +12,10 @@ plain reads from disk and never touch the card; with `-shardWrites`
 they also own the writes of their share of the volumes. What needs a
 plane the port does not have yet exits 2 naming its ROADMAP item:
 `filer`, `s3`, `webdav` and `mount`, and `server`'s -filer/-s3/-webdav
-(item 11); the telemetry collector, `-telemetryInterval` > 0 (item 13,
-so a master started from the command line passes -telemetryInterval 0);
-and the disk-fault shim that WEED_CHAOS_DISK arms (item 14)."""
+(item 11); and the disk-fault shim that WEED_CHAOS_DISK arms (item 14).
+`master` and `server` run the cluster telemetry collector every
+`-telemetryInterval` seconds (10 by default, as the reference's; 0
+turns it off)."""
 
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Offline/utility subcommands: version, scaffold, upload, download,
 backup, compact, fix, export — the tool half of the reference CLI
 (weed/command/{upload,download,backup,compact,fix,export,scaffold,
-version}.go); the port of seaweedfs_tpu/command/tools.py. `weedload`
-waits for the telemetry plane (ROADMAP item 13) and exits 2."""
+version}.go), and `weedload`, the telemetry plane's multi-process
+load harness; the port of seaweedfs_tpu/command/tools.py."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import json
 import os
 import sys
 
-from seaweedfs_tpu_torch.command import Command, Waiting, register
+from seaweedfs_tpu_torch.command import Command, register
 
 VERSION = "seaweedfs_tpu_torch 0.1 (PyTorch + CUDA build)"
 
@@ -438,14 +438,13 @@ class ExportCommand(Command):
 
 
 @register
-class WeedloadCommand(Waiting):
+class WeedloadCommand(Command):
     name = "weedload"
     help = (
         "multi-process closed-loop load harness: assign+PUT / "
         "lookup+GET workers, coordinated-omission-safe histograms, "
         "p50/p99/p99.9 report (telemetry plane, docs/TELEMETRY.md)"
     )
-    item = 13
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument(
@@ -466,3 +465,21 @@ class WeedloadCommand(Waiting):
         )
         p.add_argument("-seed", type=int, default=64, help="keys pre-written for GET workers")
 
+    def run(self, args) -> int:
+        from seaweedfs_tpu_torch.telemetry.weedload import run_load
+
+        report = run_load(
+            args.master,
+            duration_s=args.duration,
+            writers=args.writers,
+            readers=args.readers,
+            payload_bytes=args.size,
+            rate=args.rate,
+            seed_n=args.seed,
+        )
+        print(json.dumps(report, indent=2))
+        errs = sum(report.get(m, {}).get("errors", 0) for m in ("put", "get"))
+        ops = sum(report.get(m, {}).get("ops", 0) for m in ("put", "get"))
+        # non-zero exit when the run was mostly failures: a load tool
+        # that exits 0 while every request 500s hides outages in CI
+        return 0 if ops > 0 and errs <= ops else 1

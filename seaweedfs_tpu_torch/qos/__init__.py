@@ -1,7 +1,8 @@
 """QoS / tail-latency plane (docs/QOS.md).
 
 The port carries the singleflight leases and the first-k-wins gather
-the EC degraded read uses (singleflight.py, hedge.py), the admission
+the EC degraded read uses (singleflight.py, hedge.py), the hedged
+replica reads weedload's GET workers drive (hedge.py), the admission
 controller and group committer of the volume server (admission.py,
 group_commit.py), and the feature switches and load tracker below.
 

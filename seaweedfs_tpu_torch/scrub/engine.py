@@ -24,7 +24,10 @@ delta beat, not the next tick.
 
 The port of seaweedfs_tpu/scrub/engine.py: an EC volume's sweep runs
 through the volume's own codec (`ev.rs`), so a card server re-verifies
-on the card, on its store's device.
+on the card, on its store's device. Its corruption counter's series are
+created at 0 when the engine is, so the cluster collector's
+scrub_corruptions alert sees a node's first corruption (the
+reference's, born at the first corruption, shows it to no rule).
 """
 
 from __future__ import annotations
@@ -69,6 +72,14 @@ class ScrubEngine:
         self.fetcher_factory = fetcher_factory
         self.on_event = on_event or (lambda: None)
         self.node_label = node_label
+        # the corruption counter's series exist from the start, at 0: the
+        # telemetry collector's increase() needs two samples of a series,
+        # so one born at this node's first corruption (as the reference's
+        # is) never shows that corruption to the scrub_corruptions alert
+        from seaweedfs_tpu_torch.stats.metrics import SCRUB_CORRUPTIONS
+
+        for kind in ("plain", "ec"):
+            SCRUB_CORRUPTIONS.labels(node_label, kind).inc(0.0)
         # burst capped at 2 tiles (not the bucket's default of one
         # second of rate): a sweep start must trickle, not storm — a
         # 64 MB burst of back-to-back preads+CRC is a foreground p99

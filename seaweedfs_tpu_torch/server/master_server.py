@@ -24,13 +24,12 @@ with `peers` and `raft_dir`, cluster/raft.py replicates MaxVolumeId and
 elects the leader.
 
 The port of seaweedfs_tpu/server/master_server.py, with the repair
-scheduler (`repair_interval > 0`, scrub/repair.py) and the tier
-scheduler (`tier_interval > 0`, tier/scheduler.py). The planes the port
-does not have yet raise NotImplementedError naming their ROADMAP item:
-the telemetry collector (`telemetry_interval > 0`, item 13) and the
-etcd sequencer (item 5). With the collector off the master answers its
-routes as the reference does with it off. stop() ends every thread
-start() made.
+scheduler (`repair_interval > 0`, scrub/repair.py), the tier scheduler
+(`tier_interval > 0`, tier/scheduler.py) and the cluster telemetry
+collector (`telemetry_interval > 0`, telemetry/collector.py) with its
+alert-triggered incident capsules. The etcd sequencer, which the port
+does not have yet, raises NotImplementedError naming its ROADMAP item
+(5). stop() ends every thread start() made.
 """
 
 from __future__ import annotations
@@ -117,16 +116,11 @@ class MasterServer:
         repair_concurrency: int = 2,
         repair_grace: float = 30.0,
         telemetry_interval: float = 0.0,
+        telemetry_kwargs: dict | None = None,
         tier_interval: float = 0.0,
         tier_kwargs: dict | None = None,
         assign_policy: str = "p2c",
     ):
-        # a plane not ported yet is refused up front, never silently off
-        if telemetry_interval > 0:
-            raise NotImplementedError(
-                f"telemetry_interval={telemetry_interval!r} needs the "
-                "telemetry collector, not ported yet (ROADMAP item 13)"
-            )
         # QoS plane (docs/QOS.md): "p2c" = queue-depth-aware
         # power-of-two-choices over writable volumes; "random" keeps
         # the pre-QoS pure-random pick (-assignPolicy random; WEED_QOS=0
@@ -233,10 +227,23 @@ class MasterServer:
                 concurrency=repair_concurrency,
                 grace=repair_grace,
             )
+        # telemetry plane (docs/TELEMETRY.md): leader-only /metrics
+        # scraper + ring TSDB + alert rules. telemetry_interval <= 0
+        # leaves the plane off — the command line enables it by
+        # default; tests and embedders opt in (a background scraper
+        # hitting every node changes observable traffic).
+        self.telemetry = None
+        if telemetry_interval > 0:
+            from seaweedfs_tpu_torch.telemetry import ClusterCollector
+
+            self.telemetry = ClusterCollector(
+                self, interval=telemetry_interval, **(telemetry_kwargs or {})
+            )
+            self._wire_capsules()
         # tiering plane (docs/TIERING.md): leader-only lifecycle
         # scheduler driving tier-out/tier-in moves at the shard
         # holders. tier_interval <= 0 leaves tiering manual (tier.move
-        # in the shell) — same opt-in contract as repair.
+        # in the shell) — same opt-in contract as repair/telemetry.
         self.tier = None
         if tier_interval > 0:
             from seaweedfs_tpu_torch.tier import TierScheduler
@@ -244,6 +251,40 @@ class MasterServer:
             self.tier = TierScheduler(
                 self, interval=tier_interval, **(tier_kwargs or {})
             )
+
+    def _wire_capsules(self) -> None:
+        """weedscope (docs/TELEMETRY.md): leader-side capsule wiring.
+        Firing alerts trigger a local capture plus remote captures on
+        every implicated node, and the master's capsules grow the
+        leader-only sections: the relevant TSDB window, the alert/SLO
+        verdicts, and the health-plane snapshot."""
+        from seaweedfs_tpu_torch.telemetry import capsule
+        from seaweedfs_tpu_torch.trace import blackbox
+
+        tel = self.telemetry
+
+        def peers_for(alert_row: dict) -> list[str]:
+            target = alert_row.get("Target", "")
+            if ":" in target:  # node-scoped alert: that node is enough
+                return [target]
+            # cluster-scoped (SLO objective, repair depth): everyone
+            # currently serving is implicated — fan the capture out
+            return tel.up_targets()
+
+        tel.alerts.on_fire = capsule.CaptureCoordinator(
+            node=f"{self.host}:{self.port}",
+            peers_fn=peers_for,
+            enabled_fn=blackbox.enabled,
+        )
+        capsule.add_provider("tsdb", tel.window_payload)
+        capsule.add_provider(
+            "cluster",
+            lambda: {
+                "Alerts": tel.alerts.payload(),
+                "SLO": tel.slo_payload(),
+                "Health": tel.health_payload(),
+            },
+        )
 
     # gateways silent for this long stop being offered to the collector
     # (its own sticky-target window keeps their staleness alert alive
@@ -919,20 +960,43 @@ class MasterServer:
                         # "Disabled" for a cluster whose leader is
                         # collecting fine
                         return self._proxy_http_to_leader()
-                    disabled = {
-                        "Disabled": True,
-                        "error": "telemetry collector disabled "
-                        "on this master (-telemetryInterval 0)",
-                    }
                     if path == "/cluster/health":
                         # weedguard (docs/HEALTH.md): per-node health
                         # scores/states ride this surface even with the
                         # telemetry collector off — the health plane
                         # lives on heartbeats alone
+                        payload = {"NodeHealth": server.health.payload()}
+                        if server.telemetry is None:
+                            payload["Disabled"] = True
+                            payload["error"] = (
+                                "telemetry collector disabled "
+                                "on this master (-telemetryInterval 0)"
+                            )
+                        else:
+                            payload.update(
+                                server.telemetry.health_payload()
+                            )
+                        return self._json(payload)
+                    if server.telemetry is None:
                         return self._json(
-                            {"NodeHealth": server.health.payload(), **disabled}
+                            {
+                                "Disabled": True,
+                                "error": "telemetry collector disabled "
+                                "on this master (-telemetryInterval 0)",
+                            }
                         )
-                    return self._json(disabled)
+                    if path == "/cluster/alerts":
+                        return self._json(server.telemetry.alerts.payload())
+                    if path == "/cluster/slo":
+                        # weedscope (docs/TELEMETRY.md): per-objective
+                        # burn rates, budget remaining, and the soak
+                        # scorecard — the cluster.slo shell surface
+                        return self._json(server.telemetry.slo_payload())
+                    try:
+                        n = int(q.get("n", "10"))
+                    except ValueError:
+                        n = 10
+                    return self._json(server.telemetry.top_payload(n))
                 if path == "/repair/queue":
                     # scrub plane operator surface (repair.queue shell
                     # command): scheduler config, tracked damage with
@@ -1394,6 +1458,8 @@ class MasterServer:
         self._http_server.wait_armed()
         if self.repair is not None:
             self.repair.start()
+        if self.telemetry is not None:
+            self.telemetry.start()
         if self.tier is not None:
             self.tier.start()
         # continuous sampling profiler (telemetry/profiler.py): every
@@ -1410,9 +1476,12 @@ class MasterServer:
         sampling profiler. A Heartbeat stream still open ends with the
         gRPC server, so its node is unregistered as on a stream break.
         The repair and tier schedulers' loops and the repairs and moves
-        they launched have ended too."""
+        they launched have ended too, and so have the telemetry
+        collector's loop and the capsule captures its alerts launched."""
         if self.tier is not None:
             self.tier.stop()
+        if self.telemetry is not None:
+            self.telemetry.stop()
         if self.repair is not None:
             self.repair.stop()
         self._stop_event.set()

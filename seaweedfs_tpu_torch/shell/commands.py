@@ -7,7 +7,8 @@ port of seaweedfs_tpu/shell/commands.py. Implemented here:
   volume.move  volume.vacuum  volume.balance  volume.fix.replication
   collection.list  collection.delete  node.drain  help
   trace.status  trace.dump  cluster.health  cluster.alerts  cluster.top
-  cluster.slo  profile.capture  repair.queue  scrub.status  scrub.trigger
+  cluster.slo  capsule.capture  capsule.collect  profile.capture
+  repair.queue  scrub.status  scrub.trigger
   ec.verify  volume.tier.upload  volume.tier.download  tier.status
   tier.move
 The EC verbs run on the volume servers' codec: on a card server,
@@ -1833,6 +1834,142 @@ class ClusterSlo(Command):
 
 
 @register
+class CapsuleCapture(Command):
+    name = "capsule.capture"
+    help = (
+        "capsule.capture [-node host:port] [-reason R] [-json] — "
+        "snapshot an incident capsule (blackbox ring, traces, folded "
+        "stacks, metrics; TSDB window + verdicts on the master) NOW "
+        "on every reachable node (or just -node)"
+    )
+
+    def run(self, env, args, out):
+        import json as _json
+        from urllib.parse import quote
+
+        node = _flag(args, "node")
+        reason = _flag(args, "reason", "shell")
+        urls = [node] if node else _trace_nodes(env)
+        rows = []
+        for url in urls:
+            try:
+                manifest = _http_json(
+                    f"http://{url}/capsule/capture?reason={quote(reason)}",
+                    timeout=30.0,
+                )
+            except (OSError, ValueError) as e:
+                rows.append({"Node": url, "Error": str(e)})
+                continue
+            manifest["Node"] = manifest.get("Node") or url
+            rows.append(manifest)
+        if _has_flag(args, "json"):
+            print(_json.dumps({"Capsules": rows}), file=out)
+            return
+        for row in rows:
+            if row.get("Error"):
+                print(f"{row['Node']}: unreachable ({row['Error']})", file=out)
+                continue
+            ok = [f["Name"] for f in row.get("Files") or [] if f.get("Ok")]
+            failed = [
+                f["Name"] for f in row.get("Files") or [] if not f.get("Ok")
+            ]
+            line = f"{row['Node']}: captured {row['Id']} ({', '.join(ok)})"
+            if failed:
+                line += f" FAILED: {', '.join(failed)}"
+            print(line, file=out)
+
+
+@register
+class CapsuleCollect(Command):
+    name = "capsule.collect"
+    help = (
+        "capsule.collect [-reason R] [-n 5] [-json] — gather each "
+        "node's newest capsule (optionally matching -reason) and merge "
+        "their blackbox wide-events by trace id into one cross-node "
+        "incident view"
+    )
+
+    def run(self, env, args, out):
+        import json as _json
+
+        reason = _flag(args, "reason")
+        n = int(_flag(args, "n", "5") or 5)
+        summary: list[dict] = []
+        merged: dict[str, list[dict]] = {}
+        for url in _trace_nodes(env):
+            try:
+                caps = (
+                    _http_json(f"http://{url}/capsule/list").get("Capsules")
+                    or []
+                )
+            except (OSError, ValueError) as e:
+                summary.append({"Node": url, "Error": str(e)})
+                continue
+            if reason:
+                caps = [c for c in caps if reason in c.get("Reason", "")]
+            if not caps:
+                summary.append({"Node": url, "Capsule": None})
+                continue
+            cap = caps[-1]  # list_capsules returns oldest first
+            summary.append({
+                "Node": url,
+                "Capsule": cap.get("Id"),
+                "Reason": cap.get("Reason"),
+                "Trigger": cap.get("Trigger"),
+                "CapturedAtUnix": cap.get("CapturedAtUnix"),
+            })
+            try:
+                bb = _http_json(
+                    f"http://{url}/capsule/get"
+                    f"?id={cap['Id']}&file=blackbox.json"
+                )
+            except (OSError, ValueError):
+                continue
+            for rec in (bb.get("tail") or []) + (bb.get("ok") or []):
+                tid = rec.get("trace") or ""
+                if not tid:
+                    continue
+                rec = dict(rec)
+                rec["node"] = url
+                merged.setdefault(tid, []).append(rec)
+        for evs in merged.values():
+            evs.sort(key=lambda r: r.get("t", 0))
+        if _has_flag(args, "json"):
+            print(
+                _json.dumps({"Nodes": summary, "Traces": merged}), file=out
+            )
+            return
+        for row in summary:
+            if row.get("Error"):
+                print(f"{row['Node']}: unreachable ({row['Error']})", file=out)
+            elif row.get("Capsule") is None:
+                print(f"{row['Node']}: no matching capsule", file=out)
+            else:
+                print(
+                    f"{row['Node']}: {row['Capsule']} "
+                    f"({row['Trigger']}: {row['Reason']})",
+                    file=out,
+                )
+        # widest traces first: the cross-node stories are the point
+        ranked = sorted(
+            merged.items(),
+            key=lambda kv: (-len({e['node'] for e in kv[1]}), -len(kv[1])),
+        )
+        print(f"{len(merged)} trace(s) across capsules", file=out)
+        for tid, evs in ranked[:n]:
+            nodes = len({e["node"] for e in evs})
+            print(f"  trace {tid} ({len(evs)} event(s), {nodes} node(s)):",
+                  file=out)
+            for e in evs:
+                flags = f" [{','.join(e['flags'])}]" if e.get("flags") else ""
+                print(
+                    f"    {e['node']} {e['name']} {e['status']} "
+                    f"{e['dur_ms']:.1f}ms{flags}",
+                    file=out,
+                )
+
+
+@register
 class ProfileCapture(Command):
     name = "profile.capture"
     help = (
@@ -2025,16 +2162,6 @@ class TierMove(Command):
 
 WAITING = {
     # name: (ROADMAP item, what it needs, the reference's help)
-    "capsule.capture": (13, "the incident-capsule surface",
-                        "capsule.capture [-node host:port] [-reason R] [-json] — "
-                        "snapshot an incident capsule (blackbox ring, traces, folded "
-                        "stacks, metrics; TSDB window + verdicts on the master) NOW "
-                        "on every reachable node (or just -node)"),
-    "capsule.collect": (13, "the incident-capsule surface",
-                        "capsule.collect [-reason R] [-n 5] [-json] — gather each "
-                        "node's newest capsule (optionally matching -reason) and merge "
-                        "their blackbox wide-events by trace id into one cross-node "
-                        "incident view"),
     "replication.lag": (12, "replication/ and the filer's lag metric",
                         "replication.lag [-json] — cross-cluster replication consumer "
                         "lag as seen by the leader's telemetry rings (filer-exposed "

@@ -4,9 +4,10 @@ text exposition.
 The port carries the families its modules name (the EC pipelines, the
 degraded read, the store, the volume server, its mini loop and write
 path, the master's health plane, the scrub engine and repair
-scheduler, the tier engine, the client's retries and the push loop);
-the reference's telemetry and replication families come with those
-planes.
+scheduler, the tier engine, the client's retries and hedged reads, the
+push loop, and the cluster telemetry plane: scrape health, alerts, SLO
+burn and incident capsules); the reference's replication and handoff
+families come with those planes.
 
 A Registry renders Prometheus text format 0.0.4 so any scraper
 understands it (weed/stats/metrics.go:14-60). The push loop to a
@@ -358,6 +359,21 @@ TIME_TO_REPAIR = DEFAULT_REGISTRY.histogram(
 )
 
 # --- QoS / tail-latency plane (docs/QOS.md) ---------------------------------
+# Hedged reads (client side): fired = second attempt launched after the
+# adaptive delay; won = the hedge (not the primary) returned first;
+# cancelled = the losing attempt's connection was torn down mid-flight.
+HEDGE_FIRED = DEFAULT_REGISTRY.counter(
+    "weed_hedge_fired_total",
+    "hedged read second attempts launched after the adaptive delay",
+)
+HEDGE_WON = DEFAULT_REGISTRY.counter(
+    "weed_hedge_won_total",
+    "hedged reads where the second attempt beat the primary",
+)
+HEDGE_CANCELLED = DEFAULT_REGISTRY.counter(
+    "weed_hedge_cancelled_total",
+    "losing hedged-read attempts cancelled (connection torn down)",
+)
 HEDGE_SERVED = DEFAULT_REGISTRY.counter(
     "weed_hedge_served_total",
     "requests a server observed carrying the x-weed-hedge hop header",
@@ -505,6 +521,46 @@ HEALTH_TRANSITIONS = DEFAULT_REGISTRY.counter(
     "weed_health_transitions_total",
     "node health-state transitions observed by the master, by new state",
     ("state",),
+)
+
+# --- cluster telemetry plane (docs/TELEMETRY.md) ----------------------------
+# Set by the master's leader-only collector: per-target scrape health
+# and the alert rule engine's firing state, re-exported so any external
+# scraper of the master inherits cluster aggregation and alerting.
+SCRAPE_STALENESS = DEFAULT_REGISTRY.gauge(
+    "weed_scrape_staleness_seconds",
+    "seconds since the collector last scraped this target successfully",
+    ("target",),
+)
+SCRAPE_UP = DEFAULT_REGISTRY.gauge(
+    "weed_scrape_up",
+    "1 when the most recent scrape of this target succeeded, else 0",
+    ("target",),
+)
+ALERT_FIRING = DEFAULT_REGISTRY.gauge(
+    "weed_alert_firing",
+    "1 while this alert rule is firing for this target",
+    ("alert", "target"),
+)
+# Set by the leader's SLO engine (telemetry/slo.py) every collector
+# cycle: multi-window burn rate per objective (window: fast | slow) and
+# the fraction of the slow window's error budget still unspent.
+SLO_BURN_RATE = DEFAULT_REGISTRY.gauge(
+    "weed_slo_burn_rate",
+    "error-budget burn rate per SLO objective and evaluation window "
+    "(1.0 = burning exactly the sustainable budget)",
+    ("objective", "window"),
+)
+SLO_BUDGET_REMAINING = DEFAULT_REGISTRY.gauge(
+    "weed_slo_budget_remaining",
+    "fraction of the SLO error budget left over the slow window "
+    "(1.0 = untouched, 0.0 = fully burned)",
+    ("objective",),
+)
+CAPSULE_CAPTURES = DEFAULT_REGISTRY.counter(
+    "weed_capsule_captures_total",
+    "incident capsules captured on this node",
+    ("trigger",),  # trigger: alert | manual | error
 )
 
 

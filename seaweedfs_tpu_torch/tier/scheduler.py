@@ -18,10 +18,11 @@ wedged backend costs a bounded failed attempt, not a parked slot) and
 X-Weed-Trace (plane=tier, so tier traffic competing with serving is
 attributable in trace dumps).
 
-The port of seaweedfs_tpu/tier/scheduler.py. The port's master has no
-telemetry collector yet (ROADMAP item 13), so every volume reads cold
-and age alone gates tiering, as on a reference master with the
-collector off. stop() also joins the moves the scheduler launched.
+The port of seaweedfs_tpu/tier/scheduler.py. A volume's temperature is
+its read rate in the master's telemetry collector (read_rate); with the
+collector off (-telemetryInterval 0) every volume reads cold and age
+alone gates tiering, as on a reference master. stop() also joins the
+moves the scheduler launched.
 """
 
 from __future__ import annotations

@@ -864,14 +864,43 @@ def _serve_debug(h, bare: str) -> None:
 
 
 def _serve_capsule(h, bare: str) -> None:
-    """The incident-capsule surface (seaweedfs_tpu/telemetry/capsule.py)
-    is not part of the port yet (ROADMAP item 13): every `/capsule/*`
-    route answers 501 naming it."""
-    h.fast_reply(
-        501,
-        b'{"error": "incident capsules are not ported yet (ROADMAP item 13)"}',
-        JSON_HDR,
-    )
+    """Per-node incident-capsule surface (telemetry/capsule.py), served
+    by every daemon: `/capsule/capture?reason=R` snapshots the node's
+    evidence NOW (the leader's CaptureCoordinator dials this on every
+    implicated peer when an alert fires), `/capsule/list` returns the
+    valid manifests, `/capsule/get?id=I&file=F` streams one capsule
+    file for leader-side `capsule.collect` merging. Under the C serving
+    loop every `/capsule/*` request is handed off to a thread, so a
+    capture never runs on the loop's own thread."""
+    from seaweedfs_tpu_torch.telemetry import capsule
+
+    q = fast_query(h.path.partition("?")[2])
+    if bare == "/capsule/capture":
+        trigger = q.get("trigger", "manual")
+        if trigger not in ("manual", "alert"):  # bound the label set
+            trigger = "manual"
+        manifest = capsule.capture(
+            q.get("reason", "http"),
+            trigger=trigger,
+            node=getattr(h.server, "trace_node", ""),
+        )
+        return h.fast_reply(200, _json.dumps(manifest).encode(), JSON_HDR)
+    if bare == "/capsule/list":
+        return h.fast_reply(
+            200,
+            _json.dumps({"Capsules": capsule.list_capsules()}).encode(),
+            JSON_HDR,
+        )
+    if bare == "/capsule/get":
+        data = capsule.read_file(q.get("id", ""), q.get("file", ""))
+        if data is None:
+            return h.fast_reply(
+                404, b'{"error": "no such capsule file"}', JSON_HDR
+            )
+        return h.fast_reply(
+            200, data, {"Content-Type": "application/octet-stream"}
+        )
+    return h.fast_reply(404, b'{"error": "unknown capsule route"}', JSON_HDR)
 
 
 def _bad_request(h, msg: str) -> None:

@@ -11,13 +11,17 @@ the incremental backup) run against each package's own in-process
 cluster, the port's on the cuda backend with device="cpu" (the kernels'
 plain versions). The subprocess cases start the port's daemons with
 `-ec.codec cpu`, as the repo conftest's WEED_EC_CODEC=cpu does for the
-reference's, and `-telemetryInterval 0`, since the telemetry collector
-waits for ROADMAP item 13: the all-in-one `server`, a SIGKILLed volume
-server restarted on its directory, and the master's liveness sweep of a
-SIGSTOPped volume server; each subprocess case keeps the time limits
-the reference's gives it. The commands whose planes the port does not
-have exit 2 naming their ROADMAP item, and a `volume` with neither a
-card nor `-ec.codec` fails naming CUDA. The tolerance is equality.
+reference's, and the master with its telemetry collector on at the
+reference's default interval: the all-in-one `server`, a SIGKILLed
+volume server restarted on its directory, and the master's liveness
+sweep of a SIGSTOPped volume server; each subprocess case keeps the time
+limits the reference's gives it. The telemetry plane's commands run as
+the reference's do: `weedload` against each package's in-process
+cluster exits 0 with the reference's report keys, and `master
+-telemetryInterval 10` answers /cluster/alerts. The commands whose
+planes the port does not have exit 2 naming their ROADMAP item, and a
+`volume` with neither a card nor `-ec.codec` fails naming CUDA. The
+tolerance is equality.
 """
 
 import contextlib
@@ -229,8 +233,6 @@ def test_help_lists_the_references_commands():
 @pytest.mark.parametrize("argv,item", [
     (["filer"], 11), (["s3"], 11), (["webdav"], 11), (["mount"], 11),
     (["filer.copy", "a", "http://127.0.0.1:1/x/"], 11), (["filer.replicate"], 12),
-    (["weedload"], 13),
-    (["master", "-telemetryInterval", "10"], 13),
     (["master", "-telemetryInterval", "0", "-sequencer.etcd", "127.0.0.1:1"], 5),
     (["server", "-filer"], 11), (["server", "-s3"], 11), (["server", "-webdav"], 11),
 ])
@@ -238,6 +240,78 @@ def test_unported_planes_exit_2_naming_their_item(argv, item):
     rc, _out, err = run("port", argv)
     assert rc == 2
     assert f"ROADMAP item {item})" in err
+
+
+def _report_keys(report: dict) -> dict:
+    return {k: sorted(v) if isinstance(v, dict) else None for k, v in report.items()}
+
+
+@pytest.mark.parametrize("argv", [["weedload"], ["master", "-telemetryInterval", "10"]],
+                         ids=["weedload", "master-telemetry"])
+def test_telemetry_plane_commands_run_as_the_references(argv, tmp_path):
+    """The telemetry plane's commands (ROADMAP item 13) run as the
+    reference's: `weedload` against each package's in-process cluster
+    exits 0 and prints a report with the reference's keys, its PUTs and
+    GETs all answered; `master -telemetryInterval 10` comes up with its
+    collector on, /cluster/alerts answering without "Disabled", and
+    SIGTERM ends it with exit code 0."""
+    if argv[0] == "weedload":
+        import seaweedfs_tpu.util.availability as ref_availability
+        import seaweedfs_tpu_torch.util.availability as port_availability
+
+        helpers = {"ref": ref_availability, "port": port_availability}
+        reports = {}
+        for side in SIDES:
+            kw = dict(ec_codec="cpu") if side == "ref" else dict(ec_codec="cuda", device="cpu")
+            (tmp_path / side).mkdir()
+            master, servers = helpers[side].start_cluster([str(tmp_path / side)],
+                                                          scrub_interval=0, **kw)
+            try:
+                rc, out, err = run(side, argv + [
+                    "-master", f"127.0.0.1:{master.port}", "-duration", "1",
+                    "-writers", "1", "-readers", "1", "-size", "256", "-seed", "4"])
+            finally:
+                for vs in servers:
+                    vs.stop()
+                master.stop()
+            assert rc == 0, err[-2000:]
+            reports[side] = json.loads(out)
+        assert _report_keys(reports["port"]) == _report_keys(reports["ref"])
+        for mode in ("put", "get"):
+            row = reports["port"][mode]
+            assert row["ops"] > 0 and row["errors"] == 0, reports["port"]
+        assert reports["port"]["config"]["processes"] == 2
+        return
+    mport = free_port()
+    proc = spawn_cli(*argv, "-port", str(mport), stdout=subprocess.PIPE)
+    try:
+        alerts = None
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            try:
+                alerts = http_json(f"http://127.0.0.1:{mport}/cluster/alerts")
+                break
+            except OSError:
+                time.sleep(0.2)
+        assert alerts is not None and "Disabled" not in alerts, alerts
+        assert sorted(alerts) == ["Firing", "History", "Pending"]
+        health = http_json(f"http://127.0.0.1:{mport}/cluster/health")
+        assert health["IntervalSeconds"] == 10.0 and "Disabled" not in health
+
+        def handles_sigterm() -> bool:  # installed after start(); SigCgt in /proc
+            with open(f"/proc/{proc.pid}/status") as f:
+                mask = next(line for line in f if line.startswith("SigCgt:")).split()[1]
+            return bool(int(mask, 16) & (1 << (signal.SIGTERM - 1)))
+
+        wait_until(handles_sigterm, "the master's SIGTERM handler")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+    assert proc.returncode == 0, out[-2000:]
 
 
 def test_flag_sets_equal_the_references():
@@ -440,7 +514,7 @@ class TestServerDaemon:
         mport, vport = free_port(), free_port()
         proc = spawn_cli("server", "-dir", str(tmp_path), "-master.port", str(mport),
                          "-volume.port", str(vport), "-ec.codec", "cpu",
-                         "-telemetryInterval", "0", stdout=subprocess.PIPE)
+                         stdout=subprocess.PIPE)
         try:
             assign = None
             deadline = time.time() + 30
@@ -490,7 +564,7 @@ class TestCrashRecovery:
         mport, vport = free_port(), free_port()
         vol_dir = tmp_path / "vol"
         vol_dir.mkdir()
-        procs = [spawn_cli("master", "-port", str(mport), "-telemetryInterval", "0")]
+        procs = [spawn_cli("master", "-port", str(mport))]
         try:
             wait_until(lambda: http(f"http://127.0.0.1:{mport}/cluster/status"), "master")
             volume = spawn_cli("volume", "-port", str(vport), "-dir", str(vol_dir),
@@ -529,8 +603,7 @@ class TestLivenessSweep:
         mport, vport = free_port(), free_port()
         vol_dir = tmp_path / "vol"
         vol_dir.mkdir()
-        procs = [spawn_cli("master", "-port", str(mport), "-nodeTimeout", "3",
-                           "-telemetryInterval", "0")]
+        procs = [spawn_cli("master", "-port", str(mport), "-nodeTimeout", "3")]
         try:
             wait_until(lambda: http_json(f"http://127.0.0.1:{mport}/cluster/status"),
                        "master")

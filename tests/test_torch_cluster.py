@@ -798,22 +798,28 @@ def test_volume_server_heartbeats_to_the_other_packages_master(
         c.stop()
 
 
-@pytest.mark.parametrize("kw, item", [({"repair_interval": 60.0}, None),
-                                      ({"tier_interval": 60.0}, None),
-                                      ({"telemetry_interval": 15.0}, "ROADMAP item 13")],
+@pytest.mark.parametrize("kw, plane", [({"repair_interval": 60.0}, "repair"),
+                                       ({"tier_interval": 60.0}, "tier"),
+                                       ({"telemetry_interval": 15.0}, "telemetry")],
                          ids=["repair", "tier", "telemetry"])
-def test_unported_master_planes_raise(kw, item):
-    """The master's planes that wait refuse up front, naming their item
-    (the reference starts them); off, the master comes up. The repair
-    and tier schedulers are ported (ROADMAP item 9): on, the master
-    builds them as the reference's does."""
-    if item is None:
-        (name, value), = kw.items()
-        plane = "repair" if name == "repair_interval" else "tier"
-        port, ref = PortMaster(port=free_port(), **kw), RefMaster(port=free_port(), **kw)
-        assert getattr(port, plane).interval == getattr(ref, plane).interval == value
-        assert type(getattr(port, plane)).__name__ == type(getattr(ref, plane)).__name__
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            PortMaster(port=free_port(), **kw)
-    PortMaster(port=free_port(), **{k: 0.0 for k in kw})
+def test_unported_master_planes_raise(kw, plane):
+    """The master's optional planes, built as the reference's are: the
+    repair and tier schedulers (ROADMAP item 9) and the telemetry
+    collector (item 13), each with the reference's class, interval and,
+    for the collector, thresholds and floors (window, staleness and
+    forget-after) and SLO engine windows; off, the master comes up
+    without the plane."""
+    port, ref = PortMaster(port=free_port(), **kw), RefMaster(port=free_port(), **kw)
+    got, want = getattr(port, plane), getattr(ref, plane)
+    assert type(got).__name__ == type(want).__name__
+    assert got.interval == want.interval == next(iter(kw.values()))
+    if plane == "telemetry":
+        keys = ("scrape_timeout", "ring_cap", "window_s", "stale_after", "forget_after",
+                "error_rate_threshold", "span_p99_threshold_s", "repair_depth_threshold",
+                "admission_reject_threshold", "repl_lag_threshold")
+        assert {k: getattr(got, k) for k in keys} == {k: getattr(want, k) for k in keys}
+        assert (got.slo.fast_s, got.slo.slow_s, got.slo.burn_threshold) == (
+            want.slo.fast_s, want.slo.slow_s, want.slo.burn_threshold)
+        assert [o.name for o in got.slo.objectives] == [o.name for o in want.slo.objectives]
+        assert type(got.alerts.on_fire).__name__ == "CaptureCoordinator"
+    assert getattr(PortMaster(port=free_port(), **{k: 0.0 for k in kw}), plane) is None

@@ -268,11 +268,10 @@ class TestVolumePlanners:
 def test_command_names_equal_the_references():
     assert sorted(COMMANDS) == sorted(REF_COMMANDS)
     assert len([n for n in COMMANDS if n.startswith("fs.")]) == 11
-    # the integrity plane's verbs run (ROADMAP item 9); the filer's,
-    # the capsules' and replication's still wait
+    # the integrity plane's verbs run (ROADMAP item 9) and the capsules'
+    # (item 13); the filer's and replication's still wait
     assert sorted(port_commands.WAITING) == sorted(
-        [n for n in COMMANDS if n.startswith("fs.")]
-        + ["capsule.capture", "capsule.collect", "replication.lag"])
+        [n for n in COMMANDS if n.startswith("fs.")] + ["replication.lag"])
     for name, cmd in COMMANDS.items():
         assert cmd.name == name and cmd.help == REF_COMMANDS[name].help, name
 
