@@ -170,6 +170,25 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      traffic; no weedload worker (of either run) and not the master maps
      libcuda or torch; SIGTERM ends every process with exit code 0; each
      step's wall printed beside the card's name and power limit;
+ 3j. the filer core (run_filer_phase): a master (-telemetryInterval 1,
+     -repairInterval 0, -volumeSizeLimitMB 1152), three `volume`
+     processes on the card and a `filer -store lsm -collection filer`
+     process (-maxMB 32), data in /dev/shm; `filer.copy` of a local tree
+     of 256 MiB (CUT_BYTES: files log-uniform over 1 KiB-4 MiB from the
+     seed, two of 40 MiB cut into two chunks each); fs.cd, fs.ls -l,
+     fs.du, fs.tree, fs.cat, fs.mv, fs.meta.save and fs.meta.load through
+     a `shell` process, each checked against the local tree; every file
+     read back through the filer, byte for byte, and the filer an up
+     scrape target of kind filer; ec.encode of the collection's volumes
+     (K1 + K4 on the servers' cards) and ec.balance -force, every file
+     read back; every 10th file deleted through the filer, its chunks'
+     fids then 404 on every holder and fs.du lower by their bytes; the
+     holder with the second most shards SIGKILLed and every live file
+     read back degraded through the filer (K1 on the survivors' cards,
+     off their /metrics), 0 errors; the filer restarted on its store,
+     fs.ls -l and fs.du as before; neither the filer nor filer.copy maps
+     libcuda or torch; SIGTERM ends every process with exit code 0; each
+     step's wall printed beside the card's name and power limit;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -213,6 +232,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -4727,6 +4747,515 @@ def run_telemetry_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     return runs
 
 
+# --- phase 3j: the filer ---------------------------------------------------
+
+
+FILER_ROOM = 2 << 30  # the filer phase's peak in its directory (about 0.8 GiB)
+FILER_BIG_FILES = 2  # files of FILER_BIG_BYTES: two chunks each at the filer's -maxMB 32
+FILER_BIG_BYTES = 40 << 20
+FILER_DELETE_EVERY = 10  # every 10th file deleted through the filer
+
+
+def _filer_tree(root: str, total: int, seed: int) -> dict:
+    """A local tree of about `total` bytes under root/tree: nested
+    directories of files log-uniform over 1 KiB-4 MiB (BASELINE.json
+    config 1's size mix) drawn from `seed`, FILER_BIG_FILES files of
+    FILER_BIG_BYTES, and one ASCII README.txt for fs.cat. Returns
+    {filer path: bytes}."""
+    rng = np.random.default_rng(seed)
+    files = {"/tree/README.txt": "".join(
+        rng.bytes(32).hex() + "\n" for _ in range(16)).encode()}
+    for i in range(FILER_BIG_FILES):
+        files[f"/tree/d{i}/big{i}.bin"] = rng.bytes(FILER_BIG_BYTES)
+    left, i = total - sum(len(b) for b in files.values()), 0
+    while left > 0:
+        size = min(left, int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20)))))
+        depth = int(rng.integers(1, 4))
+        d = "/".join(f"d{int(rng.integers(0, 4))}" for _ in range(depth))
+        files[f"/tree/{d}/f{i:04d}.bin"] = rng.bytes(size)
+        left -= size
+        i += 1
+    for path, data in files.items():
+        local = os.path.join(root, path.lstrip("/"))
+        os.makedirs(os.path.dirname(local), exist_ok=True)
+        with open(local, "wb") as f:
+            f.write(data)
+    return files
+
+
+def _du_line(files: dict, top: str) -> str:
+    """fs.du's line for `top` over {path: bytes}: bytes, files, the
+    directories below `top`."""
+    under = {p: b for p, b in files.items() if p.startswith(top + "/")}
+    dirs = {p[:i] for p in under for i in range(len(top) + 1, len(p))
+            if p[i] == "/"}
+    return (f"{sum(len(b) for b in under.values())}\t{len(under)} files\t"
+            f"{len(dirs)} dirs\t{top}")
+
+
+def run_filer_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                    card: str = "", smi: str = "") -> dict:
+    """The filer core (ROADMAP item 11a) over a cluster whose volume
+    servers hold its chunks EC-encoded on the card, every process
+    `python -m seaweedfs_tpu_torch`, data in `workdir` (/dev/shm), on
+    `device` (None: the card; "cpu" runs the volume servers with
+    -ec.codec cpu, a rehearsal):
+      1. a master (-telemetryInterval 1, -repairInterval 0,
+         -volumeSizeLimitMB 1152), three `volume` servers and a `filer`
+         (-store lsm -storePath in workdir -collection filer, the default
+         -maxMB 32);
+      2. `filer.copy` of a local tree of about `volume_bytes` (files
+         log-uniform over 1 KiB-4 MiB from the seed, two of 40 MiB that
+         the filer cuts into two chunks each) into the filer;
+      3. through a `shell` process: fs.cd, fs.ls -l, fs.du, fs.tree and
+         fs.cat of the README, each equal to what the local tree says;
+         fs.mv of one directory; fs.meta.save of a subtree, one of its
+         entries deleted, fs.meta.load bringing it back;
+      4. every file read back through the filer's HTTP GET, byte for
+         byte; the filer an up scrape target of kind filer on the
+         master's collector;
+      5. ec.encode -collection filer -fullPercent 0 and ec.balance
+         -force through the shell (K1 + K4 on the servers' cards); every
+         file read back again;
+      6. every FILER_DELETE_EVERY-th file deleted through the filer: its
+         chunk deletion loop deletes the chunks on the EC volumes (each
+         holder's BatchDelete, VolumeEcBlobDelete to the others); a GET
+         of each deleted chunk's fid answers 404 on every holder, and
+         fs.du drops by the deleted bytes;
+      7. the holder with the second most shards SIGKILLed; every live
+         file read back through the filer, byte for byte, 0 errors; each
+         survivor's K1 launches rise on its /metrics (one the filer sent
+         no degraded read is asked for a file on the lost shards
+         directly);
+      8. the filer restarted on its -storePath: fs.ls -l and fs.du give
+         what they gave before;
+      9. neither the filer nor filer.copy maps libcuda or torch; SIGTERM
+         ends every process with exit code 0 (the killed holder aside);
+     10. each step's wall printed beside the card's name and power limit.
+    Raises on any fault; returns filer_encode and filer_degraded with
+    the volume servers' launches."""
+    import signal
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import master_pb2, rpc
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    _check_room(workdir, FILER_ROOM if volume_bytes >= 1 << 28 else 4 * volume_bytes
+                + (1 << 27), "the filer phase")
+    on_card = device is None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+    logs = os.path.join(workdir, "logs")
+    os.mkdir(logs)
+    procs: dict = {}
+    rcs: dict = {}
+
+    def _tail(name: str) -> str:
+        with open(os.path.join(logs, name + ".log"), errors="replace") as f:
+            return f.read()[-3000:]
+
+    def spawn(name: str, args: list) -> subprocess.Popen:
+        procs[name] = subprocess.Popen(cli + args, cwd=here, env=env,
+                                       stdout=open(os.path.join(logs, name + ".log"), "w"),
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def wait(cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except (OSError, ValueError, KeyError):
+                pass
+            for name, p in procs.items():
+                if name not in rcs and p.poll() is not None:
+                    raise AssertionError(f"filer: {name} exited ({p.returncode}) while "
+                                         f"waiting for {what}: {_tail(name)}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"filer: {what} not seen within {timeout} s")
+            time.sleep(0.05)
+
+    def maps(pid: int) -> dict:
+        return _maps_has(pid, "libcuda", "libtorch")
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    mport, fport = free_port(), free_port()
+    ports = [free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
+    filer_args = ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master", maddr,
+                  "-store", "lsm", "-storePath", os.path.join(workdir, "filer-lsm"),
+                  "-collection", "filer"]
+
+    def filer_up() -> bool:
+        with urllib.request.urlopen(f"http://{faddr}/", timeout=5) as r:
+            return r.status == 200
+
+    def server_launches() -> dict:
+        """Each live volume server's kernel launches, and under
+        "degraded" the EC intervals it served by reconstruction."""
+        out = {}
+        for i in range(3):
+            if f"volume{i}" not in rcs:
+                m = _cli_metrics(ports[i])
+                out[i] = dict(_cli_launches(m),
+                              degraded=int(m.get("weed_ec_degraded_read_total", 0)))
+        return out
+
+    def launch_delta(before: dict, after: dict) -> dict:
+        return {k: sum(after[i][k] - before[i][k] for i in after) for k in _counts()}
+
+    def read_all(paths: list, label: str) -> float:
+        def get(conn, path):
+            status, _, body = _http(conn, "GET", path)
+            if status != 200 or body != files[path]:
+                raise AssertionError(f"filer {label}: GET {path} answered {status} with "
+                                     f"{len(body)} B, want {len(files[path])} B")
+
+        t0 = time.perf_counter()
+        _fan(fport, 8, paths, get)
+        return time.perf_counter() - t0
+
+    try:
+        # --- 1. the cluster and the filer ---
+        t0 = time.perf_counter()
+        spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                         "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval", "0",
+                         "-telemetryInterval", "1"])
+        wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                            timeout=2).close() is None, "the master")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                                 "-dir", d, "-max", "100", "-mserver", maddr,
+                                 "-rack", f"rack{i % 2}", "-scrubInterval", "0"] + codec_args)
+        spawn("filer", filer_args)
+        cenv = CommandEnv([maddr])
+        wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+        wait(filer_up, "the filer")
+        walls["up"] = time.perf_counter() - t0
+
+        # --- 2. filer.copy of a local tree ---
+        t0 = time.perf_counter()
+        files = _filer_tree(workdir, volume_bytes, seed + 160)
+        tree_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        copy = subprocess.Popen(cli + ["filer.copy", os.path.join(workdir, "tree"),
+                                       f"http://{faddr}/"], cwd=here, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        copy_maps: list = []
+        while copy.poll() is None:
+            with contextlib.suppress(OSError):
+                copy_maps.append(maps(copy.pid))
+            time.sleep(0.1)
+        out, _ = copy.communicate(timeout=60)
+        walls["fill"] = time.perf_counter() - t0
+        if copy.returncode or out.strip().splitlines()[-1:] != [f"copied {len(files)} files"]:
+            raise AssertionError(f"filer.copy exited {copy.returncode}: {out[-2000:]}")
+        if not copy_maps or any(any(m.values()) for m in copy_maps):
+            raise AssertionError(f"filer.copy's process maps {copy_maps[-1:]}")
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+
+            def chunk_fids(path: str) -> list:
+                d, _, name = path.rpartition("/")
+                resp = stub.LookupDirectoryEntry(
+                    fpb.LookupDirectoryEntryRequest(directory=d, name=name), timeout=30)
+                return [c.fid for c in resp.entry.chunks]
+
+            fids = {p: chunk_fids(p) for p in files}
+        big = {p: len(f) for p, f in fids.items() if len(files[p]) == FILER_BIG_BYTES}
+        if len(big) != FILER_BIG_FILES or set(big.values()) != {2}:
+            raise AssertionError(f"filer: the {FILER_BIG_BYTES} B files hold chunks {big}")
+        total = sum(len(b) for b in files.values())
+        log(f"filer: master, three volume servers and `filer -store lsm` up in "
+            f"{walls['up']:.3f} s; filer.copy of {len(files)} files, {total} B (a tree made in "
+            f"{tree_s:.3f} s) in {walls['fill']:.3f} s ({total / walls['fill'] / 1e6:.1f} "
+            f"MB/s), {sum(len(f) for f in fids.values())} chunks, each {FILER_BIG_BYTES} B "
+            f"file in 2; {smi}")
+
+        # --- 3. the namespace through the shell ---
+        t0 = time.perf_counter()
+        shell = _CliShell(cli + ["shell", "-master", maddr], env,
+                          os.path.join(logs, "shell.log"))
+        procs["shell"] = shell.proc
+        _, text = shell.run(f"fs.cd http://{faddr}/tree")
+        if text.strip().splitlines()[-1] != f"{faddr}/tree":
+            raise AssertionError(f"filer fs.cd: {text}")
+
+        def ls_rows(top: str) -> list:
+            names = sorted({p[len(top) + 1:].split("/")[0] for p in files
+                            if p.startswith(top + "/")})
+            rows = []
+            for n in names:
+                path = f"{top}/{n}"
+                kind, size = ("-", len(files[path])) if path in files else ("d", 0)
+                rows.append((kind, size, n + ("/" if kind == "d" else "")))
+            return rows
+
+        def check_ls(text: str, top: str) -> None:
+            got = []
+            for line in text.strip().splitlines()[:-1]:
+                col = line.split()
+                got.append((col[0][0], int(col[3]), col[4]))
+            want = ls_rows(top)
+            if got != want or text.strip().splitlines()[-1] != f"total {len(want)}":
+                raise AssertionError(f"filer fs.ls -l {top}: {text} != {want}")
+
+        _, text = shell.run("fs.ls -l")
+        check_ls(text, "/tree")
+        _, du = shell.run("fs.du")
+        if du.strip() != _du_line(files, "/tree"):
+            raise AssertionError(f"filer fs.du: {du} != {_du_line(files, '/tree')}")
+        _, text = shell.run("fs.tree")
+        n_dirs = int(_du_line(files, "/tree").split("\t")[2].split()[0])
+        if text.strip().splitlines()[-1] != f"{n_dirs} directories, {len(files)} files":
+            raise AssertionError(f"filer fs.tree: {text[-300:]}")
+        _, text = shell.run("fs.cat README.txt")
+        if text != files["/tree/README.txt"].decode():
+            raise AssertionError(f"filer fs.cat: {text[:200]}")
+        tops = sorted({p.split("/")[2] for p in files if p.count("/") > 2} - {"d0", "d1", "d2"})
+        moved = f"/tree/{tops[-1]}"
+        _, text = shell.run(f"fs.mv {moved} /moved")
+        files = {("/moved" + p[len(moved):] if p.startswith(moved + "/") else p): b
+                 for p, b in files.items()}
+        fids = {("/moved" + p[len(moved):] if p.startswith(moved + "/") else p): f
+                for p, f in fids.items()}
+        _, text = shell.run("fs.ls -l /moved")
+        check_ls(text, "/moved")
+        sub = "/tree/d2"
+        save = os.path.join(workdir, "d2.meta")
+        under = [p for p in files if p.startswith(sub + "/")]
+        subdirs = _du_line(files, sub).split("\t")[2].split()[0]
+        _, text = shell.run(f"fs.meta.save -o {save} {sub}")
+        if text.strip() != f"saved {len(under) + int(subdirs)} entries to {save}":
+            raise AssertionError(f"filer fs.meta.save: {text}")
+        gone = sorted(under)[0]
+        gone_dir, _, name = gone.rpartition("/")
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            rpc.filer_stub(ch).DeleteEntry(fpb.DeleteEntryRequest(
+                directory=gone_dir, name=name, is_delete_data=False), timeout=30)
+        with urllib.request.urlopen(f"http://{faddr}{gone_dir}", timeout=30) as r:
+            if gone in {e["FullPath"] for e in json.loads(r.read())["Entries"]}:
+                raise AssertionError(f"filer: {gone} still listed after DeleteEntry")
+        _, text = shell.run(f"fs.meta.load {save}")
+        if text.strip() != f"loaded {len(under) + int(subdirs)} entries":
+            raise AssertionError(f"filer fs.meta.load: {text}")
+        _, text = shell.run(f"fs.ls -l {gone_dir}")
+        check_ls(text, gone_dir)
+        walls["namespace"] = time.perf_counter() - t0
+
+        # --- 4. every file back through the filer, healthy ---
+        paths = sorted(files)
+        walls["read_healthy"] = read_all(paths, "healthy read")
+        health: dict = {}
+
+        def filer_target() -> bool:
+            with urllib.request.urlopen(f"http://{maddr}/cluster/health", timeout=10) as r:
+                health.update(json.loads(r.read())["Targets"].get(faddr, {}))
+            return bool(health.get("Up")) and health.get("Kind") == "filer"
+
+        scraped_s = wait(filer_target, "the filer as an up scrape target of kind filer", 60)
+        log(f"filer namespace through the shell: fs.cd, fs.ls -l, fs.du ({du.strip()!r}), "
+            f"fs.tree, fs.cat, fs.mv {moved} /moved, fs.meta.save/-load of {sub} "
+            f"({len(under)} files) in {walls['namespace']:.3f} s; {len(paths)} files read "
+            f"back healthy in {walls['read_healthy']:.3f} s ({total / walls['read_healthy'] / 1e6:.1f}"
+            f" MB/s); the filer an up scrape target of kind {health.get('Kind')} "
+            f"({scraped_s:.3f} s later); {smi}")
+
+        # --- 5. ec.encode and ec.balance, every file back ---
+        vols = {}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("filer_") and f.endswith(".dat"):
+                    path = os.path.join(d, f)
+                    vols[int(f[6:-4])] = (os.path.getsize(path), {
+                        nd.id: (off, nd.size) for nd, off in scan_volume_file(path)})
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run("ec.encode -collection filer -fullPercent 0")
+        if text.count("ec encoded volume") != len(vols):
+            raise AssertionError(f"filer ec.encode: {text[-2000:]} over volumes {sorted(vols)}")
+        shell.run("ec.balance -force")
+        walls["encode_balance"] = time.perf_counter() - t0
+        k1 = server_launches()
+        encode_launches = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("filer ec.encode", encode_launches, ("gf_apply", "crc32c_rows"))
+        held: dict = {i: {} for i in range(3)}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("filer_") and ".ec" in f and f[-2:].isdigit():
+                    held[i].setdefault(int(f[6:].split(".")[0]), []).append(int(f[-2:]))
+        runs["filer_encode"] = {"wall_s": walls["encode_balance"], "launches": encode_launches,
+                                "sigs": {}}
+        walls["read_encoded"] = read_all(paths, "read after ec.encode")
+        log(f"filer ec.encode -collection filer of {len(vols)} volumes and ec.balance -force "
+            f"through the shell in {walls['encode_balance']:.3f} s, the servers' launches "
+            f"{encode_launches}; shards by server { {i: sum(map(len, h.values())) for i, h in held.items()} }; "
+            f"{len(paths)} files read back in {walls['read_encoded']:.3f} s; {smi}")
+
+        # --- 6. deletes through the filer reach the EC volumes ---
+        t0 = time.perf_counter()
+        deleted = paths[::FILER_DELETE_EVERY]
+        for path in deleted:
+            req = urllib.request.Request(f"http://{faddr}{path}", method="DELETE")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                if r.status != 204:
+                    raise AssertionError(f"filer DELETE {path}: {r.status}")
+        gone_fids = [f for p in deleted for f in fids[p]]
+
+        def chunks_gone() -> bool:
+            for fid in gone_fids:
+                for port in ports:
+                    try:
+                        urllib.request.urlopen(f"http://127.0.0.1:{port}/{fid}",
+                                               timeout=30).close()
+                        return False
+                    except urllib.error.HTTPError as e:
+                        if e.code != 404:
+                            return False
+            return True
+
+        wait(chunks_gone, "404 for every deleted chunk on every holder", 120)
+        files = {p: b for p, b in files.items() if p not in deleted}
+        _, du = shell.run("fs.du /")
+        got_bytes = int(du.split("\t")[0])
+        if got_bytes != sum(len(b) for b in files.values()):
+            raise AssertionError(f"filer fs.du / after the deletes: {du}")
+        walls["delete"] = time.perf_counter() - t0
+        log(f"filer: {len(deleted)} files ({total - got_bytes} B, {len(gone_fids)} chunks) "
+            f"deleted through the filer; every chunk's fid answers 404 on all three holders "
+            f"and fs.du / drops to {got_bytes} B, in {walls['delete']:.3f} s")
+
+        # --- 7. a holder killed, degraded reads through the filer ---
+        order = sorted(held, key=lambda i: -sum(map(len, held[i].values())))
+        victim = order[1]
+        lost = {vid: set(s) for vid, s in held[victim].items()}
+        touched, touched_fids = [], []
+        for path in sorted(files):
+            for fid in fids[path]:
+                vid_s, rest = fid.split(",")
+                vid, nid = int(vid_s), int(rest[:-8], 16)
+                dat_size, needles = vols[vid]
+                off, size = needles[nid]
+                shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                    locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                    16 + size + 4 + 8)}
+                if shards & lost.get(vid, set()):
+                    touched.append(path)
+                    if len(fids[path]) == 1:
+                        touched_fids.append((path, fid))
+                    break
+        if not touched_fids:
+            raise AssertionError(f"filer: no live one-chunk file has bytes on shards {lost}")
+        _, ls_before = shell.run("fs.ls -l")
+        _, du_before = shell.run("fs.du")
+        procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        rcs[f"volume{victim}"] = procs[f"volume{victim}"].wait(30)
+        k0 = server_launches()
+        walls["read_degraded"] = read_all(sorted(files), "degraded read")
+        k1 = server_launches()
+        degraded = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("filer degraded reads", degraded, ("gf_apply",))
+        # every survivor holds shards of the touched volumes, and its K1
+        # launches must rise. One that served no degraded interval
+        # through the filer (the filer picked the other holder) is asked
+        # for a one-chunk file with bytes on the lost shards directly.
+        direct = {}
+        for i in sorted(k1):
+            served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                path, fid = touched_fids[len(direct) % len(touched_fids)]
+                with urllib.request.urlopen(f"http://127.0.0.1:{ports[i]}/{fid}",
+                                            timeout=60) as r:
+                    body = r.read()
+                if body != files[path]:
+                    raise AssertionError(f"filer: volume{i}'s GET of {fid} ({path}) gave "
+                                         f"{len(body)} B, want {len(files[path])} B")
+                direct[i] = fid
+                k1[i] = server_launches()[i]
+                served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                raise AssertionError(f"filer: volume{i} served no degraded interval, even "
+                                     f"asked for {direct.get(i)} directly")
+            if on_card and k1[i]["gf_apply"] <= k0[i]["gf_apply"]:
+                raise AssertionError(f"filer: volume{i} served {served} degraded intervals "
+                                     f"but its K1 launches did not rise "
+                                     f"({k0[i]['gf_apply']} -> {k1[i]['gf_apply']})")
+        runs["filer_degraded"] = {"wall_s": walls["read_degraded"], "launches": degraded,
+                                  "sigs": {}, "files": len(files), "touched": len(touched)}
+        log(f"filer degraded reads on {card}: volume{victim} (shards "
+            f"{ {v: sorted(s) for v, s in lost.items()} }) SIGKILLed; {len(files)} live files "
+            f"read back through the filer, {len(touched)} of them with bytes on its shards, "
+            f"byte for byte, 0 errors, in {walls['read_degraded']:.3f} s; the survivors' "
+            f"launches {degraded} ({ {i: k1[i]['gf_apply'] - k0[i]['gf_apply'] for i in k1} } "
+            f"K1 and { {i: k1[i]['degraded'] - k0[i]['degraded'] for i in k1} } degraded "
+            f"intervals by server, each rising; asked directly: {direct}); {smi}")
+
+        # --- 8. the filer restarted on its store ---
+        t0 = time.perf_counter()
+        filer_maps = [maps(procs["filer"].pid)]
+        procs["filer"].send_signal(signal.SIGTERM)
+        rcs["filer"] = procs["filer"].wait(60)
+        if rcs["filer"]:
+            raise AssertionError(f"filer: SIGTERM ended it with {rcs['filer']}: "
+                                 f"{_tail('filer')}")
+        spawn("filer-restarted", filer_args)
+        wait(filer_up, "the restarted filer")
+        filer_maps.append(maps(procs["filer-restarted"].pid))
+        _, ls_after = shell.run("fs.ls -l")
+        _, du_after = shell.run("fs.du")
+        if (ls_after, du_after) != (ls_before, du_before):
+            raise AssertionError(f"filer restart: fs.ls -l / fs.du {ls_after!r} {du_after!r} "
+                                 f"!= {ls_before!r} {du_before!r}")
+        walls["restart"] = time.perf_counter() - t0
+        if any(any(m.values()) for m in filer_maps):
+            raise AssertionError(f"filer: the filer process maps {filer_maps}")
+        rcs["shell"] = shell.exit()
+        if rcs["shell"]:
+            raise AssertionError(f"filer: the shell exited {rcs['shell']}")
+        log(f"filer restarted on its -storePath in {walls['restart']:.3f} s: fs.ls -l and "
+            f"fs.du as before ({du_after.strip()!r}); libcuda/libtorch mapped by the filer "
+            f"{filer_maps}, by filer.copy {copy_maps[-1]} ({len(copy_maps)} samples)")
+        runs["filer"] = {"walls": walls, "files": len(files), "deleted": len(deleted),
+                         "touched": len(touched)}
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        for name, p in procs.items():
+            if name not in rcs and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name, p in procs.items():
+            if name not in rcs:
+                try:
+                    rcs[name] = p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rcs[name] = p.wait(10)
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"filer: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must be 0); "
+        f"step walls (s) { {k: round(v, 3) for k, v in walls.items()} } on {card}; {smi}")
+    if bad:
+        raise AssertionError(f"filer: processes exited non-zero {bad}: "
+                             f"{ {n: _tail(n) for n in bad} }")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -5123,6 +5652,7 @@ def main() -> int:
         ("3h edge", lambda w: run_edge_phase(w, args.seed, None, card, smi)),
         ("3i telemetry", lambda w: run_telemetry_phase(w, CUT_BYTES, args.seed, None, card,
                                                        smi)),
+        ("3j filer", lambda w: run_filer_phase(w, CUT_BYTES, args.seed, None, card, smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -5154,7 +5684,8 @@ def main() -> int:
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
-             "edge_ec", "tele_degraded", "batch_encode", "batch_rebuild", "batch_verify")
+             "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "batch_encode",
+             "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -5164,7 +5695,8 @@ def main() -> int:
         f"ec.balance, ec.rebuild, ec.batch, ec.rebuild.batch and volume.move, the command "
         f"line's ec.encode, scrub sweeps and scheduled repair in the servers' processes "
         f"and the verify core in this one, the serving edge's EC GETs on a -workers lead, "
-        f"the telemetry phase's degraded weedload GETs, batch encode, rebuild and verify) "
+        f"the telemetry phase's degraded weedload GETs, the filer phase's ec.encode and "
+        f"degraded reads through the filer, batch encode, rebuild and verify) "
         f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")

@@ -12,8 +12,10 @@ The part of seaweedfs_tpu/client/operation.py the port needs so far
   * download / delete — GET / DELETE one blob
   * lookup            — cached LookupVolume (lookup.go), lookup_file_id
   * delete_files      — BatchDelete per server (delete_content.go:43)
-The reference's gRPC assign, master failover and tails are not ported:
-the shell and the CLI's tools do not use them.
+  * with_master_failover — rotate a call through the master seed list
+                        in bounded, jittered rounds (the filer's hop)
+The reference's gRPC assign and tails are not ported: the shell, the
+filer and the CLI's tools do not use them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import functools
 import http.client
 import json
+import random
 import socket
 import threading
 import time
@@ -34,7 +37,76 @@ import grpc
 from seaweedfs_tpu_torch.client import retry as _retry
 from seaweedfs_tpu_torch.pb import master_pb2, rpc, volume_pb2
 from seaweedfs_tpu_torch.pb.rpc import grpc_address
+from seaweedfs_tpu_torch.stats.metrics import RETRY_TOTAL
 from seaweedfs_tpu_torch.util import deadline as _deadline
+from seaweedfs_tpu_torch.util.deadline import DeadlineExceeded
+
+
+# ----------------------------------------------------------------------
+# HA master failover
+
+
+def _is_retryable_master_error(e: Exception) -> bool:
+    """Transport failures and leaderless windows rotate to the next
+    master; in-band application errors (e.g. 'no free volumes') come
+    from the leader itself — every master proxies to the same place,
+    so retrying them elsewhere just multiplies the same failure."""
+    if isinstance(e, DeadlineExceeded):
+        return False  # the caller's budget is gone wherever we turn
+    if isinstance(e, (OSError, grpc.RpcError)):
+        return True
+    return "no leader" in str(e)
+
+
+# Bounded, jittered rounds over the seed list: a leader SIGKILL lands
+# mid-election, so the first rotation often finds only "no leader yet"
+# followers; the backoff is sized to span one election timeout
+# (cluster/raft.py defaults 0.4-0.8 s) without hammering the survivors.
+_MASTER_ROUNDS = 4
+_MASTER_BACKOFF_S = 0.15
+_MASTER_BACKOFF_MAX_S = 1.5
+
+
+def with_master_failover(masters, fn, start_idx: int = 0):
+    """Run fn(master) against the first master that answers, rotating
+    through the seed list on connection/RPC failure (any live master
+    serves: non-leaders proxy writes to the leader). Returns
+    (result, index_of_master_used); raises the last error when every
+    master stays down.
+
+    A whole-list failure (a leader kill with the new election still in
+    flight) starts another round after a full-jitter exponential
+    backoff, at most _MASTER_ROUNDS rounds in all. Each later round
+    spends a token of the process-wide retry budget, runs under the
+    retry marker, and is not started when the ambient request deadline
+    would be gone before it lands."""
+    if not masters:
+        raise RuntimeError("no masters configured")
+    n = len(masters)
+    dl = _deadline.effective()
+    for rnd in range(_MASTER_ROUNDS):
+        last: Exception | None = None
+        for i in range(n):
+            idx = (start_idx + i) % n
+            try:
+                if not rnd:
+                    return fn(masters[idx]), idx
+                with _retry.retrying():
+                    return fn(masters[idx]), idx
+            except (RuntimeError, OSError, grpc.RpcError) as e:
+                if not _is_retryable_master_error(e):
+                    raise
+                last = e
+        if rnd + 1 == _MASTER_ROUNDS:
+            break
+        wait = random.uniform(0.0, min(_MASTER_BACKOFF_MAX_S, _MASTER_BACKOFF_S * 2**rnd))
+        if dl is not None and dl.remaining() <= wait + _deadline.MIN_OP_TIMEOUT_S:
+            break
+        if not _retry.DEFAULT_BUDGET.try_spend():
+            break
+        RETRY_TOTAL.labels("master-failover").inc()
+        time.sleep(wait)
+    raise last
 
 
 # ----------------------------------------------------------------------
@@ -616,6 +688,13 @@ def lookup(master: str, vid: str, collection: str = "") -> LookupResult:
     return result
 
 
+def forget_lookup(master: str, vid: str) -> bool:
+    """Drop the cached lookup of `vid` through `master`, so the next
+    lookup asks the master again; True when there was one."""
+    with _lookup_lock:
+        return _lookup_cache.pop((master, vid), None) is not None
+
+
 def lookup_file_id(master: str, fid: str) -> str:
     """fid → "host:port/fid" of one replica."""
     vid = fid.split(",")[0]
@@ -648,6 +727,10 @@ def delete_files(master: str, fids: list[str]) -> list[dict]:
     by_server: dict[str, list[str]] = {}
     primary: dict[str, str] = {}  # fid -> primary server (reported result)
     for vid, vid_fids in by_vid.items():
+        # a delete asks the master afresh: a location cached before the
+        # volume was EC-encoded may no longer hold it (a port departure;
+        # the reference deletes through the cached lookup)
+        forget_lookup(master, vid)
         res = lookup(master, vid)
         if res.error or not res.locations:
             for fid in vid_fids:

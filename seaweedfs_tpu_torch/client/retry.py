@@ -1,8 +1,9 @@
 """The process-wide retry budget (docs/CHAOS.md): the part of
-seaweedfs_tpu/client/retry.py that the port's `http_call` uses. The
-unified `RetryPolicy` comes with the master client (ROADMAP item 10);
-until then nothing marks an attempt as a retry, so `in_retry()` is
-False and every `http_call` credits the budget.
+seaweedfs_tpu/client/retry.py that the port's `http_call` and master
+failover (`operation.with_master_failover`) use. The unified
+`RetryPolicy` comes with the master client (ROADMAP item 10); until
+then the only retries are the failover's later rounds, which run under
+`retrying()` so that their requests credit nothing.
 
 `RetryBudget` is a process-wide token bucket CREDITED by first-attempt
 requests and DEBITED by retries, capping retries at ~10% of recent
@@ -16,6 +17,7 @@ recovery is noticed (the gRPC/Finagle "retry budget" design).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -30,7 +32,7 @@ def _budget_ratio_default() -> float:
         return 0.1
 
 
-# first-attempt vs retry marker: RetryPolicy.run sets this around
+# first-attempt vs retry marker: retrying() sets this around
 # retried attempts so the TRANSPORT (http_call) can credit the shared
 # budget for first-attempt traffic only — retried requests crediting
 # themselves is exactly the feedback loop the budget exists to cut
@@ -39,6 +41,16 @@ _tls = threading.local()
 
 def in_retry() -> bool:
     return getattr(_tls, "in_retry", False)
+
+
+@contextlib.contextmanager
+def retrying():
+    """Mark the calls made inside as a retry."""
+    _tls.in_retry = True
+    try:
+        yield
+    finally:
+        _tls.in_retry = False
 
 
 class RetryBudget:

@@ -1,21 +1,23 @@
 """filer.copy and filer.replicate subcommands
 (weed/command/filer_copy.go, filer_replicate.go); the port of
-seaweedfs_tpu/command/filer_tools.py. Both are registered with the
-reference's flags and help and exit 2: filer.copy needs the filer
-(ROADMAP item 11), filer.replicate replication/ (item 12)."""
+seaweedfs_tpu/command/filer_tools.py. filer.copy runs: it POSTs each
+local file to the filer, which holds no codec. filer.replicate is
+registered with the reference's flags and help and exits 2: it needs
+replication/ (ROADMAP item 12)."""
 
 from __future__ import annotations
 
 import argparse
+import os
+import urllib.request
 
-from seaweedfs_tpu_torch.command import Waiting, register
+from seaweedfs_tpu_torch.command import Command, Waiting, register
 
 
 @register
-class FilerCopyCommand(Waiting):
+class FilerCopyCommand(Command):
     name = "filer.copy"
     help = "copy local files/directories into the filer namespace"
-    item = 11
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("sources", nargs="+", help="local files or directories")
@@ -23,6 +25,42 @@ class FilerCopyCommand(Waiting):
         p.add_argument("-collection", default="", help="collection for uploaded chunks")
         p.add_argument("-replication", default="", help="replication policy like 001")
         p.add_argument("-ttl", default="", help="time-to-live like 3m/4h/5d")
+
+    def run(self, args) -> int:
+        dest = args.dest
+        if not dest.startswith("http://"):
+            dest = "http://" + dest
+        if not dest.endswith("/"):
+            dest += "/"
+        copied = 0
+        for src in args.sources:
+            if os.path.isdir(src):
+                base = os.path.dirname(os.path.abspath(src).rstrip("/"))
+                for root, _, files in os.walk(src):
+                    for fname in files:
+                        local = os.path.join(root, fname)
+                        rel = os.path.relpath(local, base)
+                        copied += self._put(dest + rel, local, args)
+            else:
+                copied += self._put(dest + os.path.basename(src), src, args)
+        print(f"copied {copied} files")
+        return 0
+
+    def _put(self, url: str, local: str, args) -> int:
+        with open(local, "rb") as f:
+            data = f.read()
+        params = []
+        if args.collection:
+            params.append(f"collection={args.collection}")
+        if args.replication:
+            params.append(f"replication={args.replication}")
+        if args.ttl:
+            params.append(f"ttl={args.ttl}")
+        if params:
+            url += "?" + "&".join(params)
+        req = urllib.request.Request(url, data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return 1 if r.status < 300 else 0
 
 
 @register

@@ -11,8 +11,9 @@ unless `-ec.codec` names a host codec. `volume -workers N` adds N-1
 plain reads from disk and never touch the card; with `-shardWrites`
 they also own the writes of their share of the volumes. What needs a
 plane the port does not have yet exits 2 naming its ROADMAP item:
-`filer`, `s3`, `webdav` and `mount`, and `server`'s -filer/-s3/-webdav
-(item 11); and the disk-fault shim that WEED_CHAOS_DISK arms (item 14).
+`s3`, `webdav` and `mount`, and `server`'s -s3/-webdav (item 11); and
+the disk-fault shim that WEED_CHAOS_DISK arms (item 14). `filer` and
+`server -filer` run the port's filer, which holds no codec.
 `master` and `server` run the cluster telemetry collector every
 `-telemetryInterval` seconds (10 by default, as the reference's; 0
 turns it off)."""
@@ -744,10 +745,9 @@ class VolumeWorkerCommand(Command):
 
 
 @register
-class FilerCommand(Waiting):
+class FilerCommand(Command):
     name = "filer"
     help = "start a filer (directory/file namespace over the blob store)"
-    item = 11
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-ip", default="127.0.0.1", help="bind address")
@@ -780,6 +780,32 @@ class FilerCommand(Waiting):
             "-v", type=int, default=0,
             help="log verbosity (0=warning .. 3=trace)",
         )
+
+    def run(self, args) -> int:
+        from seaweedfs_tpu_torch import notification
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.util.config import load_config
+
+        wlog.set_verbosity(args.v)
+        _apply_trace_flags(args)
+        notification.configure(load_config("notification"))
+        _configure_tls("filer")
+        server = FilerServer(
+            args.master.split(","),
+            host=args.ip,
+            port=args.port,
+            store=args.store,
+            store_path=args.storePath,
+            collection=args.collection,
+            replication=args.replication,
+            max_mb=args.maxMB,
+        )
+        server.start()
+        wlog.info("filer %s:%d -> master %s", args.ip, args.port, args.master)
+        try:
+            return _wait_forever()
+        finally:
+            server.stop()
 
 
 @register
@@ -977,10 +1003,10 @@ class ServerCommand(Command):
         )
 
     def run(self, args) -> int:
-        if args.filer or args.s3 or args.webdav:
+        if args.s3 or args.webdav:
             raise NotImplementedError(
-                "server -filer/-s3/-webdav need the filer and its "
-                "gateways, not ported yet (ROADMAP item 11)"
+                "server -s3/-webdav need the S3 and WebDAV gateways, "
+                "not ported yet (ROADMAP item 11)"
             )
         _configure_tls("master")
         from seaweedfs_tpu_torch.server.master_server import MasterServer
@@ -1026,6 +1052,22 @@ class ServerCommand(Command):
             )
             volume.start()
             started.append(volume)
+            if args.filer:
+                from seaweedfs_tpu_torch import notification
+                from seaweedfs_tpu_torch.server.filer_server import FilerServer
+                from seaweedfs_tpu_torch.util.config import load_config
+
+                # same notification.toml wiring as the standalone `filer`
+                # command — the all-in-one filer must publish events too
+                notification.configure(load_config("notification"))
+                filer = FilerServer(
+                    [f"{args.ip}:{args.master_port}"],
+                    host=args.ip,
+                    port=args.filer_port,
+                    store=args.filer_store,
+                )
+                filer.start()
+                started.append(filer)
             wlog.info("all-in-one server up: %d components", len(started))
             return _wait_forever()
         finally:

@@ -870,14 +870,50 @@ class VolumeServer:
             result = out.results.add(file_id=fid_str)
             try:
                 fid = FileId.parse(fid_str)
-                n = Needle(cookie=fid.cookie, id=fid.key)
-                size = self.store.delete_needle(fid.volume_id, n)
+                ev = None
+                if self.store.find_volume(fid.volume_id) is None:
+                    ev = self.store.find_ec_volume(fid.volume_id)
+                if ev is not None:
+                    try:
+                        result.size = self._delete_ec_needle(ev, fid)
+                    except NeedleNotFound as e:
+                        result.status, result.error = 404, str(e)
+                        continue
+                else:
+                    n = Needle(cookie=fid.cookie, id=fid.key)
+                    result.size = self.store.delete_needle(fid.volume_id, n)
                 result.status = 202
-                result.size = size
             except Exception as e:  # noqa: BLE001
                 result.status = 500
                 result.error = str(e)
         return out
+
+    def _delete_ec_needle(self, ev, fid) -> int:
+        """Delete a needle of an EC volume on every holder of its shards
+        (store_ec_delete.go DeleteEcShardNeedle): the cookie checked on
+        the needle read through the shards, its .ecx entry tombstoned
+        here, and VolumeEcBlobDelete sent to every other holder the
+        master lists, so a GET on any of them answers 404. The
+        reference's BatchDelete knows normal volumes only, and its
+        filer's chunk deletions on EC volumes fail. Returns the needle's
+        size."""
+        existing = ev.read_needle(fid.key, fetch=self._remote_shard_fetcher(ev))
+        if existing.cookie != fid.cookie:
+            raise CookieMismatch("cookie mismatch")
+        ev.delete_needle(fid.key)
+        with ev.shard_locations_lock:
+            ev.shard_locations_refresh_time = 0.0
+        self._cached_lookup_ec_locations(ev)
+        with ev.shard_locations_lock:
+            holders = {u for urls in ev.shard_locations.values() for u in urls}
+        for url in sorted(holders - self._self_urls()):
+            with rpc.dial(rpc.grpc_address(url)) as ch:
+                rpc.volume_stub(ch).VolumeEcBlobDelete(
+                    pb.VolumeEcBlobDeleteRequest(
+                        volume_id=fid.volume_id, collection=ev.collection,
+                        file_key=fid.key),
+                    timeout=30)
+        return existing.size
 
     # vacuum 4-phase (volume_grpc_vacuum.go)
     def VacuumVolumeCheck(self, req, context):

@@ -1,7 +1,7 @@
-"""The admin shell: the port of seaweedfs_tpu/shell/. The fs.* verbs
-(the reference's fs_commands.py) are registered by commands.py and wait
-for the filer (ROADMAP item 11)."""
+"""The admin shell: the port of seaweedfs_tpu/shell/, the fs.* verbs
+(shell/fs_commands.py) included."""
 from seaweedfs_tpu_torch.shell.command_env import CommandEnv
 from seaweedfs_tpu_torch.shell.commands import COMMANDS, run_command
+from seaweedfs_tpu_torch.shell import fs_commands  # noqa: F401  (registers fs.*)
 
 __all__ = ["CommandEnv", "COMMANDS", "run_command"]

@@ -4,9 +4,9 @@ Behavioral match of weed/shell/commands.go CommandEnv: holds the master
 address, fetches the topology (one VolumeList call feeds every
 planner), and opens master and volume-server gRPC channels on demand.
 
-The port of seaweedfs_tpu/shell/command_env.py. The fs.* context (the
-selected filer and working directory) waits for ROADMAP item 11, with
-the fs.* verbs that read it.
+The port of seaweedfs_tpu/shell/command_env.py, with the fs.* context:
+the selected filer and working directory the fs.* verbs resolve paths
+against.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ class TopologyDump:
 class CommandEnv:
     def __init__(self, masters: list[str]):
         self.masters = list(masters)
+        # fs.* context (commands.go CommandEnv option.FilerHost/directory):
+        # set by `fs.cd http://<filer>:<port>/path`; subsequent relative
+        # fs paths resolve against (filer, cwd)
+        self.filer: str = ""
+        self.cwd: str = "/"
 
     @property
     def master(self) -> str:
@@ -52,6 +57,29 @@ class CommandEnv:
 
     def volume_channel(self, url: str) -> grpc.Channel:
         return rpc.dial(grpc_address(url))
+
+    # ------------------------------------------------------------------
+    # fs path resolution (commandEnv.parseUrl, commands.go:54-113)
+    def parse_fs_path(self, input_path: str) -> tuple[str, str]:
+        """'http://filer:8888/a/b' | '/a/b' | 'b' → (filer, abs path)."""
+        import posixpath
+        import urllib.parse
+
+        if input_path.startswith(("http://", "https://")):
+            u = urllib.parse.urlparse(input_path)
+            return u.netloc, posixpath.normpath(u.path or "/")
+        if not self.filer:
+            raise ValueError(
+                "no filer selected; use fs.cd http://<filer>:<port>/path first"
+            )
+        if input_path.startswith("/"):
+            return self.filer, posixpath.normpath(input_path)
+        return self.filer, posixpath.normpath(
+            posixpath.join(self.cwd, input_path)
+        )
+
+    def filer_channel(self, filer: str) -> grpc.Channel:
+        return rpc.dial(grpc_address(filer))
 
     def collect_topology(self) -> TopologyDump:
         """VolumeList → parsed per-node volume/EC info (the one call

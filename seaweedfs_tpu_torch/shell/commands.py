@@ -11,6 +11,9 @@ port of seaweedfs_tpu/shell/commands.py. Implemented here:
   repair.queue  scrub.status  scrub.trigger
   ec.verify  volume.tier.upload  volume.tier.download  tier.status
   tier.move
+The 11 fs.* commands (cd/pwd/ls/du/cat/tree/mv/meta.cat/meta.save/
+meta.load/meta.notify) live in shell/fs_commands.py, registered on
+import by shell/__init__.py.
 The EC verbs run on the volume servers' codec: on a card server,
 ec.encode and ec.rebuild launch K1 with K4, ec.batch K2 with K4 and
 ec.rebuild.batch K2. ec.verify runs in the shell's own process: it
@@ -2166,22 +2169,6 @@ WAITING = {
                         "replication.lag [-json] — cross-cluster replication consumer "
                         "lag as seen by the leader's telemetry rings (filer-exposed "
                         "weed_replication_lag_events), plus any firing lag alerts"),
-    "fs.cd": (11, "the filer", "fs.cd http://<filer>:<port>/dir | fs.cd <dir> — "
-              "change working directory"),
-    "fs.pwd": (11, "the filer", "fs.pwd — print the current filer working directory"),
-    "fs.ls": (11, "the filer", "fs.ls [-l] [-a] [path] — list directory entries"),
-    "fs.du": (11, "the filer", "fs.du [path] — recursive disk usage (bytes, files, dirs)"),
-    "fs.cat": (11, "the filer", "fs.cat <path> — print a file's content"),
-    "fs.tree": (11, "the filer", "fs.tree [path] — tree view of the namespace"),
-    "fs.mv": (11, "the filer", "fs.mv <src> <dst> — move/rename (atomic; into dst "
-              "if dst is a dir)"),
-    "fs.meta.cat": (11, "the filer", "fs.meta.cat <path> — print an entry's metadata"),
-    "fs.meta.save": (11, "the filer", "fs.meta.save [-o <file>] [path] — save "
-                     "metadata tree to a local file"),
-    "fs.meta.load": (11, "the filer", "fs.meta.load <file> — restore metadata saved "
-                     "by fs.meta.save"),
-    "fs.meta.notify": (11, "the filer", "fs.meta.notify [path] — publish create "
-                       "events for the tree to the notification queue"),
 }
 
 

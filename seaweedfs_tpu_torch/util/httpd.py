@@ -13,6 +13,7 @@ somaxconn; a deep backlog restores that behavior.
 from __future__ import annotations
 
 import json as _json
+import os
 import socket
 import time as _time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer  # FastRequestMixin drives these through serve_connection
@@ -325,14 +326,34 @@ class _BufReader:
             self.consumed += len(out)
             return out
         avail = len(self._buf) - self._pos
-        while avail < n:
-            if not self._fill():
-                break
-            avail = len(self._buf) - self._pos
+        if avail < n:
+            return self._gather(n, avail)
         out = self._buf[self._pos : self._pos + n]
-        self._pos += len(out)
-        self.consumed += len(out)
+        self._pos += n
+        self.consumed += n
         return out
+
+    def _gather(self, n: int, avail: int) -> bytes:
+        """read(n) past the buffered bytes: those, then recv_into one
+        preallocated buffer until n bytes or EOF. (Growing the read
+        buffer a recv at a time would copy it again on every recv,
+        quadratic in the body's size.)"""
+        out = bytearray(n)
+        view = memoryview(out)
+        view[:avail] = memoryview(self._buf)[self._pos :]
+        self._buf, self._pos = b"", 0
+        got = avail
+        dl = self.deadline
+        while got < n:
+            if dl is not None:
+                self._sock.settimeout(dl.cap(self.op_timeout))
+            k = self._sock.recv_into(view[got:], n - got)
+            if not k:
+                break
+            got += k
+        view.release()
+        self.consumed += got
+        return bytes(out) if got == n else bytes(out[:got])
 
     def readline(self, limit: int = 65537) -> bytes:
         while True:
@@ -361,15 +382,18 @@ class _SockWriter:
     With `-serveIdleMs` arming a socket timeout, a plain sendall would
     turn the IDLE timeout into a total-transfer deadline (CPython
     computes ONE deadline for the whole call) and truncate big
-    downloads to slow-but-draining clients — worse, TCP only reports
-    *writable* once the send queue falls below half full, so even
-    per-chunk sendalls time out while the client is sipping a multi-MB
-    kernel buffer. send() itself has no such threshold: it accepts
-    bytes whenever ANY space exists. So on a timeout we retry the
-    send once — moved bytes mean a live client (keep going with a
-    fresh window); a zero-progress retry after a full idle window of
-    waiting is a true stall and raises. Mirrors the C loop's
-    idle-reaper drain probe (serve.c weed_conn_flush_step)."""
+    downloads to slow-but-draining clients. A per-chunk send() is not
+    enough either: with a timeout set, CPython polls for POLLOUT before
+    every send, and TCP reports *writable* only once the send queue has
+    drained to two thirds of its buffer, so a client sipping a
+    multi-MB kernel buffer can leave the socket unwritable for whole
+    idle windows while bytes still move. So a window that ends without
+    POLLOUT is followed by a drain probe: one send that bypasses the
+    poll and takes whatever room the queue has now (the socket is
+    non-blocking underneath its timeout). Moved bytes mean a live
+    client, and the bound starts again; a second window without
+    progress is a true stall and raises. These are the semantics of the
+    C loop's idle-reaper drain probe (serve.c weed_conn_flush_step)."""
 
     __slots__ = ("_sock",)
 
@@ -377,6 +401,13 @@ class _SockWriter:
 
     def __init__(self, sock):
         self._sock = sock
+
+    def _probe(self, view) -> int:
+        """Send what fits in the send queue right now, without waiting."""
+        try:
+            return os.write(self._sock.fileno(), view)
+        except BlockingIOError:
+            return 0
 
     def write(self, data) -> int:
         n = len(data)
@@ -387,12 +418,13 @@ class _SockWriter:
             try:
                 sent = self._sock.send(view[pos : pos + self._CHUNK])
             except TimeoutError:
-                # the client freed no space for a whole idle window;
-                # one more zero-progress window confirms the stall
-                if stalled:
-                    raise
-                stalled = True
-                continue
+                # no POLLOUT for a whole idle window: probe the queue
+                sent = self._probe(view[pos:])
+                if sent <= 0:
+                    if stalled:
+                        raise
+                    stalled = True
+                    continue
             if sent > 0:
                 pos += sent
                 stalled = False

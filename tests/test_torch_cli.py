@@ -21,6 +21,11 @@ cluster exits 0 with the reference's report keys, and `master
 -telemetryInterval 10` answers /cluster/alerts. The commands whose
 planes the port does not have exit 2 naming their ROADMAP item, and a
 `volume` with neither a card nor `-ec.codec` fails naming CUDA. The
+filer plane's commands run: `filer -store lsm` as a subprocess that
+`filer.copy` fills (its report equal to the reference's against the
+reference's filer), restarted on its -storePath with the namespace
+intact, and the all-in-one `server -filer`; SIGTERM ends each with exit
+code 0 (`master -sequencer.etcd` is in tests/test_torch_etcd.py). The
 tolerance is equality.
 """
 
@@ -231,10 +236,8 @@ def test_help_lists_the_references_commands():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["filer"], 11), (["s3"], 11), (["webdav"], 11), (["mount"], 11),
-    (["filer.copy", "a", "http://127.0.0.1:1/x/"], 11), (["filer.replicate"], 12),
-    (["master", "-telemetryInterval", "0", "-sequencer.etcd", "127.0.0.1:1"], 5),
-    (["server", "-filer"], 11), (["server", "-s3"], 11), (["server", "-webdav"], 11),
+    (["s3"], 11), (["webdav"], 11), (["mount"], 11), (["filer.replicate"], 12),
+    (["server", "-s3"], 11), (["server", "-webdav"], 11),
 ])
 def test_unported_planes_exit_2_naming_their_item(argv, item):
     rc, _out, err = run("port", argv)
@@ -636,3 +639,109 @@ class TestLivenessSweep:
             assert http(f"http://127.0.0.1:{vport}/{a['fid']}") == b"sweep-me"
         finally:
             reap(procs)
+
+
+# ---------------------------------------------------------------------------
+# the filer plane's commands
+
+
+def _local_tree(root, seed=6):
+    """Nested local files drawn with numpy: {relative path: bytes}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    files = {}
+    for i in range(9):
+        rel = os.path.join(f"d{i % 3}", f"s{i % 2}", f"f{i}.bin")
+        data = rng.bytes(int(rng.integers(1, 40_000)))
+        path = root / "tree" / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+        files[rel] = data
+    return files
+
+
+def _sigterm(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    return proc.returncode, out
+
+
+class TestFilerPlane:
+    def test_filer_daemon_filled_by_filer_copy_and_restarted(self, tmp_path):
+        """`filer -store lsm` as a subprocess over an in-process port
+        cluster; `filer.copy` of a local tree reports what the
+        reference's reports against the reference's filer and every file
+        reads back; a restart on the same -storePath lists the same
+        namespace; SIGTERM ends the filer with exit code 0."""
+        import seaweedfs_tpu.util.availability as ref_availability
+        import seaweedfs_tpu.server.filer_server as ref_filer_server
+        import seaweedfs_tpu_torch.util.availability as port_availability
+
+        files = _local_tree(tmp_path)
+        reports = {}
+        (tmp_path / "ref").mkdir()
+        master, servers = ref_availability.start_cluster([str(tmp_path / "ref")],
+                                                         scrub_interval=0, ec_codec="cpu")
+        filer = ref_filer_server.FilerServer([f"127.0.0.1:{master.port}"], port=free_port(),
+                                             store="memory")
+        filer.start()
+        try:
+            reports["ref"] = run("ref", ["filer.copy", str(tmp_path / "tree"),
+                                         f"http://127.0.0.1:{filer.port}/in/"])
+        finally:
+            filer.stop()
+            for vs in servers:
+                vs.stop()
+            master.stop()
+        (tmp_path / "port").mkdir()
+        master, servers = port_availability.start_cluster(
+            [str(tmp_path / "port")], scrub_interval=0, ec_codec="cuda", device="cpu")
+        fport = free_port()
+        argv = ("filer", "-port", str(fport), "-master", f"127.0.0.1:{master.port}",
+                "-store", "lsm", "-storePath", str(tmp_path / "lsm"))
+        procs = []
+        try:
+            procs.append(spawn_cli(*argv, stdout=subprocess.PIPE))
+            wait_until(lambda: http(f"http://127.0.0.1:{fport}/") is not None, "the filer")
+            reports["port"] = run("port", ["filer.copy", str(tmp_path / "tree"),
+                                           f"http://127.0.0.1:{fport}/in/"])
+            for rel, data in files.items():
+                assert http(f"http://127.0.0.1:{fport}/in/tree/{rel}") == data
+            listing = http(f"http://127.0.0.1:{fport}/in/tree/d0/s0")
+            rc, out = _sigterm(procs.pop())
+            assert rc == 0, out[-2000:]
+            procs.append(spawn_cli(*argv, stdout=subprocess.PIPE))
+            wait_until(lambda: http(f"http://127.0.0.1:{fport}/") is not None, "the filer")
+            assert http(f"http://127.0.0.1:{fport}/in/tree/d0/s0") == listing
+            rc, out = _sigterm(procs.pop())
+            assert rc == 0, out[-2000:]
+        finally:
+            reap(procs)
+            for vs in servers:
+                vs.stop()
+            master.stop()
+        assert reports["port"] == reports["ref"] == (0, f"copied {len(files)} files\n", "")
+
+    def test_all_in_one_server_with_filer(self, tmp_path):
+        """`server -filer` as a subprocess: a file POSTed through its
+        filer reads back, and SIGTERM ends it with exit code 0."""
+        mport, vport, fport = free_port(), free_port(), free_port()
+        proc = spawn_cli("server", "-dir", str(tmp_path), "-master.port", str(mport),
+                         "-volume.port", str(vport), "-filer", "-filer.port", str(fport),
+                         "-ec.codec", "cpu", stdout=subprocess.PIPE)
+        try:
+            blob = b"all-in-one filer smoke " * 100
+            wait_until(lambda: http(f"http://127.0.0.1:{fport}/a/b.txt", data=blob,
+                                    method="POST") is not None, "a filer POST", 60)
+            assert http(f"http://127.0.0.1:{fport}/a/b.txt") == blob
+            names = [e["FullPath"] for e in http_json(f"http://127.0.0.1:{fport}/a")["Entries"]]
+            assert names == ["/a/b.txt"]
+        finally:
+            rc, out = _sigterm(proc)
+        assert rc == 0, out[-2000:]
+

@@ -8,7 +8,9 @@ connections — each run against a standalone volume server of each
 package: the port's (which serves on the threaded mini loop; the C
 epoll core waits) and the reference's on the same arm (its C loop held
 off, as WEED_NATIVE_SERVE=0 does). Both must answer each case the same
-way.
+way. The buffered reader, which gathers a body into one buffer where
+the reference's grows its buffer a recv at a time, reads the same
+bytes as the reference's.
 """
 
 from __future__ import annotations
@@ -237,3 +239,35 @@ class TestMiniLoopEdges:
         status, _ = _read_response(s)
         assert status == 200
         s.close()
+
+
+@pytest.mark.parametrize("body_len,sent,initial", [
+    (3 << 20, 3 << 20, 1000), (3 << 20, (3 << 20) - 77, 0), ((1 << 20) + 5, (1 << 20) + 5, 70000),
+    (40_000, 40_000, 10), (40_000, 40_000, 40_004),
+], ids=["large", "large-truncated", "partly-buffered", "small", "all-buffered"])
+def test_buffered_reader_reads_bodies_as_the_references(body_len, sent, initial):
+    """The port's _BufReader gathers the part of a body still on the
+    wire into one buffer (the reference's grows its buffer a recv at a
+    time); read(n), the bytes left for the next request and the
+    consumed count are the reference's, on a whole body and on one cut
+    short by EOF."""
+    import numpy as np
+    import threading
+
+    from seaweedfs_tpu.util import httpd as ref_httpd
+    from seaweedfs_tpu_torch.util import httpd as port_httpd
+
+    data = np.random.default_rng(body_len).bytes(sent) + (b"NEXT" if sent == body_len else b"")
+    got = {}
+    for side, mod in (("ref", ref_httpd), ("port", port_httpd)):
+        a, b = socket.socketpair()
+        t = threading.Thread(target=lambda: (b.sendall(data[initial:]), b.close()))
+        t.start()
+        reader = mod._BufReader(a, data[:initial])
+        body = reader.read(body_len)
+        rest = reader.read(4)
+        got[side] = (body, rest, reader.consumed)
+        t.join()
+        a.close()
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == data[:min(body_len, sent)]

@@ -283,6 +283,96 @@ class TestKnobs:
         finally:
             p.close()
 
+    @staticmethod
+    def _big_needle_pair(tmp_path, total):
+        from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+        from seaweedfs_tpu_torch.storage.needle import Needle
+
+        import numpy as np
+
+        p = fuzz_serve.ServePair(str(tmp_path / "py"), serve_idle_ms=400)
+        n = Needle(cookie=0x99999999, id=50, data=np.random.default_rng(9).bytes(total))
+        n.last_modified = 1_700_000_050
+        n.set_has_last_modified_date()
+        p.vs.store.find_volume(1).write_needle(n)
+        return p, f"1,{format_needle_id_cookie(50, 0x99999999)}"
+
+    def test_py_arm_drains_a_slow_download_to_its_last_byte(self, tmp_path):
+        """F5's regression: the threaded arm under -serveIdleMs 400 sends
+        an 8 MiB needle to a client that reads 32 KiB every 20 ms through
+        a 32 KiB receive buffer. The send queue stays too full to poll
+        writable for whole idle windows while bytes still move; the
+        drain probe sees them move, so every byte arrives."""
+        total = 8 << 20
+        p, fid = self._big_needle_pair(tmp_path, total)
+        try:
+            s = socket.socket()
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 32768)
+            s.settimeout(10)
+            s.connect(("127.0.0.1", p.py_port))
+            s.sendall(f"GET /{fid} HTTP/1.1\r\n\r\n".encode())
+            raw = bytearray()
+            deadline = time.monotonic() + 90
+            while time.monotonic() < deadline:
+                chunk = s.recv(32768)
+                if not chunk:
+                    break
+                raw += chunk
+                head, sep, body = bytes(raw).partition(b"\r\n\r\n")
+                if sep and len(body) >= total:
+                    break
+                time.sleep(0.02)
+            s.close()
+            head, _, body = bytes(raw).partition(b"\r\n\r\n")
+            assert b"200 OK" in head and f"Content-Length: {total}".encode() in head
+            assert len(body) == total, f"slow download truncated at {len(body)}/{total}"
+            assert body == p.vs.store.find_volume(1).read_needle(50).data
+        finally:
+            p.close()
+
+    def test_py_arm_cuts_a_stalled_download_after_two_idle_windows(self, tmp_path):
+        """A client that asks for 8 MiB and never reads: once no byte
+        moves, two zero-progress windows of -serveIdleMs 400 are a stall
+        and the server closes the connection. The server's side of the
+        socket (read from /proc/net/tcp) leaves ESTABLISHED two windows
+        after the last byte moved in its send queue, and before a third
+        window has passed."""
+        p, fid = self._big_needle_pair(tmp_path, 8 << 20)
+
+        def server_side(client_port):
+            """(state, tx_queue) of the server's end of the connection."""
+            with open("/proc/net/tcp") as f:
+                for line in f.read().splitlines()[1:]:
+                    col = line.split()
+                    if (int(col[1].split(":")[1], 16) == p.py_port
+                            and int(col[2].split(":")[1], 16) == client_port):
+                        return col[3], col[4]
+            return None, None
+
+        try:
+            s = socket.socket()
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 32768)
+            s.connect(("127.0.0.1", p.py_port))
+            client_port = s.getsockname()[1]
+            s.sendall(f"GET /{fid} HTTP/1.1\r\n\r\n".encode())
+            t0 = last_move = time.monotonic()
+            queue, cut = None, None
+            while time.monotonic() - t0 < 10:
+                state, tx = server_side(client_port)
+                now = time.monotonic()
+                if state not in ("01", None):  # 01: ESTABLISHED
+                    cut = now
+                    break
+                if tx != queue:
+                    queue, last_move = tx, now
+                time.sleep(0.005)
+            s.close()
+            assert cut is not None, "a stalled download was never cut"
+            stalled = cut - last_move
+            assert 0.75 <= stalled < 1.2, f"cut {stalled:.3f} s after the last byte moved"
+        finally:
+            p.close()
+
     def test_max_reqs_identical_bytes_both_arms(self, tmp_path):
         p = fuzz_serve.ServePair(str(tmp_path / "port"), serve_max_reqs=2)
         r = ref_fuzz.ServePair(str(tmp_path / "ref"), serve_max_reqs=2)
@@ -355,6 +445,24 @@ class TestArming:
                 vs.start()
         finally:
             vs.stop()
+
+    def test_build_failure_makes_filer_start_raise(self, tmp_path, monkeypatch):
+        """The filer's listener arms before FilerServer.start() returns,
+        as the volume server's and the master's do."""
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+        from seaweedfs_tpu_torch.util.availability import free_port
+
+        def broken():
+            raise RuntimeError("kernel build failed\nserve_ext.c: error: planted")
+
+        monkeypatch.setattr(native_serve, "_ext", broken)
+        fs = FilerServer([f"127.0.0.1:{free_port()}"], port=free_port(),
+                         store="lsm", store_path=str(tmp_path / "lsm"))
+        try:
+            with pytest.raises(RuntimeError, match="planted"):
+                fs.start()
+        finally:
+            fs.stop()
 
     def test_threaded_arm_needs_no_build(self, tmp_path, monkeypatch):
         """The switch, not a failure, selects the threaded arm: with

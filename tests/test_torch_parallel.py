@@ -241,8 +241,9 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-# the volume server's, the master tier's, the admin plane's and the
-# command line's slices: every module they added is walked too
+# the volume server's, the master tier's, the admin plane's, the command
+# line's, the serving edge's and the filer core's slices: every module
+# they added is walked too
 SERVER_SLICE = (
     "pb/rpc.py", "pb/volume_pb2.py", "pb/master_pb2.py", "pb/filer_pb2.py",
     "pb/raft_pb2.py", "pb/tikv_pb2.py", "util/deadline.py", "util/http_range.py",
@@ -272,6 +273,12 @@ SERVER_SLICE = (
     "native/ext.py", "util/native_serve.py", "server/volume_workers.py",
     "storage/needle.py", "storage/volume.py", "analysis/__init__.py",
     "analysis/fuzz_serve.py",
+    # the filer core's slice
+    "util/etcd.py", "filer/__init__.py", "filer/entry.py", "filer/filechunks.py",
+    "filer/filerstore.py", "filer/lsm.py", "filer/abstract_sql.py", "filer/mysql_driver.py",
+    "filer/pg_driver.py", "filer/redis_store.py", "filer/cassandra_store.py",
+    "filer/etcd_store.py", "filer/tikv_store.py", "filer/filer.py", "filer/stream.py",
+    "notification/__init__.py", "server/filer_server.py", "shell/fs_commands.py",
 )
 
 

@@ -16,8 +16,8 @@ writes on both, and requires the same shard bytes. The tolerance is
 equality. TestEcVerify runs the port's ec.verify (K1's plain version)
 and the reference's on the same shards of a port cluster, clean and
 with a flipped parity or data byte, and requires the same counts and
-the same report. TestFsCommands waits for the filer (ROADMAP item 11);
-its verbs are held to raise naming that item.
+the same report. TestFsCommands is ported in tests/test_torch_fs_shell.py;
+here the fs.* verbs are held to be registered and running.
 """
 
 import io
@@ -268,10 +268,11 @@ class TestVolumePlanners:
 def test_command_names_equal_the_references():
     assert sorted(COMMANDS) == sorted(REF_COMMANDS)
     assert len([n for n in COMMANDS if n.startswith("fs.")]) == 11
-    # the integrity plane's verbs run (ROADMAP item 9) and the capsules'
-    # (item 13); the filer's and replication's still wait
-    assert sorted(port_commands.WAITING) == sorted(
-        [n for n in COMMANDS if n.startswith("fs.")] + ["replication.lag"])
+    # the integrity plane's verbs run (ROADMAP item 9), the capsules'
+    # (item 13) and the filer's fs.* (item 11); replication's still waits
+    assert sorted(port_commands.WAITING) == ["replication.lag"]
+    assert not any(isinstance(COMMANDS[n], port_commands.Waiting) for n in COMMANDS
+                   if n.startswith("fs."))
     for name, cmd in COMMANDS.items():
         assert cmd.name == name and cmd.help == REF_COMMANDS[name].help, name
 
@@ -473,7 +474,8 @@ def test_run_shell_reads_piped_commands(cluster):
     text = out.getvalue()
     # one listing: the `help` after `exit` is never read
     assert text.count("ec.rebuild.batch [-volumeIds") == 1 and "node 127.0.0.1:" in text
-    assert "error: fs.ls needs the filer, not ported yet (ROADMAP item 11)" in text
+    assert ("error: no filer selected; use fs.cd http://<filer>:<port>/path first"
+            in text)
     runner = MaintenanceRunner([f"127.0.0.1:{master.port}"], scripts=["ec.balance"],
                                period_s=0.05)
     runner.start()

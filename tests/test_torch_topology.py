@@ -368,8 +368,9 @@ def test_same_growth_placements_under_one_seed(rp_str):
 
 def test_sequencers_hand_out_the_same_ids(tmp_path):
     """Memory and file-backed sequencers, the same calls on both sides,
-    the file one reopened after a restart; and the port's etcd sequencer
-    refuses, naming its ROADMAP item."""
+    the file one reopened after a restart; and the etcd sequencer, with
+    no etcd answering, raises the reference's guidance on both sides
+    (its ids are held against the reference's in tests/test_torch_etcd.py)."""
     for kind in ("MemorySequencer", "FileSequencer"):
         seqs, got = {}, {}
         for k in PKGS:
@@ -384,5 +385,12 @@ def test_sequencers_hand_out_the_same_ids(tmp_path):
                 got[k].append(getattr(PKGS[k], kind)(*args).next_file_id())
             got[k].append(seqs[k].peek())
         assert got["ref"] == got["port"], kind
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        port_sequence.EtcdSequencer("127.0.0.1:2379")
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    dead = f"127.0.0.1:{free_port()}"
+    errors = {}
+    for k, seq_mod in (("ref", ref_sequence), ("port", port_sequence)):
+        with pytest.raises(RuntimeError, match="cannot reach") as ei:
+            seq_mod.EtcdSequencer(dead)
+        errors[k] = str(ei.value)
+    assert errors["ref"] == errors["port"]
