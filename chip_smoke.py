@@ -140,7 +140,7 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      /dev/shm, three arms in turn over fresh directories: the threaded
      arm (WEED_NATIVE_SERVE=0 WEED_NATIVE_POST=0), the C loop, and the C
      loop with -workers 4; each loaded by the port's `benchmark -c 16 -n
-     65536 -size 1024` (upstream's -n 1048576 cut 16x), its write and read
+     32768 -size 1024` (upstream's -n 1048576 cut 32x), its write and read
      req/s, p50 and p99 and the lead's ServeStats printed, and on the
      workers arm the connections and CPU seconds of each pid; then
      ec.encode through a `shell` process, shards {0, 5, 10, 13}
@@ -189,6 +189,22 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      fs.ls -l and fs.du as before; neither the filer nor filer.copy maps
      libcuda or torch; SIGTERM ends every process with exit code 0; each
      step's wall printed beside the card's name and power limit;
+ 3k. the S3 gateway (run_s3_phase): the cluster of 3j, a `filer -store
+     lsm -collection s3` and an `s3 -config` process with one identity;
+     signed requests from 4 threads put 128 MiB (S3_BYTES) of objects
+     log-uniform over 1 KiB-4 MiB under nested keys, two 40 MiB objects
+     by multipart upload (a part uploaded twice, an upload aborted), an
+     8 MiB signed aws-chunked PUT and a CopyObject; ListObjectsV2 (pages
+     of 100, prefixes and delimiter) and v1 list exactly what was put;
+     a wrong secret, an unknown key and an unsigned request get the
+     reference's 403s; the gateway an up scrape target of kind s3; every
+     object read back (SHA-256, ETag the MD5), after ec.encode and
+     ec.balance -force (K1 + K4 on the servers' cards), every 10th one
+     deleted by DeleteObjects (NoSuchKey, chunks 404 on every holder),
+     and with the holder of the second most shards SIGKILLed (K1 on
+     each survivor's card), 0 errors; the gateway maps neither libcuda
+     nor torch; SIGTERM ends every process with exit code 0; a fault
+     names 3k and its step;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -3906,7 +3922,7 @@ CLI_PATHS = ("cli_encode", "cli_verify_before", "cli_scrub", "cli_repair", "cli_
 
 # --- phase 3h: the serving edge from the command line -----------------------
 
-EDGE_FILES = 65536  # benchmark -n: upstream's documented -n 1048576 cut 16x
+EDGE_FILES = 32768  # benchmark -n: upstream's documented -n 1048576 cut 32x, for time
 EDGE_SIZE = 1024  # benchmark -size, upstream's documented run
 EDGE_CONC = 16  # benchmark -c, its default
 EDGE_WORKERS = 4  # volume -workers
@@ -4750,6 +4766,63 @@ def run_telemetry_phase(workdir: str, volume_bytes: int, seed: int, device=None,
 # --- phase 3j: the filer ---------------------------------------------------
 
 
+class _PhaseProcs:
+    """The `python -m seaweedfs_tpu_torch` processes of one phase, each
+    logging to workdir/logs/<name>.log: wait() polls a condition and
+    raises with a process's log tail if one exits meanwhile; finish()
+    SIGTERMs every process still running and collects each exit code."""
+
+    def __init__(self, phase: str, workdir: str, env: dict):
+        self.phase, self.env = phase, env
+        self.cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        self.logs = os.path.join(workdir, "logs")
+        os.mkdir(self.logs)
+        self.procs: dict = {}
+        self.rcs: dict = {}
+
+    def tail(self, name: str) -> str:
+        with open(os.path.join(self.logs, name + ".log"), errors="replace") as f:
+            return f.read()[-3000:]
+
+    def spawn(self, name: str, args: list) -> subprocess.Popen:
+        with open(os.path.join(self.logs, name + ".log"), "w") as log_file:
+            self.procs[name] = subprocess.Popen(self.cli + args, cwd=self.here, env=self.env,
+                                                stdout=log_file, stderr=subprocess.STDOUT)
+        return self.procs[name]
+
+    def wait(self, cond, what: str, timeout: float = 120.0) -> float:
+        t0 = time.monotonic()
+        while True:
+            try:
+                if cond():
+                    return time.monotonic() - t0
+            except (OSError, ValueError, KeyError, http.client.HTTPException):
+                pass
+            for name, p in self.procs.items():
+                if name not in self.rcs and p.poll() is not None:
+                    raise AssertionError(f"{self.phase}: {name} exited ({p.returncode}) while "
+                                         f"waiting for {what}: {self.tail(name)}")
+            if time.monotonic() - t0 > timeout:
+                raise AssertionError(f"{self.phase}: {what} not seen within {timeout} s")
+            time.sleep(0.05)
+
+    def finish(self) -> dict:
+        import signal
+
+        for name, p in self.procs.items():
+            if name not in self.rcs and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name, p in self.procs.items():
+            if name not in self.rcs:
+                try:
+                    self.rcs[name] = p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    self.rcs[name] = p.wait(10)
+        return self.rcs
+
+
 FILER_ROOM = 2 << 30  # the filer phase's peak in its directory (about 0.8 GiB)
 FILER_BIG_FILES = 2  # files of FILER_BIG_BYTES: two chunks each at the filer's -maxMB 32
 FILER_BIG_BYTES = 40 << 20
@@ -4846,42 +4919,13 @@ def run_filer_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     _check_room(workdir, FILER_ROOM if volume_bytes >= 1 << 28 else 4 * volume_bytes
                 + (1 << 27), "the filer phase")
     on_card = device is None
-    here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
     if not on_card:
         env["WEED_EC_CODEC"] = "cpu"
     codec_args = [] if on_card else ["-ec.codec", "cpu"]
-    cli = [sys.executable, "-m", "seaweedfs_tpu_torch"]
-    logs = os.path.join(workdir, "logs")
-    os.mkdir(logs)
-    procs: dict = {}
-    rcs: dict = {}
-
-    def _tail(name: str) -> str:
-        with open(os.path.join(logs, name + ".log"), errors="replace") as f:
-            return f.read()[-3000:]
-
-    def spawn(name: str, args: list) -> subprocess.Popen:
-        procs[name] = subprocess.Popen(cli + args, cwd=here, env=env,
-                                       stdout=open(os.path.join(logs, name + ".log"), "w"),
-                                       stderr=subprocess.STDOUT)
-        return procs[name]
-
-    def wait(cond, what: str, timeout: float = 120.0) -> float:
-        t0 = time.monotonic()
-        while True:
-            try:
-                if cond():
-                    return time.monotonic() - t0
-            except (OSError, ValueError, KeyError):
-                pass
-            for name, p in procs.items():
-                if name not in rcs and p.poll() is not None:
-                    raise AssertionError(f"filer: {name} exited ({p.returncode}) while "
-                                         f"waiting for {what}: {_tail(name)}")
-            if time.monotonic() - t0 > timeout:
-                raise AssertionError(f"filer: {what} not seen within {timeout} s")
-            time.sleep(0.05)
+    run = _PhaseProcs("filer", workdir, env)
+    cli, here, logs, procs, rcs = run.cli, run.here, run.logs, run.procs, run.rcs
+    _tail, spawn, wait = run.tail, run.spawn, run.wait
 
     def maps(pid: int) -> dict:
         return _maps_has(pid, "libcuda", "libtorch")
@@ -5236,16 +5280,7 @@ def run_filer_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     finally:
         if shell is not None and shell.proc.poll() is None:
             shell.proc.kill()
-        for name, p in procs.items():
-            if name not in rcs and p.poll() is None:
-                p.send_signal(signal.SIGTERM)
-        for name, p in procs.items():
-            if name not in rcs:
-                try:
-                    rcs[name] = p.wait(60)
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    rcs[name] = p.wait(10)
+        run.finish()
     bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
     walls["phase"] = time.perf_counter() - phase_t0
     log(f"filer: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must be 0); "
@@ -5253,6 +5288,642 @@ def run_filer_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     if bad:
         raise AssertionError(f"filer: processes exited non-zero {bad}: "
                              f"{ {n: _tail(n) for n in bad} }")
+    return runs
+
+
+# --- phase 3k: the S3 gateway ----------------------------------------------
+
+
+S3_ROOM = 2 << 30  # the S3 phase's peak in its directory (about 1.2 GiB)
+S3_BYTES = 128 << 20  # 3k's objects besides the multipart, streamed and copied ones: CUT_BYTES
+# halved, for time
+S3_BUCKET = "smoke"
+S3_ACCESS, S3_SECRET = "AKIDSMOKE", "smoke-secret-key"  # the one identity of -config
+S3_CLIENTS = 4  # client threads of the fill and of every read pass
+S3_MULTIPART = 2  # objects uploaded in parts
+S3_PARTS, S3_PART_BYTES = 5, 8 << 20  # 40 MiB each, one chunk a part at -maxMB 32
+S3_STREAM_BYTES, S3_STREAM_CHUNK = 8 << 20, 64 << 10  # the aws-chunked PUT
+S3_PAGE = 100  # ListObjectsV2's max-keys
+S3_DELETE_EVERY = 10  # every 10th object deleted by DeleteObjects
+
+
+def _s3_request(conn, method: str, path: str, query: dict | None = None, body=b"",
+                headers: dict | None = None, access: str = S3_ACCESS,
+                secret: str = S3_SECRET, sign: bool = True,
+                payload_hash: str | None = None) -> tuple[int, dict, bytes]:
+    """One request on the keep-alive http.client connection `conn`,
+    SigV4-signed (as S3Client signs: host, x-amz-date, the payload's
+    SHA-256 and every header given) just before it is sent, so that no
+    signature outlives a slow step. Returns (status, headers, body)."""
+    import datetime
+    import hashlib
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.s3api.auth import sigv4_sign
+
+    qs = "&".join(f"{urllib.parse.quote(k, safe='')}={urllib.parse.quote(v, safe='')}"
+                  for k, v in sorted((query or {}).items()))
+    quoted = urllib.parse.quote(path)
+    out = {k.lower(): v for k, v in (headers or {}).items()}
+    if sign:
+        amz_date = datetime.datetime.now(datetime.timezone.utc).strftime("%Y%m%dT%H%M%SZ")
+        payload_hash = payload_hash or hashlib.sha256(body or b"").hexdigest()
+        out.update({"host": f"{conn.host}:{conn.port}", "x-amz-date": amz_date,
+                    "x-amz-content-sha256": payload_hash})
+        out["authorization"] = sigv4_sign(method, quoted, qs, out, payload_hash, access,
+                                          secret, "us-east-1", "s3", amz_date)
+    conn.request(method, quoted + (f"?{qs}" if qs else ""), body=body or None, headers=out)
+    resp = conn.getresponse()
+    return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def _s3_streaming_put(conn, path: str, data: bytes) -> tuple[int, dict, bytes]:
+    """A signed aws-chunked PUT: the header signature over the STREAMING
+    sentinel seeds the chain each 64 KiB chunk's signature extends."""
+    import datetime
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.s3api import auth, chunked_reader
+
+    now = datetime.datetime.now(datetime.timezone.utc)
+    amz_date, date = now.strftime("%Y%m%dT%H%M%SZ"), now.strftime("%Y%m%d")
+    headers = {"host": f"{conn.host}:{conn.port}", "x-amz-date": amz_date,
+               "x-amz-content-sha256": auth.STREAMING_PAYLOAD,
+               "x-amz-decoded-content-length": str(len(data)),
+               "content-encoding": "aws-chunked"}
+    quoted = urllib.parse.quote(path)
+    headers["authorization"] = auth.sigv4_sign("PUT", quoted, "", headers,
+                                               auth.STREAMING_PAYLOAD, S3_ACCESS, S3_SECRET,
+                                               "us-east-1", "s3", amz_date)
+    seed = headers["authorization"].rsplit("Signature=", 1)[1]
+    framed = chunked_reader.encode_chunked_payload(
+        data, S3_STREAM_CHUNK, auth.derive_signing_key(S3_SECRET, date, "us-east-1", "s3"),
+        seed, amz_date, f"{date}/us-east-1/s3/aws4_request")
+    conn.request("PUT", quoted, body=framed, headers=headers)
+    resp = conn.getresponse()
+    return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def _s3_xml(body: bytes):
+    """The XML document with its namespace taken off every tag."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.fromstring(body)
+    for el in root.iter():
+        el.tag = el.tag.split("}", 1)[-1]
+    return root
+
+
+def _s3_objects(total: int, seed: int) -> dict:
+    """{key: bytes} of about `total` bytes: objects log-uniform over
+    1 KiB-4 MiB (BASELINE.json config 1's size mix) drawn from `seed`,
+    under keys nested 1-3 directories deep (d0-d3 at each level)."""
+    rng = np.random.default_rng(seed)
+    out, left, i = {}, total, 0
+    while left > 0:
+        size = min(left, int(np.exp(rng.uniform(np.log(1024), np.log(4 << 20)))))
+        depth = int(rng.integers(1, 4))
+        d = "/".join(f"d{int(rng.integers(0, 4))}" for _ in range(depth))
+        out[f"{d}/f{i:04d}.bin"] = rng.bytes(size)
+        left -= size
+        i += 1
+    return out
+
+
+def run_s3_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                 card: str = "", smi: str = "") -> dict:
+    """The S3 gateway (ROADMAP item 11b) in front of the filer, over a
+    cluster whose volume servers hold its chunks EC-encoded on the card,
+    every process `python -m seaweedfs_tpu_torch`, data in `workdir`
+    (/dev/shm), on `device` (None: the card; "cpu" runs the volume
+    servers with -ec.codec cpu, a rehearsal):
+      1. a master (-telemetryInterval 1, -repairInterval 0,
+         -volumeSizeLimitMB 1152), three `volume` servers (racks 0/1/0),
+         a `filer -store lsm -collection s3` (the default -maxMB 32) and
+         an `s3 -filer -master -config` with one identity, from an
+         identities file written into `workdir`;
+      2. signed requests fill one bucket from S3_CLIENTS threads:
+         `volume_bytes` of objects log-uniform over 1 KiB-4 MiB from the
+         seed under keys 1-3 directories deep; S3_MULTIPART objects of
+         S3_PARTS parts of 8 MiB by multipart upload (a part of the first
+         uploaded twice, the second bytes kept); one upload aborted and
+         gone from ListMultipartUploads; one 8 MiB object by a signed
+         aws-chunked PUT; one CopyObject;
+      3. ListObjectsV2 (S3_PAGE keys a page, flat, and with each top
+         directory as prefix and "/" as delimiter) and ListObjects v1
+         give exactly the keys and sizes put; a wrong secret gets 403
+         SignatureDoesNotMatch, an unknown access key 403
+         InvalidAccessKeyId, an unsigned request 403 AccessDenied; the
+         gateway an up scrape target of kind s3 on the master's collector;
+      4. every object read back through the gateway: its SHA-256 equal
+         to the payload's, its ETag the MD5 of the body;
+      5. ec.encode -collection s3 -fullPercent 0 and ec.balance -force
+         through a `shell` process (K1 + K4 on the servers' cards, off
+         their /metrics); every object read back again;
+      6. every S3_DELETE_EVERY-th object deleted by one DeleteObjects:
+         each then answers 404 NoSuchKey, and its chunks' fids 404 on
+         every holder;
+      7. the holder with the second most shards SIGKILLed; every live
+         object read back through the gateway, byte for byte, 0 errors;
+         each survivor's K1 launches rise on its /metrics (one the filer
+         sent no degraded read is asked for an object on the lost shards
+         directly);
+      8. the gateway maps neither libcuda nor torch; SIGTERM ends every
+         process with exit code 0 (the killed holder aside);
+      9. each step's wall, the fill and read MB/s, the objects touched
+         and the K1/K4 launches by server printed beside the card's name
+         and power limit.
+    Raises naming 3k and the step on any fault; returns s3_encode and
+    s3_degraded with the volume servers' launches."""
+    import hashlib
+    import signal
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.s3api.client import S3Client
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    extra = S3_MULTIPART * S3_PARTS * S3_PART_BYTES + S3_STREAM_BYTES
+    _check_room(workdir, S3_ROOM if volume_bytes >= 1 << 28
+                else 4 * (volume_bytes + extra) + (1 << 27), "phase 3k")
+    on_card = device is None
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    run = _PhaseProcs("3k s3", workdir, env)
+    step = "1 start"
+
+    def fail(msg: str):
+        raise AssertionError(f"3k s3, step {step}: {msg}")
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    maps_seen: list = []
+    mport, fport, gport = free_port(), free_port(), free_port()
+    ports = [free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr, faddr, gaddr = (f"127.0.0.1:{p}" for p in (mport, fport, gport))
+    prefix = f"/buckets/{S3_BUCKET}"
+
+    def conn():
+        return http.client.HTTPConnection("127.0.0.1", gport, timeout=120)
+
+    def one(method: str, path: str, **kw) -> tuple[int, dict, bytes]:
+        c = conn()
+        try:
+            return _s3_request(c, method, path, **kw)
+        finally:
+            c.close()
+
+    def server_launches() -> dict:
+        """Each live volume server's kernel launches, and under
+        "degraded" the EC intervals it served by reconstruction."""
+        out = {}
+        for i in range(3):
+            if f"volume{i}" not in run.rcs:
+                m = _cli_metrics(ports[i])
+                out[i] = dict(_cli_launches(m),
+                              degraded=int(m.get("weed_ec_degraded_read_total", 0)))
+        return out
+
+    def launch_delta(before: dict, after: dict) -> dict:
+        return {k: sum(after[i][k] - before[i][k] for i in after) for k in _counts()}
+
+    def read_all(keys: list, label: str) -> float:
+        def get(c, key):
+            status, headers, body = _s3_request(c, "GET", f"/{S3_BUCKET}/{key}")
+            if status != 200 or hashlib.sha256(body).digest() != digests[key]:
+                fail(f"{label}: GET {key} answered {status} with {len(body)} B, want "
+                     f"{sizes[key]} B of SHA-256 {digests[key].hex()}: {body[:200]!r}")
+            if headers.get("ETag") != f'"{hashlib.md5(body).hexdigest()}"':
+                fail(f"{label}: GET {key}'s ETag {headers.get('ETag')} is not the MD5 of "
+                     f"its body")
+
+        t0 = time.perf_counter()
+        _fan(gport, S3_CLIENTS, keys, get)
+        return time.perf_counter() - t0
+
+    def gateway_maps() -> dict:
+        return _maps_has(run.procs["s3"].pid, "libcuda", "libtorch")
+
+    try:
+        # --- 1. the cluster, the filer and the gateway ---
+        t0 = time.perf_counter()
+        identities = os.path.join(workdir, "identities.toml")
+        with open(identities, "w") as f:
+            f.write(f'[[identities]]\nname = "smoke"\naccess_key = "{S3_ACCESS}"\n'
+                    f'secret_key = "{S3_SECRET}"\nactions = ["Admin"]\n')
+        run.spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                             "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval",
+                             "0", "-telemetryInterval", "1"])
+        run.wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                                timeout=2).close() is None, "the master")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            run.spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                                     "-dir", d, "-max", "100", "-mserver", maddr,
+                                     "-rack", f"rack{i % 2}", "-scrubInterval", "0"]
+                      + codec_args)
+        run.spawn("filer", ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master",
+                            maddr, "-store", "lsm", "-storePath",
+                            os.path.join(workdir, "filer-lsm"), "-collection", "s3"])
+        run.spawn("s3", ["s3", "-ip", "127.0.0.1", "-port", str(gport), "-filer", faddr,
+                         "-master", maddr, "-config", identities])
+        cenv = CommandEnv([maddr])
+        run.wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+        def filer_up() -> bool:
+            with urllib.request.urlopen(f"http://{faddr}/", timeout=5) as r:
+                return r.status == 200
+
+        run.wait(filer_up, "the filer")
+        run.wait(lambda: one("GET", "/")[0] == 200, "a signed ListBuckets from the gateway")
+        walls["up"] = time.perf_counter() - t0
+
+        # --- 2. the fill, by signed requests ---
+        step = "2 fill"
+        t0 = time.perf_counter()
+        objects = _s3_objects(volume_bytes, seed + 180)
+        plain_total = sum(map(len, objects.values()))
+        rng = np.random.default_rng(seed + 181)
+        parts = {f"mp/big{j}.bin": [rng.bytes(S3_PART_BYTES) for _ in range(S3_PARTS)]
+                 for j in range(S3_MULTIPART)}
+        redo = rng.bytes(S3_PART_BYTES)  # the first object's part 2, uploaded again
+        streamed = rng.bytes(S3_STREAM_BYTES)
+        make_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        client = S3Client(gaddr, S3_ACCESS, S3_SECRET)
+        client.create_bucket(S3_BUCKET)
+
+        def put(c, key):
+            status, headers, body = _s3_request(c, "PUT", f"/{S3_BUCKET}/{key}",
+                                                body=objects[key])
+            if status != 200 or headers.get("ETag") != (
+                    f'"{hashlib.md5(objects[key]).hexdigest()}"'):
+                fail(f"PUT {key}: {status} {headers.get('ETag')} {body[:300]!r}")
+
+        _fan(gport, S3_CLIENTS, sorted(objects), put)
+        walls["fill_objects"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = conn()
+        try:
+            def upload_id(key: str) -> str:
+                status, _, body = _s3_request(c, "POST", f"/{S3_BUCKET}/{key}",
+                                              query={"uploads": ""})
+                if status != 200:
+                    fail(f"CreateMultipartUpload {key}: {status} {body[:300]!r}")
+                return _s3_xml(body).findtext("UploadId")
+
+            def put_part(key: str, uid: str, n: int, data: bytes) -> str:
+                status, headers, body = _s3_request(
+                    c, "PUT", f"/{S3_BUCKET}/{key}",
+                    query={"partNumber": str(n), "uploadId": uid}, body=data)
+                if status != 200 or headers.get("ETag") != (
+                        f'"{hashlib.md5(data).hexdigest()}"'):
+                    fail(f"UploadPart {key} {n}: {status} {headers.get('ETag')} "
+                         f"{body[:300]!r}")
+                return headers["ETag"]
+
+            def uploads() -> list:
+                status, _, body = _s3_request(c, "GET", f"/{S3_BUCKET}",
+                                              query={"uploads": ""})
+                if status != 200:
+                    fail(f"ListMultipartUploads: {status} {body[:300]!r}")
+                return [u.findtext("UploadId") for u in _s3_xml(body).iter("Upload")]
+
+            mp_etags = {}
+            for j, (key, pieces) in enumerate(sorted(parts.items())):
+                uid = upload_id(key)
+                etags = [put_part(key, uid, n + 1, p) for n, p in enumerate(pieces)]
+                if j == 0:
+                    pieces[1] = redo
+                    etags[1] = put_part(key, uid, 2, redo)
+                manifest = "".join(f"<Part><PartNumber>{n + 1}</PartNumber><ETag>{e}</ETag>"
+                                   f"</Part>" for n, e in enumerate(etags))
+                status, _, body = _s3_request(
+                    c, "POST", f"/{S3_BUCKET}/{key}", query={"uploadId": uid},
+                    body=f"<CompleteMultipartUpload>{manifest}</CompleteMultipartUpload>"
+                    .encode())
+                if status != 200:
+                    fail(f"CompleteMultipartUpload {key}: {status} {body[:300]!r}")
+                mp_etags[key] = _s3_xml(body).findtext("ETag")
+                if not re.fullmatch(rf'"[0-9a-f]{{32}}-{S3_PARTS}"', mp_etags[key] or ""):
+                    fail(f"CompleteMultipartUpload {key}: ETag {mp_etags[key]} is not "
+                         f"<hex>-{S3_PARTS}")
+                objects[key] = b"".join(pieces)
+            aborted_key = "mp/aborted.bin"
+            uid = upload_id(aborted_key)
+            put_part(aborted_key, uid, 1, rng.bytes(1 << 20))
+            listed = uploads()
+            status, _, body = _s3_request(c, "DELETE", f"/{S3_BUCKET}/{aborted_key}",
+                                          query={"uploadId": uid})
+            after = uploads()
+            if listed != [uid] or status != 204 or after:
+                fail(f"AbortMultipartUpload: listed {listed} before, {status} "
+                     f"{body[:200]!r}, listed {after} after")
+            status, headers, body = _s3_streaming_put(c, f"/{S3_BUCKET}/stream/streamed.bin",
+                                                      streamed)
+            if status != 200 or headers.get("ETag") != (
+                    f'"{hashlib.md5(streamed).hexdigest()}"'):
+                fail(f"aws-chunked PUT: {status} {headers.get('ETag')} {body[:300]!r}")
+            objects["stream/streamed.bin"] = streamed
+            source = sorted(k for k in objects if k.startswith("d"))[0]
+            status, _, body = _s3_request(c, "PUT", f"/{S3_BUCKET}/copy/copied.bin",
+                                          headers={"x-amz-copy-source":
+                                                   f"/{S3_BUCKET}/{source}"})
+            if status != 200 or _s3_xml(body).findtext("ETag") != (
+                    f'"{hashlib.md5(objects[source]).hexdigest()}"'):
+                fail(f"CopyObject of {source}: {status} {body[:300]!r}")
+            objects["copy/copied.bin"] = objects[source]
+        finally:
+            c.close()
+        walls["fill_multipart_stream_copy"] = time.perf_counter() - t0
+        walls["fill"] = walls["fill_objects"] + walls["fill_multipart_stream_copy"]
+        sizes = {k: len(b) for k, b in objects.items()}
+        digests = {k: hashlib.sha256(b).digest() for k, b in objects.items()}
+        total = sum(sizes.values())
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+
+            def chunk_fids(key: str) -> list:
+                d, _, name = f"{prefix}/{key}".rpartition("/")
+                resp = stub.LookupDirectoryEntry(
+                    fpb.LookupDirectoryEntryRequest(directory=d, name=name), timeout=30)
+                return [chunk.fid for chunk in resp.entry.chunks]
+
+            fids = {k: chunk_fids(k) for k in objects}
+        if {len(fids[k]) for k in parts} != {S3_PARTS}:
+            fail(f"the multipart objects hold chunks { {k: len(fids[k]) for k in parts} }")
+        maps_seen.append(gateway_maps())
+        log(f"3k s3: master, three volume servers, `filer -store lsm -collection s3` and "
+            f"`s3 -config` up in {walls['up']:.3f} s; {len(objects)} objects, {total} B "
+            f"(payloads made in {make_s:.3f} s) put by signed requests in "
+            f"{walls['fill']:.3f} s ({total / walls['fill'] / 1e6:.1f} MB/s): "
+            f"{len(objects) - S3_MULTIPART - 2} objects ({plain_total} B) from {S3_CLIENTS} "
+            f"threads in {walls['fill_objects']:.3f} s "
+            f"({plain_total / walls['fill_objects'] / 1e6:.1f} MB/s), {S3_MULTIPART} multipart objects of {S3_PARTS} x {S3_PART_BYTES} B "
+            f"(ETags {sorted(mp_etags.values())}; part 2 of the first uploaded twice; one "
+            f"upload aborted and gone from ListMultipartUploads), one {S3_STREAM_BYTES} B "
+            f"aws-chunked PUT and one CopyObject in {walls['fill_multipart_stream_copy']:.3f} "
+            f"s; {sum(map(len, fids.values()))} chunks; {smi}")
+
+        # --- 3. the namespace and the auth checks ---
+        step = "3 namespace"
+        t0 = time.perf_counter()
+
+        def listing(query: dict, v2: bool = True) -> tuple[list, list]:
+            """Every (key, size) and common prefix, page by page."""
+            keys, common, token = [], [], ""
+            c = conn()
+            try:
+                while True:
+                    q = dict(query)
+                    if v2:
+                        q.update({"list-type": "2", "max-keys": str(S3_PAGE)})
+                        if token:
+                            q["continuation-token"] = token
+                    elif token:
+                        q["marker"] = token
+                    status, _, body = _s3_request(c, "GET", f"/{S3_BUCKET}", query=q)
+                    if status != 200:
+                        fail(f"ListObjects {q}: {status} {body[:300]!r}")
+                    root = _s3_xml(body)
+                    keys += [(el.findtext("Key"), int(el.findtext("Size")))
+                             for el in root.iter("Contents")]
+                    common += [el.findtext("Prefix") for el in root.iter("CommonPrefixes")]
+                    if root.findtext("IsTruncated") != "true":
+                        return keys, common
+                    token = root.findtext("NextContinuationToken" if v2 else "NextMarker")
+            finally:
+                c.close()
+
+        want = sorted(sizes.items())
+        got, common = listing({})
+        if got != want or common:
+            fail(f"ListObjectsV2 by {S3_PAGE}: {len(got)} keys, {common[:5]} prefixes; want "
+                 f"{len(want)} keys; first difference "
+                 f"{next((a, b) for a, b in zip(got + [None] * len(want), want) if a != b)}")
+        tops = sorted({k.split("/")[0] for k in sizes})
+        for top in tops:
+            under = {k[len(top) + 1:]: n for k, n in sizes.items() if k.startswith(top + "/")}
+            got, common = listing({"prefix": f"{top}/", "delimiter": "/"})
+            want_keys = sorted((f"{top}/{k}", n) for k, n in under.items() if "/" not in k)
+            want_common = sorted({f"{top}/{k.split('/')[0]}/" for k in under if "/" in k})
+            if got != want_keys or sorted(common) != want_common:
+                fail(f"ListObjectsV2 prefix {top}/ delimiter /: {got[:5]} {common} != "
+                     f"{want_keys[:5]} {want_common}")
+        got, common = listing({"max-keys": "1000"}, v2=False)
+        if got != want or common:
+            fail(f"ListObjects v1: {len(got)} keys, want {len(want)}")
+        if client.list_objects(S3_BUCKET) != [k for k, _ in want]:
+            fail("S3Client.list_objects does not list the keys put")
+        refused = {}
+        for label, kw, code in (("wrong secret", {"secret": "not-the-secret"},
+                                 "SignatureDoesNotMatch"),
+                                ("unknown access key", {"access": "AKIDNOBODY"},
+                                 "InvalidAccessKeyId"),
+                                ("unsigned", {"sign": False}, "AccessDenied")):
+            status, _, body = one("GET", f"/{S3_BUCKET}/{source}", **kw)
+            refused[label] = (status, _s3_xml(body).findtext("Code"))
+            if refused[label] != (403, code):
+                fail(f"a request with {label}: {status} {body[:300]!r}, want 403 {code}")
+        health: dict = {}
+
+        def gateway_target() -> bool:
+            with urllib.request.urlopen(f"http://{maddr}/cluster/health", timeout=10) as r:
+                health.update(json.loads(r.read())["Targets"].get(gaddr, {}))
+            return bool(health.get("Up")) and health.get("Kind") == "s3"
+
+        scraped_s = run.wait(gateway_target, "the gateway as an up scrape target of kind s3",
+                             60)
+        walls["namespace"] = time.perf_counter() - t0
+
+        # --- 4. every object back, healthy ---
+        step = "4 healthy read"
+        keys = sorted(objects)
+        walls["read_healthy"] = read_all(keys, "healthy read")
+        log(f"3k s3 namespace: ListObjectsV2 by {S3_PAGE} (flat, and with prefixes {tops} "
+            f"and delimiter /) and ListObjects v1 list the {len(keys)} keys and sizes put; "
+            f"refused {refused}; the gateway an up scrape target of kind "
+            f"{health.get('Kind')} ({scraped_s:.3f} s after the checks began), in "
+            f"{walls['namespace']:.3f} s; {len(keys)} objects read back healthy (SHA-256 and "
+            f"ETag) in {walls['read_healthy']:.3f} s ({total / walls['read_healthy'] / 1e6:.1f}"
+            f" MB/s); {smi}")
+
+        # --- 5. ec.encode and ec.balance, every object back ---
+        step = "5 encode"
+        vols = {}
+        for d in dirs:
+            for f in os.listdir(d):
+                if f.startswith("s3_") and f.endswith(".dat"):
+                    path = os.path.join(d, f)
+                    vols[int(f[3:-4])] = (os.path.getsize(path), {
+                        nd.id: (off, nd.size) for nd, off in scan_volume_file(path)})
+        shell = _CliShell(run.cli + ["shell", "-master", maddr], env,
+                          os.path.join(run.logs, "shell.log"))
+        run.procs["shell"] = shell.proc
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run("ec.encode -collection s3 -fullPercent 0")
+        if text.count("ec encoded volume") != len(vols):
+            fail(f"ec.encode: {text[-2000:]} over volumes {sorted(vols)}")
+        shell.run("ec.balance -force")
+        walls["encode_balance"] = time.perf_counter() - t0
+        k1 = server_launches()
+        encode_launches = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3k s3 ec.encode", encode_launches, ("gf_apply", "crc32c_rows"))
+        held: dict = {i: {} for i in range(3)}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("s3_") and ".ec" in f and f[-2:].isdigit():
+                    held[i].setdefault(int(f[3:].split(".")[0]), []).append(int(f[-2:]))
+        runs["s3_encode"] = {"wall_s": walls["encode_balance"], "launches": encode_launches,
+                             "sigs": {}}
+        walls["read_encoded"] = read_all(keys, "read after ec.encode")
+        log(f"3k s3 ec.encode -collection s3 of {len(vols)} volumes and ec.balance -force "
+            f"through the shell in {walls['encode_balance']:.3f} s, the servers' launches "
+            f"{encode_launches} ({ {i: (k1[i]['gf_apply'] - k0[i]['gf_apply'], k1[i]['crc32c_rows'] - k0[i]['crc32c_rows']) for i in k1} } "
+            f"K1/K4 by server); shards by server "
+            f"{ {i: sum(map(len, h.values())) for i, h in held.items()} }; {len(keys)} objects "
+            f"read back in {walls['read_encoded']:.3f} s "
+            f"({total / walls['read_encoded'] / 1e6:.1f} MB/s); {smi}")
+
+        # --- 6. DeleteObjects reaches the EC volumes ---
+        step = "6 delete"
+        t0 = time.perf_counter()
+        deleted = keys[::S3_DELETE_EVERY]
+        doc = "".join(f"<Object><Key>{k}</Key></Object>" for k in deleted)
+        status, _, body = one("POST", f"/{S3_BUCKET}", query={"delete": ""},
+                              body=f"<Delete>{doc}</Delete>".encode())
+        said = sorted(el.findtext("Key") for el in _s3_xml(body).iter("Deleted")) \
+            if status == 200 else []
+        if said != deleted:
+            fail(f"DeleteObjects of {len(deleted)} keys: {status}, {len(said)} deleted "
+                 f"{body[:300]!r}")
+
+        def no_such_key(c, key):
+            status, _, body = _s3_request(c, "GET", f"/{S3_BUCKET}/{key}")
+            if status != 404 or _s3_xml(body).findtext("Code") != "NoSuchKey":
+                fail(f"GET of the deleted {key}: {status} {body[:300]!r}")
+
+        _fan(gport, S3_CLIENTS, deleted, no_such_key)
+        gone_fids = [f for k in deleted for f in fids[k]]
+
+        def chunks_gone() -> bool:
+            for fid in gone_fids:
+                for port in ports:
+                    try:
+                        urllib.request.urlopen(f"http://127.0.0.1:{port}/{fid}",
+                                               timeout=30).close()
+                        return False
+                    except urllib.error.HTTPError as e:
+                        if e.code != 404:
+                            return False
+            return True
+
+        run.wait(chunks_gone, "3k step 6: 404 for every deleted chunk on every holder", 120)
+        live = [k for k in keys if k not in set(deleted)]
+        walls["delete"] = time.perf_counter() - t0
+        log(f"3k s3: {len(deleted)} objects ({sum(sizes[k] for k in deleted)} B, "
+            f"{len(gone_fids)} chunks) deleted by one DeleteObjects; each answers 404 "
+            f"NoSuchKey and every chunk's fid 404 on all three holders, in "
+            f"{walls['delete']:.3f} s")
+
+        # --- 7. a holder killed, degraded reads through the gateway ---
+        step = "7 degraded read"
+        order = sorted(held, key=lambda i: -sum(map(len, held[i].values())))
+        victim = order[1]
+        lost = {vid: set(s) for vid, s in held[victim].items()}
+        touched, touched_fids = [], []
+        for key in live:
+            for fid in fids[key]:
+                vid_s, rest = fid.split(",")
+                vid, nid = int(vid_s), int(rest[:-8], 16)
+                dat_size, needles = vols[vid]
+                off, size = needles[nid]
+                shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                    locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                    16 + size + 4 + 8)}
+                if shards & lost.get(vid, set()):
+                    touched.append(key)
+                    if len(fids[key]) == 1:
+                        touched_fids.append((key, fid))
+                    break
+        if not touched_fids:
+            fail(f"no live one-chunk object has bytes on shards {lost}")
+        run.procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        run.rcs[f"volume{victim}"] = run.procs[f"volume{victim}"].wait(30)
+        k0 = server_launches()
+        walls["read_degraded"] = read_all(live, "degraded read")
+        k1 = server_launches()
+        degraded = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3k s3 degraded reads", degraded, ("gf_apply",))
+        # every survivor holds shards of the touched volumes, and its K1
+        # launches must rise. One that served no degraded interval
+        # through the filer (the filer picked the other holder) is asked
+        # for a one-chunk object with bytes on the lost shards directly.
+        direct = {}
+        for i in sorted(k1):
+            served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                key, fid = touched_fids[len(direct) % len(touched_fids)]
+                with urllib.request.urlopen(f"http://127.0.0.1:{ports[i]}/{fid}",
+                                            timeout=60) as r:
+                    body = r.read()
+                if body != objects[key]:
+                    fail(f"volume{i}'s GET of {fid} ({key}) gave {len(body)} B, want "
+                         f"{sizes[key]} B")
+                direct[i] = fid
+                k1[i] = server_launches()[i]
+                served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                fail(f"volume{i} served no degraded interval, even asked for "
+                     f"{direct.get(i)} directly")
+            if on_card and k1[i]["gf_apply"] <= k0[i]["gf_apply"]:
+                fail(f"volume{i} served {served} degraded intervals but its K1 launches did "
+                     f"not rise ({k0[i]['gf_apply']} -> {k1[i]['gf_apply']})")
+        live_bytes = sum(sizes[k] for k in live)
+        runs["s3_degraded"] = {"wall_s": walls["read_degraded"], "launches": degraded,
+                               "sigs": {}, "objects": len(live), "touched": len(touched)}
+        maps_seen.append(gateway_maps())
+        log(f"3k s3 degraded reads on {card}: volume{victim} (shards "
+            f"{ {v: sorted(s) for v, s in lost.items()} }) SIGKILLed; {len(live)} live objects "
+            f"({live_bytes} B) read back through the gateway, {len(touched)} of them with "
+            f"bytes on its shards, byte for byte, 0 errors, in {walls['read_degraded']:.3f} s "
+            f"({live_bytes / walls['read_degraded'] / 1e6:.1f} MB/s); the survivors' "
+            f"launches {degraded} ({ {i: k1[i]['gf_apply'] - k0[i]['gf_apply'] for i in k1} } "
+            f"K1 and { {i: k1[i]['degraded'] - k0[i]['degraded'] for i in k1} } degraded "
+            f"intervals by server, each rising; asked directly: {direct}); {smi}")
+
+        # --- 8. the gateway's process, then SIGTERM ---
+        step = "8 processes"
+        if any(any(m.values()) for m in maps_seen):
+            fail(f"the gateway process maps {maps_seen}")
+        run.rcs["shell"] = shell.exit()
+        if run.rcs["shell"]:
+            fail(f"the shell exited {run.rcs['shell']}")
+        runs["s3"] = {"walls": walls, "objects": len(objects), "deleted": len(deleted),
+                      "touched": len(touched), "bytes": total}
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        rcs = run.finish()
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"3k s3: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must be 0); "
+        f"libcuda/libtorch mapped by the gateway {maps_seen}; "
+        f"step walls (s) { {k: round(v, 3) for k, v in walls.items()} } on {card}; {smi}")
+    if bad:
+        raise AssertionError(f"3k s3, step 8 processes: processes exited non-zero {bad}: "
+                             f"{ {n: run.tail(n) for n in bad if n != 'shell'} }")
     return runs
 
 
@@ -5653,6 +6324,7 @@ def main() -> int:
         ("3i telemetry", lambda w: run_telemetry_phase(w, CUT_BYTES, args.seed, None, card,
                                                        smi)),
         ("3j filer", lambda w: run_filer_phase(w, CUT_BYTES, args.seed, None, card, smi)),
+        ("3k s3", lambda w: run_s3_phase(w, S3_BYTES, args.seed, None, card, smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -5684,8 +6356,8 @@ def main() -> int:
              "server_encode", "server_rebuild4", "server_serve", "server_k5",
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
-             "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "batch_encode",
-             "batch_rebuild", "batch_verify")
+             "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "s3_encode",
+             "s3_degraded", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -5696,7 +6368,8 @@ def main() -> int:
         f"line's ec.encode, scrub sweeps and scheduled repair in the servers' processes "
         f"and the verify core in this one, the serving edge's EC GETs on a -workers lead, "
         f"the telemetry phase's degraded weedload GETs, the filer phase's ec.encode and "
-        f"degraded reads through the filer, batch encode, rebuild and verify) "
+        f"degraded reads through the filer, the S3 phase's ec.encode and degraded reads "
+        f"through the gateway, batch encode, rebuild and verify) "
         f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")

@@ -9,11 +9,13 @@ and `shell` run on the port's servers, whose EC paths run on the card
 unless `-ec.codec` names a host codec. `volume -workers N` adds N-1
 `volume.worker` processes on the same port (SO_REUSEPORT) that serve
 plain reads from disk and never touch the card; with `-shardWrites`
-they also own the writes of their share of the volumes. What needs a
-plane the port does not have yet exits 2 naming its ROADMAP item:
-`s3`, `webdav` and `mount`, and `server`'s -s3/-webdav (item 11); and
-the disk-fault shim that WEED_CHAOS_DISK arms (item 14). `filer` and
-`server -filer` run the port's filer, which holds no codec.
+they also own the writes of their share of the volumes. `filer` and
+`server -filer` run the port's filer, `s3` and `server -s3` its S3
+gateway (`s3 -serveProcs N`: N gateway processes on one port); neither
+holds a codec. What needs a plane the port does not have yet exits 2
+naming its ROADMAP item: `webdav` and `server -webdav` (item 11c),
+`mount` (item 11d), and the disk-fault shim that WEED_CHAOS_DISK arms
+(item 14).
 `master` and `server` run the cluster telemetry collector every
 `-telemetryInterval` seconds (10 by default, as the reference's; 0
 turns it off)."""
@@ -199,6 +201,30 @@ def _admission_shm_path(args, group_size: int, port: int) -> str:
             tempfile.gettempdir(), f"weed-adm-{port}-{os.getpid()}.tb"
         )
     return ""
+
+
+def _spawn_serve_procs(
+    n: int, argv_tail: list[str], extra: list[str] | None = None
+) -> list:
+    """`-serveProcs N` (docs/SERVING.md): launch N-1 sibling gateway
+    processes re-running this subcommand with `-reusePort` so every
+    member binds the same port via SO_REUSEPORT and the kernel spreads
+    accepted connections across them. Returns Popen handles. `extra`
+    rides before the overrides (e.g. -admissionProcs N so siblings keep
+    dividing the admission budget by the ORIGINAL group size)."""
+    import sys
+
+    procs = []
+    for _ in range(max(0, n - 1)):
+        procs.append(
+            subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch"]
+                + argv_tail
+                + (extra or [])
+                + ["-serveProcs", "1", "-reusePort"]
+            )
+        )
+    return procs
 
 
 def _apply_trace_flags(args) -> None:
@@ -809,10 +835,9 @@ class FilerCommand(Command):
 
 
 @register
-class S3Command(Waiting):
+class S3Command(Command):
     name = "s3"
     help = "start the S3-compatible gateway over a filer"
-    item = 11
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-ip", default="127.0.0.1", help="bind address")
@@ -855,12 +880,90 @@ class S3Command(Waiting):
             help="log verbosity (0=warning .. 3=trace)",
         )
 
+    def run(self, args) -> int:
+        _configure_tls("client")
+        from seaweedfs_tpu_torch.s3api import S3ApiServer
+        from seaweedfs_tpu_torch.s3api.auth import Identity, IdentityAccessManagement
+
+        wlog.set_verbosity(args.v)
+        _apply_trace_flags(args)
+        iam = None
+        if args.config:
+            from seaweedfs_tpu_torch.util.config import tomllib
+
+            with open(args.config, "rb") as f:
+                tree = tomllib.load(f)
+            idents = [
+                Identity(
+                    i.get("name", i["access_key"]),
+                    i["access_key"],
+                    i["secret_key"],
+                    i.get("actions", ("Admin",)),
+                )
+                for i in tree.get("identities", [])
+            ]
+            iam = IdentityAccessManagement(idents)
+        procs = args.serveProcs
+        admission_shm = _admission_shm_path(args, procs, args.port)
+        server = S3ApiServer(
+            filer=args.filer,
+            host=args.ip,
+            port=args.port,
+            buckets_path=args.bucketsPath,
+            iam=iam,
+            masters=[m for m in args.master.split(",") if m],
+            reuse_port=args.reusePort or procs > 1,
+            serve_idle_ms=args.serveIdleMs,
+            serve_max_reqs=args.serveMaxReqs,
+            admission_rate=args.admissionRate,
+            admission_burst=args.admissionBurst,
+            admission_inflight=args.admissionInflight,
+            admission_procs=args.admissionProcs or procs,
+            admission_shm_path=admission_shm,
+        )
+        server.start()
+        import sys
+
+        extra = ["-admissionProcs", str(procs)]
+        if admission_shm:
+            # siblings must charge the SAME mmap'd bucket the lead
+            # created — the flag rides after argv, so it wins the parse
+            extra += ["-admissionShmPath", admission_shm]
+        children = _spawn_serve_procs(procs, sys.argv[1:], extra)
+        wlog.info(
+            "s3 gateway %s:%d -> filer %s (%d proc(s))",
+            args.ip, args.port, args.filer, procs,
+        )
+        try:
+            rc = _wait_forever()
+        finally:
+            for pr in children:
+                pr.terminate()
+            # the lead outlives its siblings: each is reaped, and one
+            # that does not end cleanly fails the lead's exit code
+            for pr in children:
+                try:
+                    if pr.wait(timeout=30):
+                        rc = 1
+                except subprocess.TimeoutExpired:
+                    pr.kill()
+                    pr.wait()
+                    rc = 1
+            server.stop()
+            if admission_shm and not args.admissionShmPath:
+                import contextlib
+                import os
+
+                with contextlib.suppress(OSError):
+                    os.unlink(admission_shm)
+        return rc
+
 
 @register
 class WebDavCommand(Waiting):
     name = "webdav"
     help = "start the WebDAV gateway over a filer"
-    item = 11
+    item = "11c"
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-ip", default="127.0.0.1", help="bind address")
@@ -1003,10 +1106,10 @@ class ServerCommand(Command):
         )
 
     def run(self, args) -> int:
-        if args.s3 or args.webdav:
+        if args.webdav:
             raise NotImplementedError(
-                "server -s3/-webdav need the S3 and WebDAV gateways, "
-                "not ported yet (ROADMAP item 11)"
+                "server -webdav needs the WebDAV gateway, "
+                "not ported yet (ROADMAP item 11c)"
             )
         _configure_tls("master")
         from seaweedfs_tpu_torch.server.master_server import MasterServer
@@ -1052,7 +1155,7 @@ class ServerCommand(Command):
             )
             volume.start()
             started.append(volume)
-            if args.filer:
+            if args.filer or args.s3:
                 from seaweedfs_tpu_torch import notification
                 from seaweedfs_tpu_torch.server.filer_server import FilerServer
                 from seaweedfs_tpu_torch.util.config import load_config
@@ -1068,6 +1171,17 @@ class ServerCommand(Command):
                 )
                 filer.start()
                 started.append(filer)
+            if args.s3:
+                from seaweedfs_tpu_torch.s3api import S3ApiServer
+
+                s3 = S3ApiServer(
+                    filer=f"{args.ip}:{args.filer_port}",
+                    host=args.ip,
+                    port=args.s3_port,
+                    masters=[f"{args.ip}:{args.master_port}"],
+                )
+                s3.start()
+                started.append(s3)
             wlog.info("all-in-one server up: %d components", len(started))
             return _wait_forever()
         finally:
@@ -1111,7 +1225,7 @@ class ShellCommand(Command):
 class MountCommand(Waiting):
     name = "mount"
     help = "mount the filer as a FUSE filesystem (command/mount_std.go)"
-    item = 11
+    item = "11d"
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument(

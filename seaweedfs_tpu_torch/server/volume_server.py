@@ -35,7 +35,7 @@ shares the writes of its volumes with them by vid.
 What needs a part of the reference that the port does not have yet
 raises NotImplementedError naming its ROADMAP item, at construction for
 a parameter and at the call for a verb; it never silently does less:
-the s3 storage backend and Query (item 11). The batch EC verbs run the
+the s3 storage backend and Query (item 11c). The batch EC verbs run the
 batch arm (K2, with K4 fused into the encode) on a one-device mesh of
 `device`; VolumeCopy and the tail verbs pull from a peer over gRPC. The
 hinted-handoff spool waits for item 10: until then a replica's failure
@@ -370,8 +370,8 @@ class VolumeServer:
         # the planes the port does not have yet refuse up front
         if storage_backends and "s3" in storage_backends:
             raise NotImplementedError(
-                "storage backend s3: the s3api client is not ported yet "
-                "(ROADMAP item 11)"
+                "storage backend s3: storage/backend_s3.py is not ported "
+                "yet (ROADMAP item 11c)"
             )
         # `ec.codec` config: "cpu" | "native" | "cuda" | "" (the default
         # backend: cuda unless WEED_EC_CODEC names a host codec), with
@@ -1663,7 +1663,7 @@ class VolumeServer:
     # experimental select-from-files (volume_grpc_query.go:12)
     def Query(self, req, context):
         raise NotImplementedError(
-            "Query needs the query engine (ROADMAP item 11)"
+            "Query needs the query engine (ROADMAP item 11c)"
         )
 
     # ------------------------------------------------------------------

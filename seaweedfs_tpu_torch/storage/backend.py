@@ -166,9 +166,9 @@ def load_backend_config(cfg: dict) -> None:
 
 
 def _ensure_builtin_factories() -> None:
-    # `dir` only: the S3 tier (the reference's backend_s3) needs the
-    # s3api client, which the port does not have yet, so an `s3.*` name
-    # resolves to nothing, as an unconfigured backend does
+    # `dir` only: the S3 tier (the reference's backend_s3) is not ported
+    # yet (ROADMAP item 11c), so an `s3.*` name resolves to nothing, as
+    # an unconfigured backend does
     from seaweedfs_tpu_torch.storage import backend_dir  # noqa: F401
 
 

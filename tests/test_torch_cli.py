@@ -25,7 +25,11 @@ filer plane's commands run: `filer -store lsm` as a subprocess that
 `filer.copy` fills (its report equal to the reference's against the
 reference's filer), restarted on its -storePath with the namespace
 intact, and the all-in-one `server -filer`; SIGTERM ends each with exit
-code 0 (`master -sequencer.etcd` is in tests/test_torch_etcd.py). The
+code 0 (`master -sequencer.etcd` is in tests/test_torch_etcd.py). The S3
+gateway's commands run: `s3 -config` with one identity and the
+all-in-one `server -filer -s3` answer a signed ListBuckets equal to the
+reference's gateway's over the same buckets, `s3 -serveProcs 2` puts two
+listeners on one port, and SIGTERM ends each with exit code 0. The
 tolerance is equality.
 """
 
@@ -236,8 +240,8 @@ def test_help_lists_the_references_commands():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["s3"], 11), (["webdav"], 11), (["mount"], 11), (["filer.replicate"], 12),
-    (["server", "-s3"], 11), (["server", "-webdav"], 11),
+    (["webdav"], "11c"), (["mount"], "11d"), (["filer.replicate"], 12),
+    (["server", "-webdav"], "11c"),
 ])
 def test_unported_planes_exit_2_naming_their_item(argv, item):
     rc, _out, err = run("port", argv)
@@ -661,7 +665,20 @@ def _local_tree(root, seed=6):
     return files
 
 
+def _handles_sigterm(pid) -> bool:
+    """Whether `pid` has installed its SIGTERM handler (SigCgt in /proc)."""
+    with open(f"/proc/{pid}/status") as f:
+        mask = next(line for line in f if line.startswith("SigCgt:")).split()[1]
+    return bool(int(mask, 16) & (1 << (signal.SIGTERM - 1)))
+
+
 def _sigterm(proc):
+    # a daemon serves a moment before its SIGTERM handler is in place (the
+    # handler comes once start() returns); signalled in between, it would
+    # die of the default action, so the signal waits for the handler
+    with contextlib.suppress(RuntimeError):
+        wait_until(lambda: proc.poll() is not None or _handles_sigterm(proc.pid),
+                   "the daemon's SIGTERM handler")
     proc.send_signal(signal.SIGTERM)
     try:
         out, _ = proc.communicate(timeout=30)
@@ -745,3 +762,162 @@ class TestFilerPlane:
             rc, out = _sigterm(proc)
         assert rc == 0, out[-2000:]
 
+
+
+# --- the S3 gateway's commands -----------------------------------------------------
+
+S3_ACCESS, S3_SECRET = "AKIDCLI", "cli-secret"
+
+
+def _listeners(port):
+    """TCP sockets listening on `port` (each SO_REUSEPORT sibling one)."""
+    with open("/proc/net/tcp") as f:
+        rows = [line.split() for line in f.readlines()[1:]]
+    return sum(1 for r in rows if r[3] == "0A" and int(r[1].rsplit(":", 1)[1], 16) == port)
+
+
+def _s3_call(port, method, path, identity=True):
+    """(status, body with creation dates masked) of one request to the
+    gateway at `port`, SigV4-signed just before it is sent."""
+    from seaweedfs_tpu_torch.s3api.auth import sign_request_v4
+
+    headers = {"Host": f"127.0.0.1:{port}"}
+    if identity:
+        headers.update(sign_request_v4(method, path, {}, headers, b"", S3_ACCESS, S3_SECRET))
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                 headers=headers, data=b"" if method == "PUT" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, re.sub(rb"<CreationDate>[^<]*<", b"<CreationDate>T<", body)
+
+
+def _s3_calls(port, buckets=("alpha", "beta")):
+    """The buckets made, then ListBuckets; an unsigned ListBuckets."""
+    out = [_s3_call(port, "PUT", f"/{b}") for b in buckets]
+    out.append(_s3_call(port, "GET", "/"))
+    out.append(_s3_call(port, "GET", "/", identity=False)[0])
+    return out
+
+
+@contextlib.contextmanager
+def _ref_s3(root, secured):
+    """The reference's master, volume server, filer and S3 gateway (with
+    the one identity when `secured`) in this process; yields its port."""
+    import seaweedfs_tpu.server.filer_server as ref_filer_server
+    import seaweedfs_tpu.util.availability as ref_availability
+    from seaweedfs_tpu.s3api import S3ApiServer
+    from seaweedfs_tpu.s3api.auth import Identity, IdentityAccessManagement
+
+    root.mkdir()
+    master, servers = ref_availability.start_cluster([str(root)], scrub_interval=0,
+                                                     ec_codec="cpu")
+    filer = ref_filer_server.FilerServer([f"127.0.0.1:{master.port}"], port=free_port(),
+                                         store="memory")
+    iam = IdentityAccessManagement([Identity("cli", S3_ACCESS, S3_SECRET)]) if secured else None
+    gw = S3ApiServer(filer=f"127.0.0.1:{filer.port}", port=free_port(), iam=iam)
+    filer.start()
+    try:
+        gw.start()
+        yield gw.port
+    finally:
+        gw.stop()
+        filer.stop()
+        for vs in servers:
+            vs.stop()
+        master.stop()
+
+
+class TestS3Plane:
+    def test_s3_daemon_with_identities(self, tmp_path):
+        """`s3 -filer F -config identities.toml -master M` as a subprocess
+        in front of an in-process port filer: a signed ListBuckets equals
+        the reference gateway's over the same buckets, an unsigned request
+        is refused as the reference's refuses it, the gateway announces
+        itself to the master, and SIGTERM ends it with exit code 0."""
+        import seaweedfs_tpu_torch.util.availability as port_availability
+        from seaweedfs_tpu_torch.server.filer_server import FilerServer
+
+        with _ref_s3(tmp_path / "ref", secured=True) as ref_port:
+            want = _s3_calls(ref_port)
+        (tmp_path / "port").mkdir()
+        master, servers = port_availability.start_cluster(
+            [str(tmp_path / "port")], scrub_interval=0, ec_codec="cuda", device="cpu")
+        filer = FilerServer([f"127.0.0.1:{master.port}"], port=free_port(), store="memory")
+        filer.start()
+        config = tmp_path / "identities.toml"
+        config.write_text(f'[[identities]]\nname = "cli"\naccess_key = "{S3_ACCESS}"\n'
+                          f'secret_key = "{S3_SECRET}"\nactions = ["Admin"]\n')
+        port = free_port()
+        proc = spawn_cli("s3", "-port", str(port), "-filer", f"127.0.0.1:{filer.port}",
+                         "-config", str(config), "-master", f"127.0.0.1:{master.port}",
+                         stdout=subprocess.PIPE)
+        try:
+            wait_until(lambda: _s3_call(port, "GET", "/")[0] == 200, "the s3 gateway", 60)
+            got = _s3_calls(port)
+            wait_until(lambda: master._gateways[f"127.0.0.1:{port}"]["kind"] == "s3",
+                       "the gateway's announcement to the master")
+        finally:
+            rc, out = _sigterm(proc)
+            filer.stop()
+            for vs in servers:
+                vs.stop()
+            master.stop()
+        assert rc == 0, out[-2000:]
+        assert got == want
+        assert [g[0] for g in got[:3]] == [200, 200, 200] and got[3] == 403
+        assert b"<Name>alpha</Name>" in got[2][1] and b"<Name>beta</Name>" in got[2][1]
+
+    def test_all_in_one_server_with_s3(self, tmp_path):
+        """`server -filer -s3` as a subprocess: its open gateway answers a
+        signed ListBuckets equal to the reference's open gateway's, an
+        object PUT through it reads back, and SIGTERM ends it with 0."""
+        with _ref_s3(tmp_path / "ref", secured=False) as ref_port:
+            want = _s3_calls(ref_port)
+        mport, vport, fport, sport = free_port(), free_port(), free_port(), free_port()
+        (tmp_path / "port").mkdir()
+        proc = spawn_cli("server", "-dir", str(tmp_path / "port"), "-master.port", str(mport),
+                         "-volume.port", str(vport), "-filer", "-filer.port", str(fport),
+                         "-s3", "-s3.port", str(sport), "-ec.codec", "cpu",
+                         stdout=subprocess.PIPE)
+        try:
+            wait_until(lambda: _s3_call(sport, "GET", "/")[0] == 200, "the s3 gateway", 60)
+            got = _s3_calls(sport)
+            blob = b"all-in-one s3 smoke " * 100
+            wait_until(lambda: http(f"http://127.0.0.1:{sport}/alpha/o.txt", data=blob,
+                                    method="PUT") is not None, "an object PUT", 60)
+            back = http(f"http://127.0.0.1:{sport}/alpha/o.txt")
+        finally:
+            rc, out = _sigterm(proc)
+        assert rc == 0, out[-2000:]
+        assert got == want and got[3] == 200
+        assert back == blob
+
+    def test_serve_procs_share_one_port(self, tmp_path):
+        """`s3 -serveProcs 2`: the lead spawns one sibling that binds the
+        same port with SO_REUSEPORT, both answer, and SIGTERM to the lead
+        ends the sibling too, the lead's exit code 0."""
+        port = free_port()
+        proc = spawn_cli("s3", "-port", str(port), "-filer", f"127.0.0.1:{free_port()}",
+                         "-serveProcs", "2", stdout=subprocess.PIPE)
+        def siblings() -> list:
+            out = []
+            for name in os.listdir("/proc"):
+                with contextlib.suppress(OSError):
+                    if name.isdigit() and int(pathlib.Path(f"/proc/{name}/stat").read_text()
+                                              .rsplit(")", 1)[1].split()[1]) == proc.pid:
+                        out.append(int(name))
+            return out
+
+        try:
+            wait_until(lambda: _listeners(port) == 2, "two listeners on the port", 60)
+            wait_until(lambda: len(siblings()) == 1 and all(
+                map(_handles_sigterm, [proc.pid] + siblings())), "both SIGTERM handlers")
+            # a too-short bucket name is refused before any filer access
+            assert {_s3_call(port, "PUT", "/x", identity=False)[0] for _ in range(8)} == {400}
+        finally:
+            rc, out = _sigterm(proc)
+        assert rc == 0, out[-2000:]
+        assert _listeners(port) == 0

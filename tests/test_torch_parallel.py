@@ -242,8 +242,8 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 # the volume server's, the master tier's, the admin plane's, the command
-# line's, the serving edge's and the filer core's slices: every module
-# they added is walked too
+# line's, the serving edge's, the filer core's and the S3 gateway's
+# slices: every module they added is walked too
 SERVER_SLICE = (
     "pb/rpc.py", "pb/volume_pb2.py", "pb/master_pb2.py", "pb/filer_pb2.py",
     "pb/raft_pb2.py", "pb/tikv_pb2.py", "util/deadline.py", "util/http_range.py",
@@ -279,6 +279,9 @@ SERVER_SLICE = (
     "filer/pg_driver.py", "filer/redis_store.py", "filer/cassandra_store.py",
     "filer/etcd_store.py", "filer/tikv_store.py", "filer/filer.py", "filer/stream.py",
     "notification/__init__.py", "server/filer_server.py", "shell/fs_commands.py",
+    # the S3 gateway's slice
+    "s3api/__init__.py", "s3api/errors.py", "s3api/auth.py", "s3api/chunked_reader.py",
+    "s3api/client.py", "s3api/s3api_server.py",
 )
 
 

@@ -604,7 +604,7 @@ WAITS = [
     ({"scrub_interval": 600.0}, None),
     ({"internal_port": 1}, None),
     ({"shard_writes": True}, None),
-    ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11"),
+    ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11c"),
     ({"public_url": "10.0.0.1:8080"}, None),
     ({"data_center": "dc1"}, None),
     ({"rack": "r1"}, None),
@@ -650,7 +650,7 @@ def test_the_reference_default_scrub_interval_raises(tmp_path):
 
 
 VERBS = [
-    ("Query", pb.QueryRequest(), "ROADMAP item 11"),
+    ("Query", pb.QueryRequest(), "ROADMAP item 11c"),
     # ported with the tier engine (ROADMAP item 9): a volume that is not
     # there aborts NOT_FOUND, as the reference's does
     ("VolumeTierMoveDatToRemote", pb.VolumeTierMoveDatToRemoteRequest(), None),
