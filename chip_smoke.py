@@ -205,6 +205,29 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      each survivor's card), 0 errors; the gateway maps neither libcuda
      nor torch; SIGTERM ends every process with exit code 0; a fault
      names 3k and its step;
+ 3l. WebDAV, the Query verb and the s3 tier backend
+     (run_webdav_tier_phase): the cluster of 3j, every process in a
+     directory of its own, the volume servers' master.toml naming
+     `s3.default` (bucket volume-tier on an `s3 -config` gateway of the
+     same cluster), a `filer -store lsm -collection webdav` and a
+     `webdav` process; MKCOL of a tree 1-3 levels deep, PUTs from 4
+     threads of 128 MiB (WEBDAV_BYTES) of files log-uniform over 1 KiB-4
+     MiB and one of 40 MiB, a directory MOVE and a directory's files
+     COPYed (a collection COPY answers 501, as the reference's), PROPFIND
+     Depth 0/1 of every collection equal to the tree; every file read
+     back (SHA-256), after ec.encode and ec.balance -force (K1 + K4) and
+     with the holder of the second most shards SIGKILLed (K1 rising on
+     each survivor that holds shards of a touched volume), every 10th
+     file DELETEd (404, chunks 404 on the live holders); the Query verb
+     over JSON-lines needles equal to the plain reading; a sealed 32 MiB
+     .dat through volume.tier.upload / volume.tier.download (needles
+     read over ranged GETs, the .dat back byte-identical); a 32 MiB
+     volume encoded (K1 + K4) and tier.move'd to the bucket, the objects
+     of shards {0, 5, 10, 13} deleted, every needle read back decoded
+     from the remote survivors (K1 and weed_tier_remote_read_total
+     rising on the serving holder); neither gateway maps libcuda or
+     torch; SIGTERM ends every process with exit code 0; a fault names
+     3l and its step;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -3266,18 +3289,27 @@ def _cli_launches(metrics: dict) -> dict:
                       "gf_bits", "gf_bits_mma", "gf_bits_alu")}
 
 
+def _repo_on_path(env: dict) -> dict:
+    """`env` with this repo first on PYTHONPATH, for a process that runs
+    in a directory of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(env, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [env.get("PYTHONPATH")] if p]))
+
+
 class _CliShell:
     """`python -m seaweedfs_tpu_torch shell` as an operator runs it, one
     process kept open: each command is written to its stdin, and its
     output is read up to a marker line (an unknown command's error,
     which the shell prints and flushes with its next prompt)."""
 
-    def __init__(self, argv: list, env: dict, log_path: str):
+    def __init__(self, argv: list, env: dict, log_path: str, cwd: str | None = None):
         import queue
 
         self.proc = subprocess.Popen(argv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                                     stderr=open(log_path, "w"), text=True, env=env,
-                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+                                     stderr=open(log_path, "w"), text=True,
+                                     env=env if cwd is None else _repo_on_path(env),
+                                     cwd=cwd or os.path.dirname(os.path.abspath(__file__)))
         self.lines: "queue.Queue" = queue.Queue()
         self._n = 0
         threading.Thread(target=self._pump, daemon=True, name="cli-shell-reader").start()
@@ -4785,10 +4817,14 @@ class _PhaseProcs:
         with open(os.path.join(self.logs, name + ".log"), errors="replace") as f:
             return f.read()[-3000:]
 
-    def spawn(self, name: str, args: list) -> subprocess.Popen:
+    def spawn(self, name: str, args: list, cwd: str | None = None) -> subprocess.Popen:
+        """`args` in a process of its own; with `cwd`, run there (where
+        its config files lie), the repo on its PYTHONPATH."""
         with open(os.path.join(self.logs, name + ".log"), "w") as log_file:
-            self.procs[name] = subprocess.Popen(self.cli + args, cwd=self.here, env=self.env,
-                                                stdout=log_file, stderr=subprocess.STDOUT)
+            self.procs[name] = subprocess.Popen(
+                self.cli + args, cwd=cwd or self.here, stdout=log_file,
+                env=self.env if cwd is None else _repo_on_path(self.env),
+                stderr=subprocess.STDOUT)
         return self.procs[name]
 
     def wait(self, cond, what: str, timeout: float = 120.0) -> float:
@@ -5927,6 +5963,789 @@ def run_s3_phase(workdir: str, volume_bytes: int, seed: int, device=None,
     return runs
 
 
+WEBDAV_ROOM = 2 << 30  # the WebDAV/tier phase's peak in its directory (about 1.3 GiB)
+WEBDAV_BYTES = 128 << 20  # 3l's files besides the big one, as 3k's S3_BYTES
+WEBDAV_BIG_BYTES = 40 << 20  # one file the filer cuts into two chunks at -maxMB 32
+WEBDAV_CLIENTS = 4  # client threads of the fill and of every read pass
+WEBDAV_DELETE_EVERY = 10  # every 10th live file deleted through WebDAV
+TIER_BUCKET = "volume-tier"  # the bucket `s3.default` names in master.toml
+TIER_ACCESS, TIER_SECRET = "AKIDTIER", "tier-secret-key"  # the gateway's one identity
+TIER_DAT_BYTES = 32 << 20  # the sealed plain volume step d moves to the bucket
+TIER_EC_BYTES = 32 << 20  # the volume step e encodes and tiers
+QUERY_NEEDLES = 256  # step c's needles, two JSON lines each
+QUERY_FILTERS = (("name", "=", "alice"), ("n", ">", "9"), ("name", "%", "a*"),
+                 ("f", ">", "1.5"), ("n", "=", "5"))
+QUERY_SELECT = ("name", "n", "tag.k")
+
+
+def _dav(conn, method: str, path: str, body: bytes | None = None,
+         headers: dict | None = None) -> tuple[int, dict, bytes]:
+    """One WebDAV request on the keep-alive connection `conn`, the path
+    quoted as the gateway's hrefs are."""
+    import urllib.parse
+
+    return _http(conn, method, urllib.parse.quote(path), body, headers)
+
+
+def _query_needles(seed: int, n: int) -> list:
+    """n needles of two JSON lines each, drawn from `seed`: a string, an
+    int, a float and, in about half the lines, a nested field. Each is at
+    most 128 B, so the volume server stores it as it is (a text body over
+    128 B is gzipped on write, and Query reads a needle's stored bytes)."""
+    rng = np.random.default_rng(seed)
+    names = ("ann", "bob", "alice", "al", "cat", "dan")
+    out = []
+    for _ in range(n):
+        lines = []
+        for _ in range(2):
+            row = {"name": names[int(rng.integers(0, len(names)))],
+                   "n": int(rng.integers(0, 20)), "f": float(np.round(rng.uniform(-5, 5), 2))}
+            if rng.integers(0, 2):
+                row["tag"] = {"k": str(int(rng.integers(0, 4)))}
+            lines.append(json.dumps(row, separators=(",", ":")))
+        out.append("\n".join(lines).encode())
+    return out
+
+
+def _plain_query(line: str, flt: tuple, select) -> list | None:
+    """The plain reading of one JSON line: None unless it passes the
+    filter (field, op, value) with op one of =, > (a string field
+    compared as a string, a number as a number) or % (a glob on a string
+    field), else the values of the dotted paths in `select` (None where
+    absent)."""
+    import fnmatch
+
+    doc = json.loads(line)
+
+    def pick(path: str):
+        cur = doc
+        for seg in path.split("."):
+            if not isinstance(cur, dict) or seg not in cur:
+                return None
+            cur = cur[seg]
+        return cur
+
+    field, op, value = flt
+    v = pick(field)
+    if isinstance(v, str):
+        passed = {"=": v == value, ">": v > value, "%": fnmatch.fnmatchcase(v, value)}[op]
+    elif isinstance(v, (int, float)):
+        passed = {"=": v == float(value), ">": v > float(value)}.get(op, False)
+    else:
+        passed = False
+    return [pick(p) for p in select] if passed else None
+
+
+def _own_fids(vid: int, n: int, seed: int) -> list:
+    """n file ids on volume `vid`, keys from 2^36 up (above what the
+    master's sequencer hands out in this phase), cookies from `seed`."""
+    from seaweedfs_tpu_torch.storage.file_id import format_needle_id_cookie
+
+    rng = np.random.default_rng(seed)
+    return [f"{vid},{format_needle_id_cookie((1 << 36) + i, int(rng.integers(1, 1 << 32)))}"
+            for i in range(n)]
+
+
+def run_webdav_tier_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                          card: str = "", smi: str = "", big_bytes: int = WEBDAV_BIG_BYTES,
+                          dat_bytes: int = TIER_DAT_BYTES,
+                          ec_bytes: int = TIER_EC_BYTES) -> dict:
+    """WebDAV, the Query verb and the s3 tier backend (ROADMAP item 11c)
+    over a cluster whose volume servers decode on the card, every process
+    `python -m seaweedfs_tpu_torch` in a directory of its own under
+    `workdir` (/dev/shm), on `device` (None: the card; "cpu" runs the
+    volume servers with -ec.codec cpu, a rehearsal):
+      a. a master (-telemetryInterval 1, -repairInterval 0,
+         -volumeSizeLimitMB 1152), three `volume` servers (racks 0/1/0)
+         whose master.toml names `s3.default` (bucket TIER_BUCKET on the
+         gateway below), a `filer -store lsm -collection webdav` (-maxMB
+         32), an `s3 -config` gateway with one identity (the tier target)
+         and a `webdav -filer -master`; MKCOL a tree 1-3 levels deep and
+         PUT into it from WEBDAV_CLIENTS threads `volume_bytes` of files
+         log-uniform over 1 KiB-4 MiB from the seed and one of
+         `big_bytes`; MOVE a directory; COPY of a directory answers 501
+         (the reference's gateway copies files only), so its files are
+         copied one by one; PROPFIND Depth 0 and 1 of every directory
+         list exactly the tree; every file GET back, SHA-256 equal; the
+         gateway an up scrape target of kind webdav;
+      b. ec.encode -collection webdav -fullPercent 0 and ec.balance
+         -force through a `shell` process (K1 + K4 on the servers'
+         cards, off their /metrics); every file GET again; the holder
+         with the second most shards SIGKILLed and every live file GET
+         degraded, 0 errors; each survivor that holds shards of a touched
+         volume shows K1 rising (one the filer sent no degraded read is
+         asked for a file on the lost shards directly); then every
+         WEBDAV_DELETE_EVERY-th live file DELETEd: each GET 404 through
+         WebDAV, its chunks 404 on every live holder;
+      c. QUERY_NEEDLES needles of JSON lines POSTed into one plain volume
+         and the Query verb over gRPC for each of QUERY_FILTERS with the
+         projection QUERY_SELECT: the stripes equal the plain reading of
+         the same lines;
+      d. a sealed plain volume of `dat_bytes` (config 1's mix) moved to
+         the bucket by volume.tier.upload -dest s3.default: every needle
+         GET equal over ranged GETs against the gateway; volume.tier.download
+         brings the .dat back byte-identical to a copy saved first;
+      e. one more volume of `ec_bytes` encoded by ec.encode -volumeId
+         (K1 + K4) and its shards moved to the bucket by tier.move -dest
+         s3.default on every holder; every needle GET through the holder
+         with the most shards, healthy; the objects of shards LOST deleted
+         through the S3 API; every needle GET again, equal, decoded from
+         the remote survivors: that holder's K1 launches and
+         weed_tier_remote_read_total rise on its /metrics;
+      f. neither gateway maps libcuda or torch; SIGTERM ends every process
+         with exit code 0 (the killed holder aside); each step's wall and
+         MB/s printed beside the card's name and power limit.
+    Raises naming 3l and the step on any fault; returns webdav_encode,
+    webdav_degraded, tier_encode and tier_degraded with the volume
+    servers' launches."""
+    import hashlib
+    import signal
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.pb import volume_pb2 as vpb
+    from seaweedfs_tpu_torch.s3api.client import S3Client, S3ClientError
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    _check_room(workdir, WEBDAV_ROOM if volume_bytes >= 1 << 27
+                else 4 * (volume_bytes + big_bytes + dat_bytes + ec_bytes) + (1 << 27),
+                "phase 3l")
+    on_card = device is None
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    run = _PhaseProcs("3l webdav/tier", workdir, env)
+    step = "a start"
+
+    def fail(msg: str):
+        raise AssertionError(f"3l webdav/tier, step {step}: {msg}")
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    failed = None
+    maps_seen: list = []
+    mport, fport, gport, dport = free_port(), free_port(), free_port(), free_port()
+    ports = [free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr, faddr, gaddr, daddr = (f"127.0.0.1:{p}" for p in (mport, fport, gport, dport))
+
+    def home(name: str) -> str:
+        d = os.path.join(workdir, "run", name)
+        os.makedirs(d)
+        return d
+
+    def server_launches() -> dict:
+        """Each live volume server's kernel launches, with "degraded" the
+        EC intervals it served by reconstruction and "remote" its ranged
+        tier reads."""
+        out = {}
+        for i in range(3):
+            if f"volume{i}" not in run.rcs:
+                m = _cli_metrics(ports[i])
+                out[i] = dict(_cli_launches(m),
+                              degraded=int(m.get("weed_ec_degraded_read_total", 0)),
+                              remote=int(m.get("weed_tier_remote_read_total", 0)))
+        return out
+
+    def launch_delta(before: dict, after: dict) -> dict:
+        return {k: sum(after[i][k] - before[i][k] for i in after) for k in _counts()}
+
+    def gateway_maps() -> dict:
+        return {name: _maps_has(run.procs[name].pid, "libcuda", "libtorch")
+                for name in ("webdav", "s3")}
+
+    def read_files(paths: list, label: str) -> float:
+        def get(c, path):
+            status, _, body = _dav(c, "GET", path)
+            if status != 200 or hashlib.sha256(body).digest() != digests[path]:
+                fail(f"{label}: GET {path} answered {status} with {len(body)} B, want "
+                     f"{len(files[path])} B of SHA-256 {digests[path].hex()}")
+
+        t0 = time.perf_counter()
+        _fan(dport, WEBDAV_CLIENTS, paths, get)
+        return time.perf_counter() - t0
+
+    def post_needles(url: str, fids: list, bodies: list) -> float:
+        host, _, port = url.rpartition(":")
+
+        def post(c, item):
+            fid, body = item
+            status, _, reply = _http(c, "POST", f"/{fid}", body)
+            if status != 201:
+                fail(f"POST {fid} to {url}: {status} {reply[:300]!r}")
+
+        t0 = time.perf_counter()
+        _fan(int(port), WEBDAV_CLIENTS, list(zip(fids, bodies)), post)
+        return time.perf_counter() - t0
+
+    def read_needles(port: int, fids: list, bodies: list, label: str) -> float:
+        digest = {fid: hashlib.sha256(b).digest() for fid, b in zip(fids, bodies)}
+
+        def get(c, fid):
+            status, _, body = _http(c, "GET", f"/{fid}")
+            if status != 200 or hashlib.sha256(body).digest() != digest[fid]:
+                fail(f"{label}: GET {fid} on :{port} answered {status} with {len(body)} B")
+
+        t0 = time.perf_counter()
+        _fan(port, WEBDAV_CLIENTS, fids, get)
+        return time.perf_counter() - t0
+
+    def assign(collection: str) -> tuple[int, str]:
+        with urllib.request.urlopen(f"http://{maddr}/dir/assign?collection={collection}",
+                                    timeout=60) as r:
+            got = json.loads(r.read())
+        if not got.get("fid"):
+            fail(f"assign in {collection}: {got}")
+        return int(got["fid"].split(",")[0]), got["url"]
+
+    try:
+        # --- a. the cluster, the gateways and the WebDAV fill ---
+        t0 = time.perf_counter()
+        s3_home = home("s3")
+        identities = os.path.join(s3_home, "identities.toml")
+        with open(identities, "w") as f:
+            f.write(f'[[identities]]\nname = "tier"\naccess_key = "{TIER_ACCESS}"\n'
+                    f'secret_key = "{TIER_SECRET}"\nactions = ["Admin"]\n')
+        run.spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                             "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval",
+                             "0", "-telemetryInterval", "1"], cwd=home("master"))
+        run.wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                                timeout=2).close() is None, "the master")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            cwd = home(f"volume{i}")
+            with open(os.path.join(cwd, "master.toml"), "w") as f:
+                f.write(f'[storage.backend.s3.default]\nenabled = true\n'
+                        f'endpoint = "{gaddr}"\nbucket = "{TIER_BUCKET}"\n'
+                        f'aws_access_key_id = "{TIER_ACCESS}"\n'
+                        f'aws_secret_access_key = "{TIER_SECRET}"\n')
+            run.spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                                     "-dir", d, "-max", "100", "-mserver", maddr,
+                                     "-rack", f"rack{i % 2}", "-scrubInterval", "0"]
+                      + codec_args, cwd=cwd)
+        run.spawn("filer", ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master",
+                            maddr, "-store", "lsm", "-storePath",
+                            os.path.join(workdir, "filer-lsm"), "-collection", "webdav"],
+                  cwd=home("filer"))
+        run.spawn("s3", ["s3", "-ip", "127.0.0.1", "-port", str(gport), "-filer", faddr,
+                         "-master", maddr, "-config", identities], cwd=s3_home)
+        run.spawn("webdav", ["webdav", "-ip", "127.0.0.1", "-port", str(dport), "-filer",
+                             faddr, "-master", maddr], cwd=home("webdav"))
+        cenv = CommandEnv([maddr])
+        run.wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+
+        def filer_up() -> bool:
+            with urllib.request.urlopen(f"http://{faddr}/", timeout=5) as r:
+                return r.status == 200
+
+        def dav_up() -> bool:
+            c = http.client.HTTPConnection("127.0.0.1", dport, timeout=10)
+            try:
+                status, headers, _ = _dav(c, "OPTIONS", "/")
+            finally:
+                c.close()
+            return status == 200 and headers.get("DAV") == "1,2"
+
+        run.wait(filer_up, "the filer")
+        run.wait(dav_up, "OPTIONS with DAV 1,2 from the webdav gateway")
+        tier = S3Client(gaddr, TIER_ACCESS, TIER_SECRET)
+        run.wait(lambda: tier.create_bucket(TIER_BUCKET) is None,
+                 f"the tier bucket {TIER_BUCKET} on the s3 gateway")
+        walls["up"] = time.perf_counter() - t0
+
+        step = "a fill"
+        t0 = time.perf_counter()
+        files = {f"/dav/{k}": b for k, b in _s3_objects(volume_bytes, seed + 190).items()}
+        files["/dav/big/big.bin"] = np.random.default_rng(seed + 191).bytes(big_bytes)
+        make_s = time.perf_counter() - t0
+
+        def tree_dirs() -> list:
+            out = {p[:i] for p in files for i in range(len("/dav"), len(p)) if p[i] == "/"}
+            return sorted(out, key=lambda d: (d.count("/"), d))
+
+        t0 = time.perf_counter()
+        c = http.client.HTTPConnection("127.0.0.1", dport, timeout=120)
+        try:
+            for d in tree_dirs():
+                status, _, body = _dav(c, "MKCOL", d)
+                if status != 201:
+                    fail(f"MKCOL {d}: {status} {body[:200]!r}")
+            status, _, _ = _dav(c, "MKCOL", "/dav")
+            if status != 405:
+                fail(f"MKCOL of the existing /dav: {status}, want 405")
+        finally:
+            c.close()
+        walls["mkcol"] = time.perf_counter() - t0
+
+        def put(c, path):
+            status, _, body = _dav(c, "PUT", path, files[path])
+            if status != 201:
+                fail(f"PUT {path}: {status} {body[:300]!r}")
+
+        t0 = time.perf_counter()
+        _fan(dport, WEBDAV_CLIENTS, sorted(files), put)
+        walls["fill"] = time.perf_counter() - t0
+        total = sum(map(len, files.values()))
+
+        step = "a move and copy"
+        t0 = time.perf_counter()
+        tops = sorted({p.split("/")[2] for p in files if p.count("/") > 2})
+        moved_from, moved_to = f"/dav/{tops[-1]}", "/dav/moved"
+        c = http.client.HTTPConnection("127.0.0.1", dport, timeout=120)
+        try:
+            status, _, body = _dav(c, "MOVE", moved_from,
+                                   headers={"Destination": f"http://{daddr}{moved_to}"})
+            if status != 201:
+                fail(f"MOVE {moved_from} -> {moved_to}: {status} {body[:200]!r}")
+            files = {(moved_to + p[len(moved_from):] if p.startswith(moved_from + "/")
+                      else p): b for p, b in files.items()}
+            status, _, _ = _dav(c, "GET", moved_from)
+            if status != 404:
+                fail(f"GET of the moved {moved_from}: {status}, want 404")
+            leaves = {}
+            for p, b in files.items():
+                leaves.setdefault(p.rpartition("/")[0], []).append(p)
+            copied_from = min((d for d in leaves if d != "/dav/big"),
+                              key=lambda d: sum(len(files[p]) for p in leaves[d]))
+            copied_to = "/dav/copied"
+            status, _, _ = _dav(c, "COPY", copied_from,
+                                headers={"Destination": f"http://{daddr}{copied_to}"})
+            if status != 501:
+                fail(f"COPY of the directory {copied_from}: {status}, want 501 (the "
+                     f"reference's gateway copies files only)")
+            status, _, _ = _dav(c, "MKCOL", copied_to)
+            if status != 201:
+                fail(f"MKCOL {copied_to}: {status}")
+            for p in sorted(leaves[copied_from]):
+                dst = copied_to + p[len(copied_from):]
+                status, _, body = _dav(c, "COPY", p,
+                                       headers={"Destination": f"http://{daddr}{dst}"})
+                if status != 201:
+                    fail(f"COPY {p} -> {dst}: {status} {body[:200]!r}")
+                files[dst] = files[p]
+        finally:
+            c.close()
+        walls["move_copy"] = time.perf_counter() - t0
+
+        step = "a propfind"
+        t0 = time.perf_counter()
+        sizes = {p: len(b) for p, b in files.items()}
+        digests = {p: hashlib.sha256(b).digest() for p, b in files.items()}
+        all_dirs = tree_dirs()
+
+        def listing(c, d: str, depth: str) -> list:
+            status, _, body = _dav(c, "PROPFIND", d, headers={"Depth": depth})
+            if status != 207:
+                fail(f"PROPFIND {d} Depth {depth}: {status} {body[:200]!r}")
+            out = []
+            for r in _s3_xml(body).iter("response"):
+                prop = r.find("propstat/prop")
+                coll = prop.find("resourcetype/collection") is not None
+                size = prop.findtext("getcontentlength")
+                out.append((urllib.parse.unquote(r.findtext("href")), coll,
+                            None if size is None else int(size)))
+            return out
+
+        def check_dir(c, d: str) -> None:
+            kids = {p[len(d) + 1:].split("/")[0] for p in files if p.startswith(d + "/")}
+            want = [(d + "/", True, None)] + sorted(
+                (f"{d}/{k}/", True, None) if f"{d}/{k}" in set(all_dirs)
+                else (f"{d}/{k}", False, sizes[f"{d}/{k}"]) for k in kids)
+            got = listing(c, d, "1")
+            if got[:1] + sorted(got[1:]) != want:
+                fail(f"PROPFIND {d} Depth 1 lists {got[:6]}..., want {want[:6]}...")
+            if listing(c, d, "0") != [(d + "/", True, None)]:
+                fail(f"PROPFIND {d} Depth 0 is not the collection alone")
+
+        _fan(dport, WEBDAV_CLIENTS, all_dirs, check_dir)
+        health: dict = {}
+
+        def gateway_target() -> bool:
+            with urllib.request.urlopen(f"http://{maddr}/cluster/health", timeout=10) as r:
+                health.update(json.loads(r.read())["Targets"].get(daddr, {}))
+            return bool(health.get("Up")) and health.get("Kind") == "webdav"
+
+        scraped_s = run.wait(gateway_target,
+                             "the webdav gateway as an up scrape target of kind webdav", 60)
+        walls["propfind"] = time.perf_counter() - t0
+
+        step = "a healthy read"
+        paths = sorted(files)
+        walls["read_healthy"] = read_files(paths, "healthy read")
+        total = sum(sizes.values())
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+
+            def chunk_fids(path: str) -> list:
+                d, _, name = path.rpartition("/")
+                resp = stub.LookupDirectoryEntry(
+                    fpb.LookupDirectoryEntryRequest(directory=d, name=name), timeout=30)
+                return [chunk.fid for chunk in resp.entry.chunks]
+
+            fids = {p: chunk_fids(p) for p in paths}
+        if len(fids["/dav/big/big.bin"]) != -(-big_bytes // (32 << 20)):
+            fail(f"the big file holds {len(fids['/dav/big/big.bin'])} chunks")
+        maps_seen.append(gateway_maps())
+        log(f"3l webdav/tier: master, three volume servers (s3.default in their "
+            f"master.toml), `filer -store lsm -collection webdav`, `s3 -config` and "
+            f"`webdav` up in {walls['up']:.3f} s; {len(all_dirs)} collections by MKCOL in "
+            f"{walls['mkcol']:.3f} s; {len(paths) - len(leaves[copied_from])} files, "
+            f"{total - sum(sizes[p] for p in paths if p.startswith('/dav/copied/'))} B "
+            f"(payloads made in {make_s:.3f} s) PUT from {WEBDAV_CLIENTS} threads in "
+            f"{walls['fill']:.3f} s ({(total - sum(sizes[p] for p in paths if p.startswith('/dav/copied/'))) / walls['fill'] / 1e6:.1f} MB/s); "
+            f"MOVE {moved_from} -> {moved_to}, COPY of {copied_from} 501 and its "
+            f"{len(leaves[copied_from])} files copied one by one to {copied_to} in "
+            f"{walls['move_copy']:.3f} s; PROPFIND Depth 1 and 0 of {len(all_dirs)} "
+            f"collections equal to the tree and the gateway an up scrape target of kind "
+            f"{health.get('Kind')} ({scraped_s:.3f} s) in {walls['propfind']:.3f} s; "
+            f"{len(paths)} files ({total} B, {sum(map(len, fids.values()))} chunks) read "
+            f"back healthy (SHA-256) in {walls['read_healthy']:.3f} s "
+            f"({total / walls['read_healthy'] / 1e6:.1f} MB/s); {smi}")
+
+        # --- b. ec.encode and ec.balance, a holder lost, deletes ---
+        step = "b encode"
+        vols = {}
+        for d in dirs:
+            for f in os.listdir(d):
+                if f.startswith("webdav_") and f.endswith(".dat"):
+                    path = os.path.join(d, f)
+                    vols[int(f[7:-4])] = (os.path.getsize(path), {
+                        nd.id: (off, nd.size) for nd, off in scan_volume_file(path)})
+        shell = _CliShell(run.cli + ["shell", "-master", maddr], env,
+                          os.path.join(run.logs, "shell.log"), cwd=home("shell"))
+        run.procs["shell"] = shell.proc
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run("ec.encode -collection webdav -fullPercent 0")
+        if text.count("ec encoded volume") != len(vols):
+            fail(f"ec.encode: {text[-2000:]} over volumes {sorted(vols)}")
+        shell.run("ec.balance -force")
+        walls["encode_balance"] = time.perf_counter() - t0
+        k1 = server_launches()
+        encode_launches = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3l webdav/tier, step b ec.encode", encode_launches,
+                         ("gf_apply", "crc32c_rows"))
+        held: dict = {i: {} for i in range(3)}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("webdav_") and ".ec" in f and f[-2:].isdigit():
+                    held[i].setdefault(int(f[7:].split(".")[0]), []).append(int(f[-2:]))
+        runs["webdav_encode"] = {"wall_s": walls["encode_balance"],
+                                 "launches": encode_launches, "sigs": {}}
+        walls["read_encoded"] = read_files(paths, "read after ec.encode")
+        log(f"3l webdav/tier ec.encode -collection webdav of {len(vols)} volumes and "
+            f"ec.balance -force through the shell in {walls['encode_balance']:.3f} s, the "
+            f"servers' launches {encode_launches} "
+            f"({ {i: (k1[i]['gf_apply'] - k0[i]['gf_apply'], k1[i]['crc32c_rows'] - k0[i]['crc32c_rows']) for i in k1} } "
+            f"K1/K4 by server); shards by server "
+            f"{ {i: sum(map(len, h.values())) for i, h in held.items()} }; {len(paths)} files "
+            f"read back in {walls['read_encoded']:.3f} s "
+            f"({total / walls['read_encoded'] / 1e6:.1f} MB/s); {smi}")
+
+        step = "b degraded read"
+        order = sorted(held, key=lambda i: -sum(map(len, held[i].values())))
+        victim = order[1]
+        lost = {vid: set(s) for vid, s in held[victim].items()}
+        touched, touched_fids = [], []
+        for path in paths:
+            for fid in fids[path]:
+                vid_s, rest = fid.split(",")
+                vid, nid = int(vid_s), int(rest[:-8], 16)
+                dat_size, needles = vols[vid]
+                off, size = needles[nid]
+                shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                    locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                    16 + size + 4 + 8)}
+                if shards & lost.get(vid, set()):
+                    touched.append(path)
+                    if len(fids[path]) == 1:
+                        touched_fids.append((path, fid))
+                    break
+        if not touched_fids:
+            fail(f"no one-chunk file has bytes on shards {lost}")
+        touched_vids = {int(fid.split(",")[0]) for _, fid in touched_fids}
+        run.procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        run.rcs[f"volume{victim}"] = run.procs[f"volume{victim}"].wait(30)
+        k0 = server_launches()
+        walls["read_degraded"] = read_files(paths, "degraded read")
+        k1 = server_launches()
+        degraded = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3l webdav/tier, step b degraded reads", degraded, ("gf_apply",))
+        # every survivor holding shards of a touched volume must decode on
+        # its card; one the filer sent no degraded read is asked directly
+        # for a one-chunk file of such a volume with bytes on the lost shards
+        direct = {}
+        for i in sorted(k1):
+            mine = [(p, fid) for p, fid in touched_fids
+                    if int(fid.split(",")[0]) in held[i]]
+            if not mine:
+                continue
+            served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                path, fid = mine[0]
+                with urllib.request.urlopen(f"http://127.0.0.1:{ports[i]}/{fid}",
+                                            timeout=60) as r:
+                    body = r.read()
+                if body != files[path]:
+                    fail(f"volume{i}'s GET of {fid} ({path}) gave {len(body)} B, want "
+                         f"{sizes[path]} B")
+                direct[i] = fid
+                k1[i] = server_launches()[i]
+                served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                fail(f"volume{i} served no degraded interval, even asked for "
+                     f"{direct.get(i)} directly")
+            if on_card and k1[i]["gf_apply"] <= k0[i]["gf_apply"]:
+                fail(f"volume{i} served {served} degraded intervals but its K1 launches did "
+                     f"not rise ({k0[i]['gf_apply']} -> {k1[i]['gf_apply']})")
+        runs["webdav_degraded"] = {"wall_s": walls["read_degraded"], "launches": degraded,
+                                   "sigs": {}, "files": len(paths), "touched": len(touched)}
+        log(f"3l webdav/tier degraded reads on {card}: volume{victim} (shards "
+            f"{ {v: sorted(s) for v, s in lost.items()} }) SIGKILLed; {len(paths)} files "
+            f"({total} B) read back through WebDAV, {len(touched)} of them with bytes on its "
+            f"shards (volumes {sorted(touched_vids)}), byte for byte, 0 errors, in "
+            f"{walls['read_degraded']:.3f} s ({total / walls['read_degraded'] / 1e6:.1f} "
+            f"MB/s); the survivors' launches {degraded} "
+            f"({ {i: k1[i]['gf_apply'] - k0[i]['gf_apply'] for i in k1} } K1 and "
+            f"{ {i: k1[i]['degraded'] - k0[i]['degraded'] for i in k1} } degraded intervals "
+            f"by server; asked directly: {direct}); {smi}")
+
+        step = "b delete"
+        t0 = time.perf_counter()
+        deleted = paths[::WEBDAV_DELETE_EVERY]
+
+        def delete(c, path):
+            status, _, body = _dav(c, "DELETE", path)
+            if status != 204:
+                fail(f"DELETE {path}: {status} {body[:200]!r}")
+            status, _, _ = _dav(c, "GET", path)
+            if status != 404:
+                fail(f"GET of the deleted {path}: {status}, want 404")
+
+        _fan(dport, WEBDAV_CLIENTS, deleted, delete)
+        gone_fids = [f for p in deleted for f in fids[p]]
+        live_ports = [ports[i] for i in range(3) if i != victim]
+
+        def chunks_gone() -> bool:
+            for fid in gone_fids:
+                for port in live_ports:
+                    try:
+                        urllib.request.urlopen(f"http://127.0.0.1:{port}/{fid}",
+                                               timeout=30).close()
+                        return False
+                    except urllib.error.HTTPError as e:
+                        if e.code != 404:
+                            return False
+            return True
+
+        run.wait(chunks_gone, "404 for every deleted chunk on every live holder", 120)
+        walls["delete"] = time.perf_counter() - t0
+        log(f"3l webdav/tier: {len(deleted)} files ({sum(sizes[p] for p in deleted)} B, "
+            f"{len(gone_fids)} chunks) DELETEd through WebDAV, each GET 404 and every "
+            f"chunk's fid 404 on both live holders, in {walls['delete']:.3f} s")
+
+        # --- c. the Query verb over JSON-lines needles ---
+        step = "c query"
+        t0 = time.perf_counter()
+        qvid, qurl = assign("query")
+        qbodies = _query_needles(seed + 192, QUERY_NEEDLES)
+        if max(map(len, qbodies)) > 128:
+            fail(f"a query needle is {max(map(len, qbodies))} B (over 128 B it is gzipped)")
+        qfids = _own_fids(qvid, len(qbodies), seed + 193)
+        post_needles(qurl, qfids, qbodies)
+        answers = {}
+        with rpc.dial(rpc.grpc_address(qurl)) as ch:
+            vstub = rpc.volume_stub(ch)
+            for flt in QUERY_FILTERS:
+                stripes = [s.records for s in vstub.Query(vpb.QueryRequest(
+                    selections=list(QUERY_SELECT), from_file_ids=qfids,
+                    filter=vpb.QueryRequest.Filter(field=flt[0], operand=flt[1],
+                                                   value=flt[2])), timeout=60)]
+                want = []
+                for body in qbodies:
+                    rows = [r for r in (_plain_query(line, flt, QUERY_SELECT)
+                                        for line in body.decode().splitlines())
+                            if r is not None]
+                    if rows:
+                        want.append(("\n".join(map(json.dumps, rows)) + "\n").encode())
+                if stripes != want or not want:
+                    fail(f"Query {flt}: {len(stripes)} stripes {stripes[:2]}, want "
+                         f"{len(want)} {want[:2]}")
+                answers["".join(flt)] = sum(s.count(b"\n") for s in stripes)
+        walls["query"] = time.perf_counter() - t0
+        log(f"3l webdav/tier Query: {len(qbodies)} needles of two JSON lines POSTed into "
+            f"plain volume {qvid} on {qurl}; the Query verb over gRPC with the projection "
+            f"{list(QUERY_SELECT)}: rows {answers} by filter, every stripe equal to the plain "
+            f"reading of the lines, in {walls['query']:.3f} s")
+
+        # --- d. a sealed .dat moved to the bucket and back ---
+        step = "d dat tier"
+        t0 = time.perf_counter()
+        dvid, durl = assign("tierdat")
+        dbodies = list(_s3_objects(dat_bytes, seed + 194).values())
+        dfids = _own_fids(dvid, len(dbodies), seed + 195)
+        post_needles(durl, dfids, dbodies)
+        dport_v = int(durl.rpartition(":")[2])
+        dat = os.path.join(dirs[ports.index(dport_v)], f"tierdat_{dvid}.dat")
+        saved = os.path.join(workdir, "tierdat.saved")
+        shutil.copyfile(dat, saved)
+        dat_size = os.path.getsize(saved)
+        walls["dat_fill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, text = shell.run(f"volume.tier.upload -volumeId {dvid} -dest s3.default")
+        walls["dat_upload"] = time.perf_counter() - t0
+        if f"volume {dvid} dat moved to s3.default" not in text or os.path.exists(dat) \
+                or not os.path.exists(dat[:-4] + ".vif"):
+            fail(f"volume.tier.upload: {text[-1000:]}; .dat there {os.path.exists(dat)}")
+        walls["dat_read_remote"] = read_needles(dport_v, dfids, dbodies,
+                                                "read of the tiered .dat")
+        t0 = time.perf_counter()
+        _, text = shell.run(f"volume.tier.download -volumeId {dvid}")
+        walls["dat_download"] = time.perf_counter() - t0
+        if f"volume {dvid} dat restored locally" not in text or not filecmp.cmp(
+                saved, dat, shallow=False):
+            fail(f"volume.tier.download: {text[-1000:]}; the .dat is not byte-identical to "
+                 f"the copy saved before the upload")
+        log(f"3l webdav/tier .dat tier: volume {dvid} ({len(dbodies)} needles, {dat_size} B "
+            f"of .dat) on {durl} moved to s3.default (bucket {TIER_BUCKET} on the gateway) "
+            f"by volume.tier.upload in {walls['dat_upload']:.3f} s "
+            f"({dat_size / walls['dat_upload'] / 1e6:.1f} MB/s); every needle read over "
+            f"ranged GETs in {walls['dat_read_remote']:.3f} s; volume.tier.download in "
+            f"{walls['dat_download']:.3f} s, the .dat byte-identical to the saved copy")
+
+        # --- e. an EC volume's shards in the bucket, four objects lost ---
+        step = "e ec tier"
+        t0 = time.perf_counter()
+        evid, eurl = assign("tierec")
+        ebodies = list(_s3_objects(ec_bytes, seed + 196).values())
+        efids = _own_fids(evid, len(ebodies), seed + 197)
+        post_needles(eurl, efids, ebodies)
+        walls["ec_fill"] = time.perf_counter() - t0
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run(f"ec.encode -volumeId {evid}")
+        walls["ec_encode"] = time.perf_counter() - t0
+        if "ec encoded volume" not in text:
+            fail(f"ec.encode -volumeId {evid}: {text[-1000:]}")
+        k1 = server_launches()
+        tier_encode = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3l webdav/tier, step e ec.encode", tier_encode,
+                         ("gf_apply", "crc32c_rows"))
+        runs["tier_encode"] = {"wall_s": walls["ec_encode"], "launches": tier_encode,
+                               "sigs": {}}
+        eheld = {}
+        for i, d in enumerate(dirs):
+            got = sorted(int(f[-2:]) for f in os.listdir(d)
+                         if f.startswith(f"tierec_{evid}.ec") and f[-2:].isdigit())
+            if got:
+                eheld[i] = got
+        if sorted(s for got in eheld.values() for s in got) != list(range(14)):
+            fail(f"the encoded volume's shards are {eheld}")
+        t0 = time.perf_counter()
+        _, text = shell.run(f"tier.move -volumeId {evid} -dest s3.default")
+        walls["tier_move"] = time.perf_counter() - t0
+        keys = {}
+        for i in eheld:
+            base = os.path.join(dirs[i], f"tierec_{evid}")
+            left = [f for f in os.listdir(dirs[i])
+                    if f.startswith(f"tierec_{evid}.ec") and f[-2:].isdigit()]
+            if left or not os.path.exists(base + ".evf"):
+                fail(f"tier.move: volume{i} keeps {left}: {text[-1000:]}")
+            with open(base + ".evf") as f:
+                doc = json.load(f)
+            if doc["backend"] != "s3.default" or sorted(map(int, doc["shards"])) != eheld[i]:
+                fail(f"volume{i}'s .evf {doc}")
+            keys.update({int(sid): info["key"] for sid, info in doc["shards"].items()})
+        serving = max(eheld, key=lambda i: len(eheld[i]))
+        sport = ports[serving]
+        walls["ec_read_healthy"] = read_needles(sport, efids, ebodies,
+                                                "healthy read of the tiered EC volume")
+        t0 = time.perf_counter()
+        for sid in LOST:
+            tier.delete_object(TIER_BUCKET, keys[sid])
+            try:
+                tier.get_object(TIER_BUCKET, keys[sid], 0, 1)
+                fail(f"shard {sid}'s object {keys[sid]} still answers after its DELETE")
+            except S3ClientError as e:
+                if e.status != 404:
+                    fail(f"GET of shard {sid}'s deleted object: {e}")
+        walls["objects_delete"] = time.perf_counter() - t0
+        k0 = server_launches()
+        walls["ec_read_degraded"] = read_needles(sport, efids, ebodies,
+                                                 "degraded read of the tiered EC volume")
+        k1 = server_launches()
+        tier_degraded = launch_delta(k0, k1)
+        rise = {k: k1[serving][k] - k0[serving][k] for k in ("gf_apply", "remote",
+                                                               "degraded")}
+        if rise["remote"] <= 0 or rise["degraded"] <= 0:
+            fail(f"volume{serving} served the lost shards' bytes without remote reads or "
+                 f"decodes: {rise}")
+        if on_card and rise["gf_apply"] <= 0:
+            fail(f"volume{serving} decoded {rise['degraded']} intervals but its K1 launches "
+                 f"did not rise")
+        runs["tier_degraded"] = {"wall_s": walls["ec_read_degraded"],
+                                 "launches": tier_degraded, "sigs": {},
+                                 "needles": len(efids)}
+        ebytes = sum(map(len, ebodies))
+        log(f"3l webdav/tier EC tier on {card}: volume {evid} ({len(ebodies)} needles, "
+            f"{ebytes} B) encoded by ec.encode -volumeId in {walls['ec_encode']:.3f} s "
+            f"(launches {tier_encode}), its shards {eheld} by holder moved to s3.default by "
+            f"tier.move in {walls['tier_move']:.3f} s; every needle read through volume"
+            f"{serving} healthy in {walls['ec_read_healthy']:.3f} s "
+            f"({ebytes / walls['ec_read_healthy'] / 1e6:.1f} MB/s); the objects of shards "
+            f"{list(LOST)} deleted through the S3 API; every needle read again, byte for "
+            f"byte, in {walls['ec_read_degraded']:.3f} s "
+            f"({ebytes / walls['ec_read_degraded'] / 1e6:.1f} MB/s): volume{serving}'s K1 "
+            f"+{rise['gf_apply']}, decoded intervals +{rise['degraded']}, "
+            f"weed_tier_remote_read_total +{rise['remote']}; {smi}")
+
+        # --- f. the gateways' processes, then SIGTERM ---
+        step = "f processes"
+        maps_seen.append(gateway_maps())
+        if any(any(m.values()) for ms in maps_seen for m in ms.values()):
+            fail(f"a gateway process maps {maps_seen}")
+        run.rcs["shell"] = shell.exit()
+        if run.rcs["shell"]:
+            fail(f"the shell exited {run.rcs['shell']}")
+        runs["webdav"] = {"walls": walls, "files": len(paths), "deleted": len(deleted),
+                          "touched": len(touched), "bytes": total}
+    except Exception as e:  # noqa: BLE001 — re-raised below, named by its step
+        failed = e
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        rcs = run.finish()
+    if failed is not None:
+        for name in run.procs:
+            if name != "shell":
+                log(f"3l webdav/tier: {name} exited {rcs.get(name)}; its log ends: "
+                    f"{run.tail(name)[-1500:]!r}")
+        if str(failed).startswith("3l webdav/tier, step"):
+            raise failed
+        raise AssertionError(f"3l webdav/tier, step {step}: {type(failed).__name__}: "
+                             f"{failed}") from failed
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"3l webdav/tier: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must "
+        f"be 0); libcuda/libtorch mapped by the gateways {maps_seen}; step walls (s) "
+        f"{ {k: round(v, 3) for k, v in walls.items()} } on {card}; {smi}")
+    if bad:
+        raise AssertionError(f"3l webdav/tier, step f processes: processes exited non-zero "
+                             f"{bad}: { {n: run.tail(n) for n in bad if n != 'shell'} }")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -6325,6 +7144,8 @@ def main() -> int:
                                                        smi)),
         ("3j filer", lambda w: run_filer_phase(w, CUT_BYTES, args.seed, None, card, smi)),
         ("3k s3", lambda w: run_s3_phase(w, S3_BYTES, args.seed, None, card, smi)),
+        ("3l webdav/tier", lambda w: run_webdav_tier_phase(w, WEBDAV_BYTES, args.seed, None,
+                                                           card, smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -6357,7 +7178,8 @@ def main() -> int:
              "server_concurrent", "cluster_encode", "cluster_healthy", "cluster_serve",
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
              "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "s3_encode",
-             "s3_degraded", "batch_encode", "batch_rebuild", "batch_verify")
+             "s3_degraded", "webdav_encode", "webdav_degraded", "tier_encode",
+             "tier_degraded", "batch_encode", "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -6369,7 +7191,9 @@ def main() -> int:
         f"and the verify core in this one, the serving edge's EC GETs on a -workers lead, "
         f"the telemetry phase's degraded weedload GETs, the filer phase's ec.encode and "
         f"degraded reads through the filer, the S3 phase's ec.encode and degraded reads "
-        f"through the gateway, batch encode, rebuild and verify) "
+        f"through the gateway, the WebDAV/tier phase's two ec.encode runs, degraded reads "
+        f"through WebDAV and reads of an EC volume tiered to the S3 gateway with four shard "
+        f"objects lost, batch encode, rebuild and verify) "
         f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")

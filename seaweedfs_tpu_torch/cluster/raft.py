@@ -22,11 +22,19 @@ transitions hold one lock. propose() blocks until the entry commits
 (applying is done in commit order under the same lock discipline).
 stop() joins the ticker and the leader's replicator threads.
 
-The port of seaweedfs_tpu/cluster/raft.py.
+The port of seaweedfs_tpu/cluster/raft.py. One departure: the reference
+fsyncs the state file while it holds the node's lock, so on a busy disk
+(a persist of 0.1-1 s) a leader stops heartbeating and a follower's
+timer fires while its own write runs, and a leader steps down in the
+middle of a proposal. Here the state is snapshotted under the lock and
+written outside it before the node answers or acts on it; an older
+snapshot never overwrites a newer one, and a leader counts itself
+toward a commit only for entries on its own disk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -92,6 +100,13 @@ class RaftNode:
         # leader-side per-peer replicator threads + wakeup events
         self._repl_threads: list[threading.Thread] = []
         self._repl_events: dict[str, threading.Event] = {}
+        # persistence: snapshots are taken under _lock and written under
+        # _persist_lock alone (see _persist and _flush)
+        self._persist_lock = threading.Lock()
+        self._snapshots = 0  # snapshots taken
+        self._snapshot: tuple | None = None  # the newest: (number, state, last index)
+        self._written = 0  # the newest snapshot number on disk
+        self._durable_index = 0  # the last log index on this node's disk
 
         self._load_state()
 
@@ -116,29 +131,59 @@ class RaftNode:
             rpb.LogEntry(term=e["term"], index=e["index"], command=e["command"])
             for e in st.get("log", [])
         ]
+        self._durable_index = self._last_log_index()
 
     def _persist(self) -> None:
-        path = self._state_path()
-        if not path:
+        """Snapshot the persistent state (term, vote, log); called under
+        the lock. The calling thread writes it with _flush() once it has
+        released the lock, before it answers an RPC or acts on the new
+        state: the fsync never holds the lock, so a slow disk stalls
+        neither the leader's heartbeats nor a follower's timer."""
+        if not self._state_path():
+            self._durable_index = self._last_log_index()
             return
-        os.makedirs(self.data_dir, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(
-                {
-                    "term": self.current_term,
-                    "voted_for": self.voted_for,
-                    "log": [
-                        {"term": e.term, "index": e.index, "command": e.command}
-                        for e in self.log
-                    ],
-                },
-                f,
-            )
-        # durable publish: a vote or term bump that does not survive
-        # the crash lets this node vote twice in one term — the one
-        # thing Raft's safety argument forbids
-        durable.publish(tmp, path)
+        self._snapshots += 1
+        self._snapshot = (self._snapshots, {
+            "term": self.current_term,
+            "voted_for": self.voted_for,
+            "log": [
+                {"term": e.term, "index": e.index, "command": e.command}
+                for e in self.log
+            ],
+        }, self._last_log_index())
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """The node's lock; once it is released, the state snapshotted
+        under it is written (_flush) before the caller goes on."""
+        try:
+            with self._lock:
+                yield
+        finally:
+            self._flush()
+
+    def _flush(self) -> None:
+        """Write the newest snapshot to disk unless it is there; called
+        without the lock. An older snapshot never overwrites a newer."""
+        if self._snapshots <= self._written:
+            return
+        with self._persist_lock:
+            with self._lock:
+                seq, state, last = self._snapshot
+            if seq <= self._written:
+                return
+            path = self._state_path()
+            os.makedirs(self.data_dir, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(state, f)
+            # durable publish: a vote or term bump that does not survive
+            # the crash lets this node vote twice in one term — the one
+            # thing Raft's safety argument forbids
+            durable.publish(tmp, path)
+            self._written = seq
+            with self._lock:
+                self._durable_index = last
 
     # ------------------------------------------------------------------
     def start(self) -> None:
@@ -193,7 +238,7 @@ class RaftNode:
     # ------------------------------------------------------------------
     # RPC handlers (bound into the master's gRPC server)
     def RequestVote(self, req: rpb.RequestVoteRequest, context=None):
-        with self._lock:
+        with self._locked():  # the vote is on disk before it is granted
             if req.term > self.current_term:
                 self._become_follower(req.term)
             granted = False
@@ -217,7 +262,7 @@ class RaftNode:
             )
 
     def AppendEntries(self, req: rpb.AppendEntriesRequest, context=None):
-        with self._lock:
+        with self._locked():  # new entries are on disk before they are acknowledged
             if req.term > self.current_term:
                 self._become_follower(req.term)
             if req.term < self.current_term:
@@ -281,7 +326,7 @@ class RaftNode:
                 self._stop.wait(min(0.02, deadline - now))
 
     def _run_election(self) -> None:
-        with self._lock:
+        with self._locked():  # the term and the self-vote are on disk before asking
             self.role = CANDIDATE
             self.current_term += 1
             self.voted_for = self.self_addr
@@ -320,13 +365,14 @@ class RaftNode:
             t.start()
         done.wait(timeout=0.3)
         with self._lock:
+            stepped_down = False
             for resp in results:
                 if resp.term > self.current_term:
                     self._become_follower(resp.term)
-                    return
-            if self.role != CANDIDATE or self.current_term != term:
-                return
-            if votes >= needed:
+                    stepped_down = True
+                    break
+            if (not stepped_down and self.role == CANDIDATE
+                    and self.current_term == term and votes >= needed):
                 self.role = LEADER
                 self.leader_id = self.self_addr
                 nxt = self._last_log_index() + 1
@@ -344,7 +390,11 @@ class RaftNode:
                 )
                 self._persist()
         if self.is_leader:
+            # heartbeats first: the no-op's write runs beside them, and
+            # this node counts toward its commit once it is on disk
             self._start_replicators()
+        self._flush()
+        if self.is_leader:
             # single-node cluster: commit advances with no peers to wait on
             self._advance_commit()
 
@@ -397,7 +447,7 @@ class RaftNode:
         resp = self._call(peer, "AppendEntries", req, timeout=0.2)
         if resp is None:
             return
-        with self._lock:
+        with self._locked():
             if resp.term > self.current_term:
                 self._become_follower(resp.term)
                 return
@@ -421,7 +471,8 @@ class RaftNode:
                 entry = self._entry_at(idx)
                 if entry is None or entry.term != self.current_term:
                     continue  # §5.4.2: only current-term entries directly
-                count = 1 + sum(
+                # this node counts only for entries on its own disk
+                count = (idx <= self._durable_index) + sum(
                     1 for p in self.peers if self._match_index.get(p, 0) >= idx
                 )
                 if count >= majority:
@@ -455,6 +506,7 @@ class RaftNode:
             )
             self._persist()
         self._wake_replicators()
+        self._flush()  # beside the followers' writes
         self._advance_commit()  # single-node clusters commit immediately
         deadline = time.monotonic() + timeout
         with self._commit_cv:

@@ -11,11 +11,11 @@ unless `-ec.codec` names a host codec. `volume -workers N` adds N-1
 plain reads from disk and never touch the card; with `-shardWrites`
 they also own the writes of their share of the volumes. `filer` and
 `server -filer` run the port's filer, `s3` and `server -s3` its S3
-gateway (`s3 -serveProcs N`: N gateway processes on one port); neither
-holds a codec. What needs a plane the port does not have yet exits 2
-naming its ROADMAP item: `webdav` and `server -webdav` (item 11c),
-`mount` (item 11d), and the disk-fault shim that WEED_CHAOS_DISK arms
-(item 14).
+gateway, `webdav` and `server -webdav` its WebDAV gateway (`-serveProcs
+N`: N gateway processes on one port, reaped by the lead); none holds a
+codec. What needs a plane the port does not have yet exits 2 naming its
+ROADMAP item: `mount` (item 11d), and the disk-fault shim that
+WEED_CHAOS_DISK arms (item 14).
 `master` and `server` run the cluster telemetry collector every
 `-telemetryInterval` seconds (10 by default, as the reference's; 0
 turns it off)."""
@@ -44,6 +44,17 @@ def _tune_gc() -> None:
     gc.set_threshold(100_000, 1_000, 1_000)
 
 
+def _sleep_until(stop: threading.Event) -> None:
+    """Sleep until a signal handler sets `stop`. The kernel may hand a
+    process's signal to any thread that does not block it (a C serving
+    loop in epoll_wait, say); that only flags the main thread, which runs
+    the Python handler at its next bytecode. An Event.wait() without a
+    timeout never gets there and the daemon ignores its SIGTERM, so the
+    wait wakes every half second (the reference waits without one)."""
+    while not stop.wait(0.5):
+        pass
+
+
 def _wait_forever() -> int:
     stop = threading.Event()
 
@@ -53,7 +64,7 @@ def _wait_forever() -> int:
     signal.signal(signal.SIGINT, on_signal)
     signal.signal(signal.SIGTERM, on_signal)
     _tune_gc()
-    stop.wait()
+    _sleep_until(stop)
     return 0
 
 
@@ -75,7 +86,7 @@ def _wait_with_drain() -> tuple[int, bool]:
     signal.signal(signal.SIGINT, on_int)
     signal.signal(signal.SIGTERM, on_term)
     _tune_gc()
-    stop.wait()
+    _sleep_until(stop)
     return 0, drain.is_set()
 
 
@@ -225,6 +236,46 @@ def _spawn_serve_procs(
             )
         )
     return procs
+
+
+def _serve_gateway(server, args, admission_shm: str, what: str) -> int:
+    """A gateway command's life: start `server`, spawn its -serveProcs
+    siblings, wait for a signal, then end and reap every sibling (the
+    lead outlives them) and stop. The exit code is 1 when a sibling did
+    not end cleanly."""
+    import contextlib
+    import os
+    import sys
+
+    procs = args.serveProcs
+    server.start()
+    extra = ["-admissionProcs", str(procs)]
+    if admission_shm:
+        # siblings must charge the SAME mmap'd bucket the lead
+        # created — the flag rides after argv, so it wins the parse
+        extra += ["-admissionShmPath", admission_shm]
+    children = _spawn_serve_procs(procs, sys.argv[1:], extra)
+    wlog.info(
+        "%s %s:%d -> filer %s (%d proc(s))", what, args.ip, args.port, args.filer, procs
+    )
+    try:
+        rc = _wait_forever()
+    finally:
+        for pr in children:
+            pr.terminate()
+        for pr in children:
+            try:
+                if pr.wait(timeout=30):
+                    rc = 1
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+                rc = 1
+        server.stop()
+        if admission_shm and not args.admissionShmPath:
+            with contextlib.suppress(OSError):
+                os.unlink(admission_shm)
+    return rc
 
 
 def _apply_trace_flags(args) -> None:
@@ -921,49 +972,13 @@ class S3Command(Command):
             admission_procs=args.admissionProcs or procs,
             admission_shm_path=admission_shm,
         )
-        server.start()
-        import sys
-
-        extra = ["-admissionProcs", str(procs)]
-        if admission_shm:
-            # siblings must charge the SAME mmap'd bucket the lead
-            # created — the flag rides after argv, so it wins the parse
-            extra += ["-admissionShmPath", admission_shm]
-        children = _spawn_serve_procs(procs, sys.argv[1:], extra)
-        wlog.info(
-            "s3 gateway %s:%d -> filer %s (%d proc(s))",
-            args.ip, args.port, args.filer, procs,
-        )
-        try:
-            rc = _wait_forever()
-        finally:
-            for pr in children:
-                pr.terminate()
-            # the lead outlives its siblings: each is reaped, and one
-            # that does not end cleanly fails the lead's exit code
-            for pr in children:
-                try:
-                    if pr.wait(timeout=30):
-                        rc = 1
-                except subprocess.TimeoutExpired:
-                    pr.kill()
-                    pr.wait()
-                    rc = 1
-            server.stop()
-            if admission_shm and not args.admissionShmPath:
-                import contextlib
-                import os
-
-                with contextlib.suppress(OSError):
-                    os.unlink(admission_shm)
-        return rc
+        return _serve_gateway(server, args, admission_shm, "s3 gateway")
 
 
 @register
-class WebDavCommand(Waiting):
+class WebDavCommand(Command):
     name = "webdav"
     help = "start the WebDAV gateway over a filer"
-    item = "11c"
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-ip", default="127.0.0.1", help="bind address")
@@ -1000,6 +1015,30 @@ class WebDavCommand(Waiting):
             "-v", type=int, default=0,
             help="log verbosity (0=warning .. 3=trace)",
         )
+
+    def run(self, args) -> int:
+        _configure_tls("client")
+        from seaweedfs_tpu_torch.webdav.webdav_server import WebDavServer
+
+        wlog.set_verbosity(args.v)
+        _apply_trace_flags(args)
+        procs = args.serveProcs
+        admission_shm = _admission_shm_path(args, procs, args.port)
+        server = WebDavServer(
+            filer=args.filer,
+            host=args.ip,
+            port=args.port,
+            masters=[m for m in args.master.split(",") if m],
+            reuse_port=args.reusePort or procs > 1,
+            serve_idle_ms=args.serveIdleMs,
+            serve_max_reqs=args.serveMaxReqs,
+            admission_rate=args.admissionRate,
+            admission_burst=args.admissionBurst,
+            admission_inflight=args.admissionInflight,
+            admission_procs=args.admissionProcs or procs,
+            admission_shm_path=admission_shm,
+        )
+        return _serve_gateway(server, args, admission_shm, "webdav")
 
 
 @register
@@ -1106,11 +1145,6 @@ class ServerCommand(Command):
         )
 
     def run(self, args) -> int:
-        if args.webdav:
-            raise NotImplementedError(
-                "server -webdav needs the WebDAV gateway, "
-                "not ported yet (ROADMAP item 11c)"
-            )
         _configure_tls("master")
         from seaweedfs_tpu_torch.server.master_server import MasterServer
         from seaweedfs_tpu_torch.server.volume_server import VolumeServer
@@ -1155,7 +1189,7 @@ class ServerCommand(Command):
             )
             volume.start()
             started.append(volume)
-            if args.filer or args.s3:
+            if args.filer or args.s3 or args.webdav:
                 from seaweedfs_tpu_torch import notification
                 from seaweedfs_tpu_torch.server.filer_server import FilerServer
                 from seaweedfs_tpu_torch.util.config import load_config
@@ -1182,6 +1216,17 @@ class ServerCommand(Command):
                 )
                 s3.start()
                 started.append(s3)
+            if args.webdav:
+                from seaweedfs_tpu_torch.webdav.webdav_server import WebDavServer
+
+                wd = WebDavServer(
+                    filer=f"{args.ip}:{args.filer_port}",
+                    host=args.ip,
+                    port=args.webdav_port,
+                    masters=[f"{args.ip}:{args.master_port}"],
+                )
+                wd.start()
+                started.append(wd)
             wlog.info("all-in-one server up: %d components", len(started))
             return _wait_forever()
         finally:

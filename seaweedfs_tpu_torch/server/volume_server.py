@@ -32,15 +32,13 @@ select the reference's byte-identical threaded and Python arms. With
 read processes (server/volume_workers.py), and with `shard_writes` it
 shares the writes of its volumes with them by vid.
 
-What needs a part of the reference that the port does not have yet
-raises NotImplementedError naming its ROADMAP item, at construction for
-a parameter and at the call for a verb; it never silently does less:
-the s3 storage backend and Query (item 11c). The batch EC verbs run the
-batch arm (K2, with K4 fused into the encode) on a one-device mesh of
-`device`; VolumeCopy and the tail verbs pull from a peer over gRPC. The
-hinted-handoff spool waits for item 10: until then a replica's failure
-fails the write (the reference's WEED_HANDOFF=0 contract), so no write
-is acknowledged with fewer copies than its placement asks for.
+The batch EC verbs run the batch arm (K2, with K4 fused into the
+encode) on a one-device mesh of `device`; VolumeCopy and the tail verbs
+pull from a peer over gRPC; Query scans plain volumes only, as the
+reference's does. The hinted-handoff spool waits for item 10: until
+then a replica's failure fails the write (the reference's
+WEED_HANDOFF=0 contract), so no write is acknowledged with fewer copies
+than its placement asks for.
 """
 
 from __future__ import annotations
@@ -180,10 +178,15 @@ def make_needle_plan_core():
     prefix_304 = reply_prefix(304)
 
     def plan(v, fid, rng, head_only, gen, cacheable):
+        if v._fd is None:
+            # remote-tier volume: declined before its lock, which a remote
+            # read may hold for a network round trip, so the serving loop
+            # never waits on one
+            return None
         with v._lock:
             fd = v._fd
             if fd is None:
-                return None  # remote-tier volume
+                return None  # tiered meanwhile
             nv = v.nm.get(fid.key)
             if nv is None or nv.offset == 0 or nv.size == tomb:
                 return ("notfound",)
@@ -367,12 +370,6 @@ class VolumeServer:
         device=None,
         native_serve: bool = True,
     ):
-        # the planes the port does not have yet refuse up front
-        if storage_backends and "s3" in storage_backends:
-            raise NotImplementedError(
-                "storage backend s3: storage/backend_s3.py is not ported "
-                "yet (ROADMAP item 11c)"
-            )
         # `ec.codec` config: "cpu" | "native" | "cuda" | "" (the default
         # backend: cuda unless WEED_EC_CODEC names a host codec), with
         # `device` for cuda (None = the card, "cpu" = the kernels' plain
@@ -1662,9 +1659,36 @@ class VolumeServer:
     # ------------------------------------------------------------------
     # experimental select-from-files (volume_grpc_query.go:12)
     def Query(self, req, context):
-        raise NotImplementedError(
-            "Query needs the query engine (ROADMAP item 11c)"
+        """Scan JSON-lines needles, filter + project, stream records
+        (one JSON array of projections per passing line)."""
+        from seaweedfs_tpu_torch.query import Query as JsonQuery, query_json
+
+        flt = JsonQuery(
+            field=req.filter.field,
+            op=req.filter.operand,
+            value=req.filter.value,
         )
+        for fid_str in req.from_file_ids:
+            try:
+                fid = FileId.parse(fid_str)
+            except ValueError:
+                continue
+            v = self.store.find_volume(fid.volume_id)
+            if v is None:
+                continue
+            try:
+                n = v.read_needle(fid.key, cookie=fid.cookie)
+            except (NeedleNotFound, CookieMismatch):
+                continue
+            out = []
+            for line in bytes(n.data).decode("utf-8", "replace").splitlines():
+                if not line.strip():
+                    continue
+                passed, values = query_json(line, list(req.selections), flt)
+                if passed:
+                    out.append(json.dumps(values))
+            if out:
+                yield pb.QueriedStripe(records=("\n".join(out) + "\n").encode())
 
     # ------------------------------------------------------------------
     # tiered storage (volume_grpc_tier_upload.go:14 / tier_download.go)

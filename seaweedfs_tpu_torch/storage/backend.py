@@ -16,8 +16,7 @@ The hot volume path stays on plain local files; remote tiers serve
 sealed (read-only) volumes — the warm/cold tier the
 VolumeTierMoveDatToRemote/FromRemote RPCs manage.
 
-The port of seaweedfs_tpu/storage/backend.py; the built-in factories
-are the local-directory tier (backend_dir) alone.
+The port of seaweedfs_tpu/storage/backend.py.
 """
 
 from __future__ import annotations
@@ -166,10 +165,8 @@ def load_backend_config(cfg: dict) -> None:
 
 
 def _ensure_builtin_factories() -> None:
-    # `dir` only: the S3 tier (the reference's backend_s3) is not ported
-    # yet (ROADMAP item 11c), so an `s3.*` name resolves to nothing, as
-    # an unconfigured backend does
     from seaweedfs_tpu_torch.storage import backend_dir  # noqa: F401
+    from seaweedfs_tpu_torch.storage import backend_s3  # noqa: F401
 
 
 _ensure_builtin_factories_done = False

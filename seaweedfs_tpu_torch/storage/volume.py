@@ -101,6 +101,10 @@ class _FileLikeOverBackend:
         self._pos += len(data)
         return data
 
+    def pread(self, n: int, offset: int) -> bytes:
+        """Positional read: no shared position, so callers need no lock."""
+        return self._bsf.read_at(n, offset)
+
     def write(self, data: bytes) -> int:
         raise VolumeReadOnly("remote-tier volume is sealed")
 
@@ -595,8 +599,7 @@ class Volume:
     def _read_at(self, offset: int, length: int) -> bytes:
         if self._fd is not None:
             return os.pread(self._fd, length, offset)
-        self._dat.seek(offset)
-        return self._dat.read(length)
+        return self._dat.pread(length, offset)
 
     def _append_blob(self, blob) -> int:
         if self._fd is None:
@@ -865,9 +868,15 @@ class Volume:
                 raise NeedleNotFound(f"needle {needle_id} not found")
             if nv.size == t.TOMBSTONE_FILE_SIZE:
                 raise NeedleNotFound(f"needle {needle_id} already deleted")
-            blob = self._read_at(
-                nv.actual_offset, get_actual_size(nv.size, self.version)
-            )
+            span = (nv.actual_offset, get_actual_size(nv.size, self.version))
+            remote = self._dat if self._fd is None else None
+            if remote is None:
+                blob = self._read_at(*span)
+        if remote is not None:
+            # a remote-tier read is a network round trip: it runs outside
+            # the lock, so reads of one tiered volume overlap and nothing
+            # that takes the lock (the serving loop's resolver) waits on it
+            blob = remote.pread(span[1], span[0])
         n = Needle.from_bytes(blob, self.version, size=nv.size)
         if cookie is not None and n.cookie != cookie:
             raise CookieMismatch(

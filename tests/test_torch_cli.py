@@ -30,7 +30,10 @@ gateway's commands run: `s3 -config` with one identity and the
 all-in-one `server -filer -s3` answer a signed ListBuckets equal to the
 reference's gateway's over the same buckets, `s3 -serveProcs 2` puts two
 listeners on one port, and SIGTERM ends each with exit code 0. The
-tolerance is equality.
+WebDAV gateway's commands run: `webdav` and the all-in-one `server
+-webdav` answer OPTIONS with the reference gateway's DAV headers, the
+all-in-one one stores and reads back a file, and SIGTERM ends each with
+exit code 0. The tolerance is equality.
 """
 
 import contextlib
@@ -240,8 +243,7 @@ def test_help_lists_the_references_commands():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["webdav"], "11c"), (["mount"], "11d"), (["filer.replicate"], 12),
-    (["server", "-webdav"], "11c"),
+    (["mount"], "11d"), (["filer.replicate"], 12),
 ])
 def test_unported_planes_exit_2_naming_their_item(argv, item):
     rc, _out, err = run("port", argv)
@@ -921,3 +923,92 @@ class TestS3Plane:
             rc, out = _sigterm(proc)
         assert rc == 0, out[-2000:]
         assert _listeners(port) == 0
+
+
+# --- the WebDAV gateway's commands -------------------------------------------------
+
+DAV_HEADERS = ("DAV", "MS-Author-Via", "Allow")
+
+
+def _dav_call(port, method, path, body=None):
+    """(status, the DAV headers, body) of one request to the gateway."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=15)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, {k: r.getheader(k) for k in DAV_HEADERS if r.getheader(k)}, r.read()
+    finally:
+        conn.close()
+
+
+@pytest.mark.parametrize("argv", [["webdav"], ["server", "-webdav"]],
+                         ids=["webdav", "server-webdav"])
+def test_webdav_commands_answer_options_and_end_on_sigterm(argv, tmp_path):
+    """`webdav` (in front of a filer that is not there: OPTIONS rules
+    before any filer access) and the all-in-one `server -webdav` as
+    subprocesses answer OPTIONS with the reference gateway's status and
+    DAV headers; through the all-in-one one a file PUT reads back; SIGTERM
+    ends each with exit code 0."""
+    from seaweedfs_tpu.webdav.webdav_server import WebDavServer as RefWebDav
+
+    ref = RefWebDav(filer=f"127.0.0.1:{free_port()}", port=free_port())
+    ref.start()
+    try:
+        want = _dav_call(ref.port, "OPTIONS", "/")
+    finally:
+        ref.stop()
+    dport = free_port()
+    if argv == ["webdav"]:
+        proc = spawn_cli("webdav", "-port", str(dport), "-filer", f"127.0.0.1:{free_port()}",
+                         stdout=subprocess.PIPE)
+    else:
+        (tmp_path / "port").mkdir()
+        proc = spawn_cli("server", "-dir", str(tmp_path / "port"), "-master.port",
+                         str(free_port()), "-volume.port", str(free_port()), "-filer.port",
+                         str(free_port()), "-webdav", "-webdav.port", str(dport),
+                         "-ec.codec", "cpu", stdout=subprocess.PIPE)
+    back = None
+    try:
+        wait_until(lambda: _dav_call(dport, "OPTIONS", "/")[0] == 200, "the webdav gateway", 60)
+        got = _dav_call(dport, "OPTIONS", "/")
+        if argv != ["webdav"]:
+            blob = b"all-in-one webdav smoke " * 100
+            wait_until(lambda: _dav_call(dport, "PUT", "/w/o.txt", blob)[0] == 201,
+                       "a webdav PUT", 60)
+            back = _dav_call(dport, "GET", "/w/o.txt")
+    finally:
+        rc, out = _sigterm(proc)
+    assert rc == 0, out[-2000:]
+    assert got == want and want[0] == 200 and want[1]["DAV"] == "1,2"
+    if back is not None:
+        assert back[0] == 200 and back[2] == blob
+
+
+@pytest.mark.parametrize("wait", ["_wait_forever", "_wait_with_drain"])
+def test_daemon_wait_ends_on_a_signal_another_thread_takes(wait):
+    """A daemon's main thread sleeps in its wait while other threads run
+    (the C serving loop's among them). When the kernel hands SIGTERM to
+    one of those, only a flag reaches the main thread: the wait must wake
+    on its own to run the handler. Here the main thread blocks SIGTERM so
+    that a helper thread must take it; the process then ends with 0."""
+    code = (
+        "import signal, sys, threading, time\n"
+        "from seaweedfs_tpu_torch.command import servers\n"
+        "threading.Thread(target=time.sleep, args=(3600,), daemon=True).start()\n"
+        "signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM})\n"
+        f"out = servers.{wait}()\n"
+        "print(out, flush=True)\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        wait_until(lambda: _handles_sigterm(proc.pid), "the SIGTERM handler")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=30)
+    finally:
+        reap([proc])
+    assert proc.returncode == 0, out[-2000:]
+    assert out.strip().splitlines()[-1] == {"_wait_forever": b"0",
+                                            "_wait_with_drain": b"(0, True)"}[wait]

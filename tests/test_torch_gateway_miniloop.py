@@ -1,15 +1,15 @@
-"""The port's S3 gateway under the mini request loop's adversarial input
-matrix, beside seaweedfs_tpu's: the S3 half of
-tests/test_gateway_miniloop.py (TestS3MiniLoop) ported. Malformed
-request lines, bad Content-Length, oversized heads (431), unknown
-methods (405), split reads, pipelining, keep-alive semantics and
-unread-body realignment.
+"""The port's S3 and WebDAV gateways under the mini request loop's
+adversarial input matrix, beside seaweedfs_tpu's:
+tests/test_gateway_miniloop.py (TestS3MiniLoop and TestWebDavMiniLoop)
+ported. Malformed request lines, bad Content-Length, oversized heads
+(431), unknown methods (405), split reads, pipelining, keep-alive
+semantics, DAV verb dispatch and unread-body realignment.
 
 Each case sends the same bytes to a gateway of each package; both point
-at a dead filer port, so every case fails in the parser or in the
-bucket-name check before any filer access. The replies (status and
-body) are equal, and each meets the reference's expectation. The WebDAV
-half waits for the WebDAV gateway (ROADMAP item 11c).
+at a dead filer port, so every case fails in the parser or in a branch
+that rules before any filer access (the S3 bucket-name check, WebDAV's
+OPTIONS and PROPPATCH). The replies (status and body) are equal, and
+each meets the reference's expectation.
 """
 
 from __future__ import annotations
@@ -32,6 +32,20 @@ def gateways():
     try:
         for side in SIDES:
             cls = importlib.import_module(f"{PKG[side]}.s3api.s3api_server").S3ApiServer
+            out[side] = cls(filer=f"127.0.0.1:{free_port()}", port=free_port())
+            out[side].start()
+        yield out
+    finally:
+        for srv in out.values():
+            srv.stop()
+
+
+@pytest.fixture(scope="module")
+def davs():
+    out = {}
+    try:
+        for side in SIDES:
+            cls = importlib.import_module(f"{PKG[side]}.webdav.webdav_server").WebDavServer
             out[side] = cls(filer=f"127.0.0.1:{free_port()}", port=free_port())
             out[side].start()
         yield out
@@ -199,3 +213,91 @@ class TestS3MiniLoop:
             return first, second, third
         first, second, (status, b2) = _each(gateways, script)
         assert (first, second, status) == (405, 400, 400) and b"InvalidBucketName" in b2
+
+
+# WebDAV requests that rule before any filer access: OPTIONS -> 200,
+# PROPPATCH -> 207 (properties are not persisted)
+DAV_OK = b"OPTIONS /any HTTP/1.1\r\nHost: dav\r\n\r\n"
+DAV_PATCH = b"PROPPATCH /f HTTP/1.1\r\nHost: d\r\nContent-Length: 0\r\n\r\n"
+
+
+class TestWebDavMiniLoop:
+    def test_options_200_with_dav_header(self, davs):
+        assert _each(davs, _one(DAV_OK))[0] == 200
+
+    def test_dav_verb_dispatch_propppatch_207(self, davs):
+        """Non-RFC-2616 verbs dispatch through the mini loop's do_*
+        table exactly like GET."""
+        status, body = _each(davs, _one(DAV_PATCH))
+        assert status == 207 and b"multistatus" in body
+
+    def test_garbage_request_line_400(self, davs):
+        assert _each(davs, _one(b"%%%\r\n\r\n"))[0] == 400
+
+    def test_unknown_method_405(self, davs):
+        assert _each(davs, _one(b"FROBNICATE / HTTP/1.1\r\n\r\n"))[0] == 405
+
+    def test_oversized_head_431(self, davs):
+        def script(port):
+            s = _connect(port)
+            s.sendall(b"OPTIONS / HTTP/1.1\r\n")
+            junk = b"X-Filler: " + b"a" * 8000 + b"\r\n"
+            try:
+                for _ in range(40):
+                    s.sendall(junk)
+                s.sendall(b"\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                return 0  # the server already slammed the door: acceptable
+            status = _read_response(s)[0]
+            s.close()
+            return status
+        got = {side: script(davs[side].port) for side in SIDES}
+        assert set(got.values()) <= {0, 431}, got
+
+    def test_split_reads_and_keep_alive(self, davs):
+        def script(port):
+            s = _connect(port)
+            out = []
+            for _ in range(5):
+                for piece in (b"OPTIONS /a", b"ny HTTP/1.1\r\nHo", b"st: d\r\n\r\n"):
+                    s.sendall(piece)
+                    time.sleep(0.01)
+                out.append(_read_response(s))
+            s.close()
+            return out
+        assert [st for st, _ in _each(davs, script)] == [200] * 5
+
+    def test_pipelined_dav_verbs(self, davs):
+        def script(port):
+            s = _connect(port)
+            s.sendall(DAV_OK + DAV_PATCH + DAV_OK)
+            out = [_read_response(s) for _ in range(3)]
+            s.close()
+            return out
+        assert [st for st, _ in _each(davs, script)] == [200, 207, 200]
+
+    def test_unread_body_realign(self, davs):
+        """OPTIONS ignores its body; the loop skips the declared bytes so
+        the next request stays framed."""
+        body = b"Z" * 300
+
+        def script(port):
+            s = _connect(port)
+            s.sendall(b"OPTIONS / HTTP/1.1\r\nHost: d\r\n"
+                      + b"Content-Length: %d\r\n\r\n" % len(body) + body + DAV_OK)
+            out = [_read_response(s), _read_response(s)]
+            s.close()
+            return out
+        assert [st for st, _ in _each(davs, script)] == [200, 200]
+
+    def test_huge_unread_body_closes_instead_of_blocking(self, davs):
+        def script(port):
+            s = _connect(port)
+            s.sendall(b"OPTIONS / HTTP/1.1\r\nHost: d\r\n"
+                      b"Content-Length: 104857600\r\n\r\n")
+            status, _ = _read_response(s)
+            s.settimeout(5)
+            tail = s.recv(64)  # connection closed, not waiting for 100 MB
+            s.close()
+            return status, tail
+        assert _each(davs, script) == (200, b"")

@@ -282,6 +282,9 @@ SERVER_SLICE = (
     # the S3 gateway's slice
     "s3api/__init__.py", "s3api/errors.py", "s3api/auth.py", "s3api/chunked_reader.py",
     "s3api/client.py", "s3api/s3api_server.py",
+    # WebDAV, the query engine and the s3 tier backend's slice
+    "webdav/__init__.py", "webdav/webdav_server.py", "query/__init__.py",
+    "query/json_query.py", "storage/backend_s3.py",
 )
 
 

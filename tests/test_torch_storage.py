@@ -407,9 +407,13 @@ class TestVolume:
 
         r, p, _, _ = both(tmp_path, run)
         assert r == p == ("RuntimeError",)
-        with pytest.raises(ValueError):  # the port registers `dir` only
-            PORT.backend.load_backend_config({"s3": {"default": {"enabled": True}}})
-        assert PORT.backend.get_backend("s3.default") is None
+        # both packages register the s3 factory (the port's since ROADMAP
+        # item 11c): an s3 instance without an endpoint fails alike, and
+        # a name nobody configured resolves to nothing alike
+        for pkg in (REF, PORT):
+            with pytest.raises(KeyError, match="endpoint"):
+                pkg.backend.load_backend_config({"s3": {"noendpoint": {"enabled": True}}})
+            assert pkg.backend.get_backend("s3.nowhere") is None
 
     def test_refresh_from_idx_follows_another_writer(self, tmp_path):
         def run(pkg, d):

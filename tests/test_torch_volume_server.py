@@ -27,6 +27,8 @@ import pytest
 
 import seaweedfs_tpu.storage.volume as ref_volume
 import seaweedfs_tpu_torch.storage.volume as port_volume
+from seaweedfs_tpu.storage import needle as ref_needle
+from seaweedfs_tpu_torch.storage import needle as port_needle
 from seaweedfs_tpu.pb import rpc, volume_pb2 as pb
 from seaweedfs_tpu.server.volume_server import VolumeServer as RefServer
 from seaweedfs_tpu.util.availability import free_port
@@ -604,7 +606,11 @@ WAITS = [
     ({"scrub_interval": 600.0}, None),
     ({"internal_port": 1}, None),
     ({"shard_writes": True}, None),
-    ({"storage_backends": {"s3": {"default": {"enabled": True}}}}, "ROADMAP item 11c"),
+    # ported with the s3 tier backend (ROADMAP item 11c): the backend is
+    # built and registered as the reference's is
+    ({"storage_backends": {"s3": {"default": {
+        "enabled": True, "endpoint": "127.0.0.1:1", "bucket": "volume-tier",
+        "aws_access_key_id": "ak", "aws_secret_access_key": "sk"}}}}, None),
     ({"public_url": "10.0.0.1:8080"}, None),
     ({"data_center": "dc1"}, None),
     ({"rack": "r1"}, None),
@@ -627,6 +633,18 @@ def test_waiting_parameters_raise(tmp_path, kw, item):
         (name, value), = kw.items()
         if name == "announce":
             assert f"{vs.announce_host}:{vs.announce_port}" == value
+        elif name == "storage_backends":
+            from seaweedfs_tpu.storage import backend as ref_backend
+            from seaweedfs_tpu_torch.storage import backend as port_backend
+
+            ref_backend.ensure_builtin_factories()
+            ref_backend.load_backend_config(value)
+            got = {k: (m.get_backend("s3.default").storage_type,
+                       m.get_backend("s3.default").to_properties())
+                   for k, m in (("ref", ref_backend), ("port", port_backend))}
+            assert got["port"] == got["ref"] == ("s3", {
+                "enabled": "True", "endpoint": "127.0.0.1:1",
+                "bucket": "volume-tier", "aws_access_key_id": "ak"})
         elif name == "scrub_interval":
             assert vs.scrub.interval == value
         else:
@@ -650,7 +668,12 @@ def test_the_reference_default_scrub_interval_raises(tmp_path):
 
 
 VERBS = [
-    ("Query", pb.QueryRequest(), "ROADMAP item 11c"),
+    # ported with the query engine (ROADMAP item 11c): it streams the
+    # stripes the reference's does
+    ("Query", pb.QueryRequest(
+        selections=["name", "n"], from_file_ids=["7,1a2b003c4d5e", "7,ff00000000",
+                                                 "bad", "99,1a2b003c4d5e", "7,1a2b00000001"],
+        filter=pb.QueryRequest.Filter(field="n", operand=">", value="2")), None),
     # ported with the tier engine (ROADMAP item 9): a volume that is not
     # there aborts NOT_FOUND, as the reference's does
     ("VolumeTierMoveDatToRemote", pb.VolumeTierMoveDatToRemoteRequest(), None),
@@ -662,6 +685,22 @@ VERBS = [
 ]
 
 
+def _query_stripes(vs, req):
+    """The Query verb's stripes over one volume holding a JSON-lines
+    needle (key 0x1a2b, cookie 0x3c4d5e) and a needle of other bytes
+    (key 0xff); the server's store is closed after."""
+    needle_cls = (port_needle if isinstance(vs, PortServer) else ref_needle).Needle
+    os.makedirs(vs.store.locations[0].directory, exist_ok=True)
+    try:
+        vs.store.add_volume(VID)
+        rows = b'{"name": "a", "n": 1}\n\n{"name": "b", "n": 5}\nnot json\n{"name": "c", "n": 9}'
+        vs.store.write_needle(VID, needle_cls(id=0x1A2B, cookie=0x3C4D5E, data=rows))
+        vs.store.write_needle(VID, needle_cls(id=0xFF, cookie=0, data=b"\x00\x01"))
+        return [s.records for s in vs.Query(req, None)]
+    finally:
+        vs.store.close()
+
+
 @pytest.mark.parametrize("verb, req, item", VERBS, ids=[v for v, _, _ in VERBS])
 def test_waiting_verbs_raise(tmp_path, verb, req, item):
     vs = PortServer([str(tmp_path)], port=free_port(), device="cpu", scrub_interval=0)
@@ -669,6 +708,11 @@ def test_waiting_verbs_raise(tmp_path, verb, req, item):
         if item is not None:
             with pytest.raises(NotImplementedError, match=item):
                 getattr(vs, verb)(req, None)
+            return
+        if verb == "Query":
+            assert _query_stripes(vs, req) == _query_stripes(
+                RefServer([str(tmp_path / "ref")], ec_codec="cpu", scrub_interval=0),
+                req) == [b'["b", 5]\n["c", 9]\n']
             return
         # a copy of nothing answers empty; CopyFile of a file that is
         # not there aborts NOT_FOUND, as the reference's does

@@ -699,6 +699,13 @@ class TestWorkerAdmission:
             worker.stop()
 
 
+def _handles_sigterm(pid) -> bool:
+    """Whether `pid` has installed its SIGTERM handler (SigCgt in /proc)."""
+    with open(f"/proc/{pid}/status") as f:
+        mask = next(line for line in f if line.startswith("SigCgt:")).split()[1]
+    return bool(int(mask, 16) & (1 << (signal.SIGTERM - 1)))
+
+
 class TestWorkerProcessStaysOffTheCard:
     def test_worker_process_imports_neither_torch_nor_the_reference(self, stack, tmp_path):
         """A real `volume.worker` process (the command the lead spawns)
@@ -739,6 +746,12 @@ class TestWorkerProcessStaysOffTheCard:
             assert got == b"off the card"
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/status", timeout=10) as r:
                 assert b"Volumes" in r.read()  # proxied to the lead
+            # the worker serves a moment before its SIGTERM handler is in
+            # place (it comes once start() returns); signalled in between
+            # it would die of the default action, so the signal waits
+            deadline = time.time() + 60
+            while not _handles_sigterm(proc.pid) and time.time() < deadline:
+                time.sleep(0.05)
             proc.send_signal(signal.SIGTERM)
             assert proc.wait(timeout=30) == 0, proc.stderr.read()
         finally:
