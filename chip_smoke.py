@@ -140,7 +140,7 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      /dev/shm, three arms in turn over fresh directories: the threaded
      arm (WEED_NATIVE_SERVE=0 WEED_NATIVE_POST=0), the C loop, and the C
      loop with -workers 4; each loaded by the port's `benchmark -c 16 -n
-     32768 -size 1024` (upstream's -n 1048576 cut 32x), its write and read
+     16384 -size 1024` (upstream's -n 1048576 cut 64x), its write and read
      req/s, p50 and p99 and the lead's ServeStats printed, and on the
      workers arm the connections and CPU seconds of each pid; then
      ec.encode through a `shell` process, shards {0, 5, 10, 13}
@@ -228,6 +228,22 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      rising on the serving holder); neither gateway maps libcuda or
      torch; SIGTERM ends every process with exit code 0; a fault names
      3l and its step;
+ 3m. filer-to-filer replication (run_replication_phase): cluster A as
+     3j's (master -telemetryInterval 1, three volume servers on racks
+     0/1/0) with a `filer -collection repl -maxMB 32` publishing to a
+     4-partition logqueue (notification.toml), and cluster B (master,
+     volume server, filer); 128 MiB (REPL_BYTES) of files log-uniform
+     over 1 KiB-1 MiB, nested, and one of 40 MiB (two chunks) POSTed to
+     filer A, whose weed_replication_lag_events equals the queue's
+     events; ec.encode and ec.balance -force on A (K1 + K4), a holder of
+     at most 4 shards of every volume SIGKILLed; `filer.replicate
+     -config` (sink.filer at B) drains the queue: A's lag gauge to 0,
+     `replication.lag -json` 0 and no firing alert; every file read
+     back from B (SHA-256), 0 errors, K1 rising on A's survivors; a
+     directory deleted on A gone from B; the runner SIGTERMed (exit 0)
+     and restarted: it resumes from its cursor, rewrites nothing on B,
+     and carries a later file over; neither filer nor the runner maps
+     libcuda or torch; a fault names 3m and its step;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -3954,7 +3970,7 @@ CLI_PATHS = ("cli_encode", "cli_verify_before", "cli_scrub", "cli_repair", "cli_
 
 # --- phase 3h: the serving edge from the command line -----------------------
 
-EDGE_FILES = 32768  # benchmark -n: upstream's documented -n 1048576 cut 32x, for time
+EDGE_FILES = 16384  # benchmark -n: upstream's documented -n 1048576 cut 64x, for time
 EDGE_SIZE = 1024  # benchmark -size, upstream's documented run
 EDGE_CONC = 16  # benchmark -c, its default
 EDGE_WORKERS = 4  # volume -workers
@@ -6746,6 +6762,523 @@ def run_webdav_tier_phase(workdir: str, volume_bytes: int, seed: int, device=Non
     return runs
 
 
+REPL_ROOM = 2 << 30  # the replication phase's peak in its directory (about 0.9 GiB)
+REPL_BYTES = CUT_BYTES // 2  # 3m's files besides the big one, the cut 3k and 3l take
+REPL_BIG_BYTES = 40 << 20  # one file the filer cuts into two chunks at -maxMB 32
+REPL_CLIENTS = 4  # client threads of the fill and of the read back
+REPL_PARTITIONS = 4  # the logqueue's partitions
+
+
+def _repl_files(total: int, seed: int) -> dict:
+    """{filer path: bytes} of about `total` bytes under /repl: files
+    log-uniform over 1 KiB-1 MiB drawn from `seed`, nested 1-3
+    directories deep (d0-d3 at each level)."""
+    rng = np.random.default_rng(seed)
+    out, left, i = {}, total, 0
+    while left > 0:
+        size = min(left, int(np.exp(rng.uniform(np.log(1024), np.log(1 << 20)))))
+        depth = int(rng.integers(1, 4))
+        d = "/".join(f"d{int(rng.integers(0, 4))}" for _ in range(depth))
+        out[f"/repl/{d}/f{i:04d}.bin"] = rng.bytes(size)
+        left -= size
+        i += 1
+    return out
+
+
+def run_replication_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                          card: str = "", smi: str = "",
+                          big_bytes: int = REPL_BIG_BYTES) -> dict:
+    """Filer-to-filer replication (ROADMAP item 12a) from a cluster whose
+    volume servers decode on the card to a second cluster, every process
+    `python -m seaweedfs_tpu_torch` in a directory of its own under
+    `workdir` (/dev/shm), on `device` (None: the card; "cpu" runs the
+    volume servers with -ec.codec cpu, a rehearsal):
+      a. cluster A: a master (-telemetryInterval 1, -repairInterval 0,
+         -volumeSizeLimitMB 1152), three `volume` servers (racks 0/1/0)
+         and a `filer -store lsm -collection repl -maxMB 32` whose
+         notification.toml enables the logqueue (REPL_PARTITIONS
+         partitions); cluster B: a master, one `volume` server and a
+         `filer -store lsm`;
+      b. `volume_bytes` of files log-uniform over 1 KiB-1 MiB under /repl,
+         1-3 directories deep, and one of `big_bytes` (two chunks), POSTed
+         to filer A from REPL_CLIENTS threads; filer A's /metrics shows
+         weed_replication_lag_events{group="replicate"} equal to the
+         events the queue holds, at least one a file;
+      c. ec.encode -collection repl -fullPercent 0 and ec.balance -force
+         through a `shell` process (K1 + K4 on A's cards);
+      d. the holder with the most shards among those holding at most 4 of
+         every volume SIGKILLed;
+      e. `filer.replicate -config` (sink.filer at filer B, /repl to
+         /backup) as a process; filer A's lag gauge falls to 0 within a
+         deadline; `replication.lag -json` on A's master reports filer A
+         0 events behind and no firing replication_lag alert;
+      f. every file read back from filer B, SHA-256 equal, 0 errors; the
+         K1 launches of A's survivors rose (a survivor that holds shards
+         of a volume the lost holder had and served no degraded interval
+         is asked directly for a file on the lost shards); K1 and K5
+         deltas printed;
+      g. one top directory DELETEd recursively on A: every file under it
+         answers 404 on B within a deadline;
+      h. SIGTERM ends the runner with exit code 0; started again, it
+         polls from the committed cursor: the lag stays 0 and no entry on
+         B changes (its chunks' file ids are as they were), then one file
+         written on A meanwhile reaches B; SIGTERM ends it with 0 again;
+         neither the runner nor a filer maps libcuda or torch; SIGTERM
+         ends every process with exit code 0 (the killed holder aside).
+    Raises naming 3m and the step on any fault; returns repl_encode and
+    repl_degraded with A's volume servers' launches."""
+    import hashlib
+    import signal
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.notification.logqueue import PartitionedLogQueue
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    _check_room(workdir, REPL_ROOM if volume_bytes >= 1 << 27
+                else 6 * (volume_bytes + big_bytes) + (1 << 27), "phase 3m")
+    on_card = device is None
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    run = _PhaseProcs("3m replication", workdir, env)
+    step = "a start"
+
+    def fail(msg: str):
+        raise AssertionError(f"3m replication, step {step}: {msg}")
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    failed = None
+    maps_seen: list = []
+    mport, fport, mport_b, fport_b = free_port(), free_port(), free_port(), free_port()
+    ports = [free_port() for _ in range(3)]
+    port_b = free_port()
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr, faddr, maddr_b, faddr_b = (f"127.0.0.1:{p}" for p in (mport, fport, mport_b,
+                                                                   fport_b))
+    qdir = os.path.join(workdir, "logqueue")
+    notification_toml = (f'[notification.logqueue]\nenabled = true\ndir = "{qdir}"\n'
+                         f"partitions = {REPL_PARTITIONS}\n")
+
+    def home(name: str) -> str:
+        d = os.path.join(workdir, "run", name)
+        os.makedirs(d)
+        return d
+
+    def server_launches() -> dict:
+        """Each live volume server of A's kernel launches, with "degraded"
+        the EC intervals it served by reconstruction."""
+        out = {}
+        for i in range(3):
+            if f"volume{i}" not in run.rcs:
+                m = _cli_metrics(ports[i])
+                out[i] = dict(_cli_launches(m),
+                              degraded=int(m.get("weed_ec_degraded_read_total", 0)))
+        return out
+
+    def launch_delta(before: dict, after: dict) -> dict:
+        return {k: sum(after[i][k] - before[i][k] for i in after) for k in _counts()}
+
+    def lag_gauge() -> float:
+        return _cli_metrics(fport)['weed_replication_lag_events{group="replicate"}']
+
+    def queue_events() -> tuple[int, int]:
+        """(records the producer wrote, of which the "replicate" group has
+        not committed past) from the queue's files."""
+        q = PartitionedLogQueue(qdir, partitions=REPL_PARTITIONS)
+        try:
+            return (sum(p.refreshed_next_offset() for p in q.partitions),
+                    q.depth("replicate"))
+        finally:
+            q.close()
+
+    def spawn_runner(name: str) -> float:
+        run.spawn(name, ["filer.replicate", "-config", repl_toml], cwd=runner_home)
+        return time.time()
+
+    def read_b(paths: list, label: str) -> float:
+        def get(c, path):
+            status, _, body = _http(c, "GET", urllib.parse.quote("/backup" + path[5:]))
+            if status != 200 or hashlib.sha256(body).digest() != digests[path]:
+                fail(f"{label}: GET {path} from filer B answered {status} with {len(body)} "
+                     f"B, want {len(files[path])} B of SHA-256 {digests[path].hex()}")
+
+        t0 = time.perf_counter()
+        _fan(fport_b, REPL_CLIENTS, paths, get)
+        return time.perf_counter() - t0
+
+    def b_chunks() -> dict:
+        """{path: chunk file ids} of every file on filer B under /backup."""
+        out = {}
+        with rpc.dial(f"127.0.0.1:{fport_b + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+            todo = ["/backup"]
+            while todo:
+                d = todo.pop()
+                for r in stub.ListEntries(fpb.ListEntriesRequest(directory=d, limit=100000),
+                                          timeout=60):
+                    p = f"{d}/{r.entry.name}"
+                    if r.entry.is_directory:
+                        todo.append(p)
+                    else:
+                        out[p] = [c.fid for c in r.entry.chunks]
+        return out
+
+    def lag_report(shell_) -> dict:
+        _, text = shell_.run("replication.lag -json")
+        return json.loads(text.strip().splitlines()[-1])
+
+    try:
+        # --- a. the two clusters ---
+        t0 = time.perf_counter()
+        run.spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                             "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval",
+                             "0", "-telemetryInterval", "1"], cwd=home("master"))
+        run.spawn("master_b", ["master", "-ip", "127.0.0.1", "-port", str(mport_b),
+                               "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB)],
+                  cwd=home("master_b"))
+        for m in (maddr, maddr_b):
+            run.wait(lambda m=m: urllib.request.urlopen(f"http://{m}/cluster/status",
+                                                        timeout=2).close() is None,
+                     f"the master {m}")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            run.spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                                     "-dir", d, "-max", "100", "-mserver", maddr,
+                                     "-rack", f"rack{i % 2}", "-scrubInterval", "0"]
+                      + codec_args, cwd=home(f"volume{i}"))
+        os.mkdir(os.path.join(workdir, "vs_b"))
+        run.spawn("volume_b", ["volume", "-ip", "127.0.0.1", "-port", str(port_b), "-dir",
+                               os.path.join(workdir, "vs_b"), "-max", "100", "-mserver",
+                               maddr_b, "-scrubInterval", "0"] + codec_args,
+                  cwd=home("volume_b"))
+        filer_home = home("filer")
+        with open(os.path.join(filer_home, "notification.toml"), "w") as f:
+            f.write(notification_toml)
+        run.spawn("filer", ["filer", "-ip", "127.0.0.1", "-port", str(fport), "-master",
+                            maddr, "-store", "lsm", "-storePath",
+                            os.path.join(workdir, "filer-lsm"), "-collection", "repl",
+                            "-maxMB", "32"], cwd=filer_home)
+        run.spawn("filer_b", ["filer", "-ip", "127.0.0.1", "-port", str(fport_b), "-master",
+                              maddr_b, "-store", "lsm", "-storePath",
+                              os.path.join(workdir, "filer-b-lsm")], cwd=home("filer_b"))
+        cenv, cenv_b = CommandEnv([maddr]), CommandEnv([maddr_b])
+        run.wait(lambda: len(cenv.collect_topology().nodes) == 3, "A's three volume servers")
+        run.wait(lambda: len(cenv_b.collect_topology().nodes) == 1, "B's volume server")
+        for f_addr in (faddr, faddr_b):
+            run.wait(lambda f_addr=f_addr: urllib.request.urlopen(
+                f"http://{f_addr}/", timeout=5).status == 200, f"the filer {f_addr}")
+        walls["a_up"] = time.perf_counter() - t0
+
+        # --- b. the tree through filer A, the producer's lag gauge ---
+        step = "b fill"
+        t0 = time.perf_counter()
+        files = _repl_files(volume_bytes, seed + 220)
+        files["/repl/big/big.bin"] = np.random.default_rng(seed + 221).bytes(big_bytes)
+        digests = {p: hashlib.sha256(b).digest() for p, b in files.items()}
+        make_s = time.perf_counter() - t0
+
+        def post(c, path):
+            status, _, body = _http(c, "POST", urllib.parse.quote(path), files[path])
+            if status != 201:
+                fail(f"POST {path} to filer A: {status} {body[:300]!r}")
+
+        t0 = time.perf_counter()
+        _fan(fport, REPL_CLIENTS, sorted(files), post)
+        walls["b_fill"] = time.perf_counter() - t0
+        paths = sorted(files)
+        total = sum(map(len, files.values()))
+        written, pending = queue_events()
+        gauge = lag_gauge()
+        if not written == pending == gauge or written < len(files):
+            fail(f"filer A's lag gauge reads {gauge}, the queue holds {written} events with "
+                 f"{pending} pending, for {len(files)} files")
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+
+            def chunk_fids(path: str) -> list:
+                d, _, name = path.rpartition("/")
+                resp = stub.LookupDirectoryEntry(
+                    fpb.LookupDirectoryEntryRequest(directory=d, name=name), timeout=30)
+                return [chunk.fid for chunk in resp.entry.chunks]
+
+            fids = {p: chunk_fids(p) for p in paths}
+        if len(fids["/repl/big/big.bin"]) != -(-big_bytes // (32 << 20)):
+            fail(f"the big file holds {len(fids['/repl/big/big.bin'])} chunks")
+        maps_seen.append({n: _maps_has(run.procs[n].pid, "libcuda", "libtorch")
+                          for n in ("filer", "filer_b")})
+        log(f"3m replication: cluster A (master -telemetryInterval 1, three volume servers, "
+            f"`filer -store lsm -collection repl -maxMB 32` publishing to a "
+            f"{REPL_PARTITIONS}-partition logqueue) and cluster B (master, volume server, "
+            f"`filer -store lsm`) up in {walls['a_up']:.3f} s; {len(paths)} files "
+            f"({total} B, {sum(map(len, fids.values()))} chunks; payloads made in "
+            f"{make_s:.3f} s) POSTed to filer A from {REPL_CLIENTS} threads in "
+            f"{walls['b_fill']:.3f} s ({total / walls['b_fill'] / 1e6:.1f} MB/s); the queue "
+            f"holds {written} events and filer A's weed_replication_lag_events reads "
+            f"{gauge:.0f}; {smi}")
+
+        # --- c. ec.encode and ec.balance on A ---
+        step = "c encode"
+        vols = {}
+        for d in dirs:
+            for f in os.listdir(d):
+                if f.startswith("repl_") and f.endswith(".dat"):
+                    path = os.path.join(d, f)
+                    vols[int(f[5:-4])] = (os.path.getsize(path), {
+                        nd.id: (off, nd.size) for nd, off in scan_volume_file(path)})
+        shell = _CliShell(run.cli + ["shell", "-master", maddr], env,
+                          os.path.join(run.logs, "shell.log"), cwd=home("shell"))
+        run.procs["shell"] = shell.proc
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run("ec.encode -collection repl -fullPercent 0")
+        if text.count("ec encoded volume") != len(vols):
+            fail(f"ec.encode: {text[-2000:]} over volumes {sorted(vols)}")
+        shell.run("ec.balance -force")
+        walls["c_encode_balance"] = time.perf_counter() - t0
+        k1 = server_launches()
+        encode_launches = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3m replication, step c ec.encode", encode_launches,
+                         ("gf_apply", "crc32c_rows"))
+        held: dict = {i: {} for i in range(3)}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("repl_") and ".ec" in f and f[-2:].isdigit():
+                    held[i].setdefault(int(f[5:].split(".")[0]), []).append(int(f[-2:]))
+        runs["repl_encode"] = {"wall_s": walls["c_encode_balance"],
+                               "launches": encode_launches, "sigs": {}}
+        log(f"3m replication ec.encode -collection repl of {len(vols)} volumes and "
+            f"ec.balance -force through the shell in {walls['c_encode_balance']:.3f} s, A's "
+            f"launches {encode_launches} "
+            f"({ {i: (k1[i]['gf_apply'] - k0[i]['gf_apply'], k1[i]['crc32c_rows'] - k0[i]['crc32c_rows']) for i in k1} } "
+            f"K1/K4 by server); shards by server "
+            f"{ {i: sum(map(len, h.values())) for i, h in held.items()} }; {smi}")
+
+        # --- d. a shard holder of A lost ---
+        step = "d kill"
+        can_lose = [i for i in held if held[i] and max(map(len, held[i].values())) <= 4]
+        if not can_lose:
+            fail(f"no holder holds at most 4 shards of every volume: {held}")
+        victim = max(can_lose, key=lambda i: sum(map(len, held[i].values())))
+        lost = {vid: set(s) for vid, s in held[victim].items()}
+        touched, touched_fids = [], []
+        for path in paths:
+            for fid in fids[path]:
+                vid_s, rest = fid.split(",")
+                vid, nid = int(vid_s), int(rest[:-8], 16)
+                dat_size, needles = vols[vid]
+                off, size = needles[nid]
+                shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                    locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                    16 + size + 4 + 8)}
+                if shards & lost.get(vid, set()):
+                    touched.append(path)
+                    if len(fids[path]) == 1:
+                        touched_fids.append((path, fid))
+                    break
+        if not touched_fids:
+            fail(f"no one-chunk file has bytes on shards {lost}")
+        run.procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        run.rcs[f"volume{victim}"] = run.procs[f"volume{victim}"].wait(30)
+        log(f"3m replication: volume{victim} (shards "
+            f"{ {v: sorted(s) for v, s in lost.items()} }) SIGKILLed; {len(touched)} files "
+            f"have bytes on its shards")
+
+        # --- e. the runner drains the queue into filer B ---
+        step = "e replicate"
+        runner_home = home("replicate")
+        with open(os.path.join(runner_home, "notification.toml"), "w") as f:
+            f.write(notification_toml)
+        repl_toml = os.path.join(runner_home, "replication.toml")
+        with open(repl_toml, "w") as f:
+            f.write(f'[source.filer]\nenabled = true\ngrpcAddress = "{faddr}"\n'
+                    f'directory = "/repl"\n\n[sink.filer]\nenabled = true\n'
+                    f'grpcAddress = "{faddr_b}"\ndirectory = "/backup"\n')
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        spawn_runner("replicate")
+        run.wait(lambda: lag_gauge() == 0, "filer A's lag gauge at 0", 600)
+        walls["e_drain"] = time.perf_counter() - t0
+        k1 = server_launches()
+        maps_seen.append({"replicate": _maps_has(run.procs["replicate"].pid, "libcuda",
+                                                 "libtorch")})
+        if queue_events()[1]:
+            fail(f"the queue still holds {queue_events()[1]} events past the cursor")
+
+        def lag_settled() -> bool:
+            rep = lag_report(shell)
+            return rep["Filers"].get(faddr) == {"LagEvents": 0.0} and rep["Alerts"] == []
+
+        settled_s = run.wait(lag_settled, "replication.lag -json with filer A 0 events "
+                             "behind and no firing alert", 60)
+        report = lag_report(shell)
+
+        # --- f. every file read back from filer B ---
+        step = "f read back"
+        walls["f_read_b"] = read_b(paths, "read back from B")
+        degraded = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3m replication, step f the consumer's reads", degraded,
+                         ("gf_apply",))
+        direct = {}
+        for i in sorted(k1):
+            mine = [(p, fid) for p, fid in touched_fids if int(fid.split(",")[0]) in held[i]]
+            if not mine:
+                continue
+            served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                path, fid = mine[0]
+                with urllib.request.urlopen(f"http://127.0.0.1:{ports[i]}/{fid}",
+                                            timeout=60) as r:
+                    body = r.read()
+                if body != files[path]:
+                    fail(f"volume{i}'s GET of {fid} ({path}) gave {len(body)} B, want "
+                         f"{len(files[path])} B")
+                direct[i] = fid
+                k1[i] = server_launches()[i]
+                served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                fail(f"volume{i} served no degraded interval, even asked for "
+                     f"{direct.get(i)} directly")
+            if on_card and k1[i]["gf_apply"] <= k0[i]["gf_apply"]:
+                fail(f"volume{i} served {served} degraded intervals but its K1 launches did "
+                     f"not rise ({k0[i]['gf_apply']} -> {k1[i]['gf_apply']})")
+        runs["repl_degraded"] = {"wall_s": walls["e_drain"], "launches": degraded,
+                                 "sigs": {}, "files": len(paths), "touched": len(touched)}
+        log(f"3m replication on {card}: `filer.replicate` drained {written} events into "
+            f"filer B in {walls['e_drain']:.3f} s ({total / walls['e_drain'] / 1e6:.1f} "
+            f"MB/s of file bytes, {written / walls['e_drain']:.1f} events/s), reading every "
+            f"chunk from A with volume{victim} lost; replication.lag -json {report} "
+            f"({settled_s:.3f} s after the gauge fell to 0); {len(paths)} files ({total} B) "
+            f"read back from filer B, SHA-256 equal, 0 errors, in {walls['f_read_b']:.3f} s "
+            f"({total / walls['f_read_b'] / 1e6:.1f} MB/s); A's survivors' launches while "
+            f"the runner read {degraded} (K1 "
+            f"{ {i: k1[i]['gf_apply'] - k0[i]['gf_apply'] for i in k1} }, K5 "
+            f"{ {i: k1[i]['gf_bits'] - k0[i]['gf_bits'] for i in k1} }, degraded intervals "
+            f"{ {i: k1[i]['degraded'] - k0[i]['degraded'] for i in k1} } by server"
+            f"{'; asked directly: ' + str(direct) if direct else ''}); {smi}")
+
+        # --- g. a directory deleted on A ---
+        step = "g delete"
+        top = max({p.split("/")[2] for p in paths if p.count("/") > 3},
+                  key=lambda t: sum(p.startswith(f"/repl/{t}/") for p in paths))
+        gone = [p for p in paths if p.startswith(f"/repl/{top}/")]
+        t0 = time.perf_counter()
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            status, _, body = _http(c, "DELETE", f"/repl/{top}?recursive=true")
+        finally:
+            c.close()
+        if status not in (200, 202, 204):
+            fail(f"DELETE /repl/{top}?recursive=true on filer A: {status} {body[:200]!r}")
+
+        def gone_on_b() -> bool:
+            c = http.client.HTTPConnection("127.0.0.1", fport_b, timeout=30)
+            try:
+                return all(_http(c, "GET", "/backup" + p[5:])[0] == 404 for p in gone)
+            finally:
+                c.close()
+
+        run.wait(gone_on_b, f"the {len(gone)} files under /repl/{top} gone from filer B", 120)
+        walls["g_delete"] = time.perf_counter() - t0
+        paths = [p for p in paths if p not in set(gone)]
+        log(f"3m replication: /repl/{top} ({len(gone)} files) deleted on A and gone from B "
+            f"in {walls['g_delete']:.3f} s")
+
+        # --- h. SIGTERM, restart, resume from the cursor ---
+        step = "h restart"
+        run.wait(lambda: lag_gauge() == 0 and queue_events()[1] == 0,
+                 "the lag at 0 after the delete", 60)
+        run.procs["replicate"].send_signal(signal.SIGTERM)
+        run.rcs["replicate"] = run.procs["replicate"].wait(60)
+        if run.rcs["replicate"] != 0:
+            fail(f"the runner exited {run.rcs['replicate']} on SIGTERM: "
+                 f"{run.tail('replicate')}")
+        before = b_chunks()
+        if sorted(before) != sorted("/backup" + p[5:] for p in paths):
+            fail(f"filer B holds {len(before)} files, want {len(paths)}")
+        offsets = [os.path.join(qdir, f"p{i:03d}", "offsets", "replicate")
+                   for i in range(REPL_PARTITIONS)]
+        t0 = time.perf_counter()
+        started = spawn_runner("replicate2")
+        run.wait(lambda: min(os.stat(o).st_mtime for o in offsets) > started,
+                 "the restarted runner's first poll of every partition", 60)
+        walls["h_resume"] = time.perf_counter() - t0
+        if lag_gauge() != 0 or queue_events()[1] != 0:
+            fail(f"after the restart the lag reads {lag_gauge()} (queue "
+                 f"{queue_events()[1]})")
+        late = "/repl/late/after-restart.bin"
+        files[late] = np.random.default_rng(seed + 222).bytes(300_000)
+        digests[late] = hashlib.sha256(files[late]).digest()
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            post(c, late)
+        finally:
+            c.close()
+        run.wait(lambda: lag_gauge() == 0 and queue_events()[1] == 0
+                 and "/backup/late/after-restart.bin" in b_chunks(),
+                 "the file written after the restart on filer B", 60)
+        read_b([late], "the file written after the restart")
+        after = b_chunks()
+        changed = sorted(p for p in before if after.get(p) != before[p])
+        if changed or set(after) != set(before) | {"/backup/late/after-restart.bin"}:
+            fail(f"the restarted runner rewrote {len(changed)} entries on B (first "
+                 f"{changed[:5]}), or B lists {len(after)} files for {len(before) + 1}")
+        maps_seen.append({"replicate2": _maps_has(run.procs["replicate2"].pid, "libcuda",
+                                                  "libtorch")})
+        run.procs["replicate2"].send_signal(signal.SIGTERM)
+        run.rcs["replicate2"] = run.procs["replicate2"].wait(60)
+        if run.rcs["replicate2"] != 0:
+            fail(f"the restarted runner exited {run.rcs['replicate2']} on SIGTERM")
+        log(f"3m replication: SIGTERM ended the runner with 0; restarted, it polled every "
+            f"partition from its cursor in {walls['h_resume']:.3f} s with the lag at 0 and "
+            f"none of B's {len(before)} entries rewritten; a file written on A afterwards "
+            f"reached B; SIGTERM ended it with 0")
+        maps_seen.append({n: _maps_has(run.procs[n].pid, "libcuda", "libtorch")
+                          for n in ("filer", "filer_b")})
+        if any(any(m.values()) for ms in maps_seen for m in ms.values()):
+            fail(f"a filer or the runner maps {maps_seen}")
+        run.rcs["shell"] = shell.exit()
+        if run.rcs["shell"]:
+            fail(f"the shell exited {run.rcs['shell']}")
+        runs["replication"] = {"walls": walls, "files": len(files), "events": written,
+                               "touched": len(touched), "bytes": total}
+    except Exception as e:  # noqa: BLE001 — re-raised below, named by its step
+        failed = e
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        rcs = run.finish()
+    if failed is not None:
+        for name in run.procs:
+            if name != "shell":
+                log(f"3m replication: {name} exited {rcs.get(name)}; its log ends: "
+                    f"{run.tail(name)[-1500:]!r}")
+        if str(failed).startswith("3m replication, step"):
+            raise failed
+        raise AssertionError(f"3m replication, step {step}: {type(failed).__name__}: "
+                             f"{failed}") from failed
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"3m replication: SIGTERM, exit codes {rcs} (the SIGKILLed holder aside, each must "
+        f"be 0); libcuda/libtorch mapped by the filers and the runner {maps_seen}; step "
+        f"walls (s) { {k: round(v, 3) for k, v in walls.items()} } on {card}; {smi}")
+    if bad:
+        raise AssertionError(f"3m replication, step h processes: processes exited non-zero "
+                             f"{bad}: { {n: run.tail(n) for n in bad if n != 'shell'} }")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -7146,6 +7679,8 @@ def main() -> int:
         ("3k s3", lambda w: run_s3_phase(w, S3_BYTES, args.seed, None, card, smi)),
         ("3l webdav/tier", lambda w: run_webdav_tier_phase(w, WEBDAV_BYTES, args.seed, None,
                                                            card, smi)),
+        ("3m replication", lambda w: run_replication_phase(w, REPL_BYTES, args.seed, None,
+                                                           card, smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -7179,7 +7714,8 @@ def main() -> int:
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
              "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "s3_encode",
              "s3_degraded", "webdav_encode", "webdav_degraded", "tier_encode",
-             "tier_degraded", "batch_encode", "batch_rebuild", "batch_verify")
+             "tier_degraded", "repl_encode", "repl_degraded", "batch_encode",
+             "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
         f"piggybacked and parity rebuilds, the store's encode, rebuild, serve and tier "
@@ -7193,7 +7729,8 @@ def main() -> int:
         f"degraded reads through the filer, the S3 phase's ec.encode and degraded reads "
         f"through the gateway, the WebDAV/tier phase's two ec.encode runs, degraded reads "
         f"through WebDAV and reads of an EC volume tiered to the S3 gateway with four shard "
-        f"objects lost, batch encode, rebuild and verify) "
+        f"objects lost, the replication phase's ec.encode and the consumer's degraded chunk "
+        f"reads, batch encode, rebuild and verify) "
         f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")

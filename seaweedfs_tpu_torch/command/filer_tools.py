@@ -1,17 +1,20 @@
 """filer.copy and filer.replicate subcommands
 (weed/command/filer_copy.go, filer_replicate.go); the port of
-seaweedfs_tpu/command/filer_tools.py. filer.copy runs: it POSTs each
-local file to the filer, which holds no codec. filer.replicate is
-registered with the reference's flags and help and exits 2: it needs
-replication/ (ROADMAP item 12)."""
+seaweedfs_tpu/command/filer_tools.py. filer.copy POSTs each local file
+to the filer, which holds no codec. filer.replicate consumes the
+notification queue into a sink (replication/replicate_runner.py); SIGTERM
+or SIGINT ends it with exit code 0 once what it applied is committed,
+where the reference's dies on the signal."""
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
+import threading
 import urllib.request
 
-from seaweedfs_tpu_torch.command import Command, Waiting, register
+from seaweedfs_tpu_torch.command import Command, register
 
 
 @register
@@ -64,10 +67,21 @@ class FilerCopyCommand(Command):
 
 
 @register
-class FilerReplicateCommand(Waiting):
+class FilerReplicateCommand(Command):
     name = "filer.replicate"
     help = "consume filer update events from the notification queue and replicate to a sink"
-    item = 12
 
     def add_arguments(self, p: argparse.ArgumentParser) -> None:
         p.add_argument("-config", default="", help="replication toml (default: search replication.toml)")
+
+    def run(self, args) -> int:
+        from seaweedfs_tpu_torch.replication.replicate_runner import run_replicate
+
+        stop = threading.Event()
+
+        def on_signal(signum, frame):
+            stop.set()
+
+        signal.signal(signal.SIGINT, on_signal)
+        signal.signal(signal.SIGTERM, on_signal)
+        return run_replicate(config_path=args.config, stop=stop)

@@ -47,6 +47,10 @@ class Filer:
         self.on_event = on_event
         self._dir_cache: set[str] = set()  # ccache role (filer.go:33)
         self._deletion_lock = threading.Lock()
+        # held across a flush's sends, so a flush returns only once every
+        # deletion queued before it was sent, the deletion loop's in-flight
+        # batch included
+        self._flush_lock = threading.Lock()
         self._pending_chunk_deletions: list[str] = []
         self._deletion_thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -74,19 +78,20 @@ class Filer:
             self._pending_chunk_deletions.extend(fids)
 
     def flush_chunk_deletions(self) -> None:
-        with self._deletion_lock:
-            fids, self._pending_chunk_deletions = self._pending_chunk_deletions, []
-        if not fids or not self.masters:
-            return
-        from seaweedfs_tpu_torch.client import operation as op
+        with self._flush_lock:
+            with self._deletion_lock:
+                fids, self._pending_chunk_deletions = self._pending_chunk_deletions, []
+            if not fids or not self.masters:
+                return
+            from seaweedfs_tpu_torch.client import operation as op
 
-        try:
-            # HA: any live master can resolve locations for the batch
-            op.with_master_failover(
-                self.masters, lambda m: op.delete_files(m, fids)
-            )
-        except Exception:  # noqa: BLE001 — deletion is best-effort GC
-            pass
+            try:
+                # HA: any live master can resolve locations for the batch
+                op.with_master_failover(
+                    self.masters, lambda m: op.delete_files(m, fids)
+                )
+            except Exception:  # noqa: BLE001 — deletion is best-effort GC
+                pass
 
     # ------------------------------------------------------------------
     def _notify(self, old: Entry | None, new: Entry | None, delete_chunks: bool) -> None:

@@ -11,9 +11,8 @@ QoS plane (docs/QOS.md): when the volume has more than one replica,
 chunk fetches ride the hedged-read driver — a read that outlives the
 volume's adaptive latency quantile fires a second attempt at the next
 replica and cancels the loser. This is the path the filer's own GET
-handler reads through (in the reference the S3 and WebDAV gateways do
-too; in the port they wait for ROADMAP item 11b), so one seam hedges
-every reader at once. Replica order passes through
+handler reads through, and the S3 and WebDAV gateways read through that
+handler, so one seam hedges every reader at once. Replica order passes through
 the client circuit breaker (vid_map), so a recently-dead replica is
 tried last. `WEED_QOS=0`/`WEED_QOS_HEDGE=0` restores the plain
 single-attempt read wholesale.

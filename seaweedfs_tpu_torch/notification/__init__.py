@@ -5,10 +5,11 @@ Behavioral match of weed/notification/configuration.go: a process-wide
 EventNotification) messages into (filer2/filer_notify.go:9-39).
 The port of seaweedfs_tpu/notification/__init__.py, the core the filer
 publishes to. Backends here: log (glog-style), memory (in-process,
-subscribable) and dirqueue (durable file-per-message directory). The
-broker backends (logqueue, kafka, aws_sqs, google_pub_sub) come with
-replication/ (ROADMAP item 12); `configure` raises naming that item
-when notification.toml enables one.
+subscribable), dirqueue (durable file-per-message directory) and
+logqueue (embedded partitioned segmented log with consumer groups, the
+Kafka-role broker, notification/logqueue.py). The external broker
+backends (kafka, aws_sqs, google_pub_sub) are ROADMAP item 12b;
+`configure` raises naming that item when notification.toml enables one.
 """
 
 from __future__ import annotations
@@ -122,9 +123,9 @@ class DirQueue(NotificationQueue):
             yield seq, header["key"], msg
 
 
-# the broker backends, each with the notification.toml section that
-# enables it; they come with replication/ (ROADMAP item 12)
-BROKER_BACKENDS = ("logqueue", "kafka", "aws_sqs", "google_pub_sub")
+# the external broker backends, each with the notification.toml section
+# that enables it (ROADMAP item 12b)
+BROKER_BACKENDS = ("kafka", "aws_sqs", "google_pub_sub")
 
 
 def configure(cfg) -> NotificationQueue | None:
@@ -137,13 +138,20 @@ def configure(cfg) -> NotificationQueue | None:
         queue = MemoryQueue()
     elif cfg.get_bool("notification.dirqueue.enabled"):
         queue = DirQueue(cfg.get_string("notification.dirqueue.dir", "./notifications"))
+    elif cfg.get_bool("notification.logqueue.enabled"):
+        from seaweedfs_tpu_torch.notification.logqueue import PartitionedLogQueue
+
+        queue = PartitionedLogQueue(
+            cfg.get_string("notification.logqueue.dir", "./notifications"),
+            partitions=cfg.get_int("notification.logqueue.partitions", 4),
+        )
     else:
         for kind in BROKER_BACKENDS:
             if cfg.get_bool(f"notification.{kind}.enabled"):
                 raise NotImplementedError(
-                    f"the {kind} notification queue comes with replication/, "
-                    "not ported yet (ROADMAP item 12); the port's queues are "
-                    "log, memory and dirqueue"
+                    f"the {kind} notification queue is not ported yet "
+                    "(ROADMAP item 12b); the port's queues are log, memory, "
+                    "dirqueue and logqueue"
                 )
         queue = None
     return queue

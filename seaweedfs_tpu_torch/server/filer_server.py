@@ -15,9 +15,9 @@ Behavioral match of weed/server/filer_server*.go:
 The port of seaweedfs_tpu/server/filer_server.py. The filer holds no
 codec and never touches the card: a chunk on an EC volume is read
 through a shard holder's HTTP GET, and that holder decodes it (on its
-card when it lost shards). The producer-side replication lag gauge
-comes with replication/ (ROADMAP item 12). stop() ends every thread
-start() made.
+card when it lost shards). /metrics carries the producer-side
+replication lag: the depth of the "replicate" consumer group in the
+process's notification queue. stop() ends every thread start() made.
 """
 
 from __future__ import annotations
@@ -39,6 +39,27 @@ from seaweedfs_tpu_torch.filer.filerstore import EntryNotFound, new_store
 from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
 from seaweedfs_tpu_torch.util.httpd import FastHandler, WeedHTTPServer
 from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.stats.metrics import DEFAULT_REGISTRY, REPLICATION_LAG
+
+
+def _sample_repl_lag() -> None:
+    """The producer's view of consumer lag on the filer's /metrics: the
+    depth of the "replicate" consumer group in the process's notification
+    queue, which the collector scrapes and RULE_REPL_LAG alerts on. It is
+    read when /metrics renders, so an idle filer pays nothing; the
+    registry and the queue are process-wide, so the hook is one per
+    process however many filers it embeds."""
+    from seaweedfs_tpu_torch import notification
+
+    depth = getattr(notification.queue, "depth", None)
+    if callable(depth):
+        try:
+            REPLICATION_LAG.set(depth("replicate"), "replicate")
+        except OSError:
+            pass
+
+
+DEFAULT_REGISTRY.add_prerender_hook(_sample_repl_lag)
 
 
 def _queue_publisher():

@@ -384,6 +384,7 @@ class VolumeReadWorker:
         self._internal_server: WeedHTTPServer | None = None
         self._servers: list[WeedHTTPServer] = []
         self._threads: list[threading.Thread] = []
+        self._profiling = False
 
     # --- volume discovery ------------------------------------------------
     def _find_volume(self, vid: int) -> SharedReadVolume | None:
@@ -981,7 +982,7 @@ class VolumeReadWorker:
         # stall in one SO_REUSEPORT process is invisible from the lead
         from seaweedfs_tpu_torch.telemetry import profiler
 
-        profiler.ensure_started()
+        self._profiling = profiler.ensure_started()
         wlog.info(
             "volume %s worker %d on %s:%d (lead %s)",
             "write" if self.shard_writes else "read",
@@ -1009,10 +1010,21 @@ class VolumeReadWorker:
             self.released.update(int(v) for v in taken)
 
     def stop(self) -> None:
+        """Stop serving: every listener's thread has ended and this
+        worker's hold on the sampling profiler is released when this
+        returns."""
         for s in self._servers:
             s.shutdown()
             s.server_close()
         self._servers.clear()
+        for t in self._threads:
+            t.join(timeout=10)
+        self._threads.clear()
+        if self._profiling:
+            from seaweedfs_tpu_torch.telemetry import profiler
+
+            profiler.release()
+            self._profiling = False
         # the volume-table drain takes _vol_lock like every other
         # mutation of _volumes: a handler thread finishing its last
         # response can still be inside _find_volume when stop() runs

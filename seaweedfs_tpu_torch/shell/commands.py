@@ -10,7 +10,7 @@ port of seaweedfs_tpu/shell/commands.py. Implemented here:
   cluster.slo  capsule.capture  capsule.collect  profile.capture
   repair.queue  scrub.status  scrub.trigger
   ec.verify  volume.tier.upload  volume.tier.download  tier.status
-  tier.move
+  tier.move  replication.lag
 The 11 fs.* commands (cd/pwd/ls/du/cat/tree/mv/meta.cat/meta.save/
 meta.load/meta.notify) live in shell/fs_commands.py, registered on
 import by shell/__init__.py.
@@ -18,9 +18,8 @@ The EC verbs run on the volume servers' codec: on a card server,
 ec.encode and ec.rebuild launch K1 with K4, ec.batch K2 with K4 and
 ec.rebuild.batch K2. ec.verify runs in the shell's own process: it
 gathers every shard over VolumeEcShardRead and re-encodes each 4 MiB
-tile with new_encoder() (K1 on the card). Every other verb of the reference is registered
-under its own name and help and raises NotImplementedError naming the
-ROADMAP item it waits for (WAITING below), so `help` lists the
+tile with new_encoder() (K1 on the card). Every verb of the reference
+is registered under its own name and help, so `help` lists the
 reference's names.
 
 Each command is `run(env, args, out) -> None`, printing human output to
@@ -2159,31 +2158,79 @@ class TierMove(Command):
             print(f"{url}: {_json.dumps(result)}", file=out)
 
 
-# ----------------------------------------------------------------------
-# verbs whose planes the port does not have yet
+def _http_text(url: str, timeout: float = 10.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode("utf-8", "replace")
 
 
-WAITING = {
-    # name: (ROADMAP item, what it needs, the reference's help)
-    "replication.lag": (12, "replication/ and the filer's lag metric",
-                        "replication.lag [-json] — cross-cluster replication consumer "
-                        "lag as seen by the leader's telemetry rings (filer-exposed "
-                        "weed_replication_lag_events), plus any firing lag alerts"),
-}
-
-
-class Waiting(Command):
-    """A reference verb the port registers but cannot run yet."""
-
-    def __init__(self, name: str, item: int, needs: str, help: str):
-        self.name, self.item, self.needs, self.help = name, item, needs, help
+@register
+class ReplicationLag(Command):
+    name = "replication.lag"
+    help = (
+        "replication.lag [-json] — cross-cluster replication consumer "
+        "lag as seen by the leader's telemetry rings (filer-exposed "
+        "weed_replication_lag_events), plus any firing lag alerts"
+    )
 
     def run(self, env, args, out):
-        raise NotImplementedError(
-            f"{self.name} needs {self.needs}, not ported yet "
-            f"(ROADMAP item {self.item})"
-        )
+        import json as _json
 
-
-for _name, (_item, _needs, _help) in WAITING.items():
-    COMMANDS[_name] = Waiting(_name, _item, _needs, _help)
+        try:
+            alerts = _http_json(f"http://{env.master}/cluster/alerts")
+        except (OSError, ValueError) as e:
+            alerts = {"error": str(e)}
+        rows = {}
+        # scrape the registered filer gateways directly: the producer
+        # side's view of queue depth is authoritative for lag
+        try:
+            health = _http_json(f"http://{env.master}/cluster/health")
+        except (OSError, ValueError):
+            health = {}
+        for url, row in (health.get("Targets") or {}).items():
+            if row.get("Kind") != "filer":
+                continue
+            try:
+                text = _http_text(f"http://{url}/metrics")
+            except (OSError, ValueError) as e:
+                rows[url] = {"error": str(e)}
+                continue
+            lag = None
+            for line in text.splitlines():
+                if line.startswith("weed_replication_lag_events"):
+                    try:
+                        lag = float(line.rsplit(None, 1)[1])
+                    except (IndexError, ValueError):
+                        pass
+            rows[url] = {"LagEvents": lag}
+        firing = [
+            a for a in (alerts.get("Firing") or [])
+            if a.get("Alert") == "replication_lag"
+        ]
+        if _has_flag(args, "json"):
+            print(_json.dumps({"Filers": rows, "Alerts": firing}), file=out)
+            return
+        if not rows:
+            print(
+                "no filer gateways registered with the master "
+                "(is telemetry on, and did the filer announce?)",
+                file=out,
+            )
+        for url, row in sorted(rows.items()):
+            if "error" in row:
+                print(f"{url}: unreachable ({row['error']})", file=out)
+            elif row["LagEvents"] is None:
+                print(
+                    f"{url}: no lag metric (no notification queue "
+                    f"configured on this filer)",
+                    file=out,
+                )
+            else:
+                print(f"{url}: {row['LagEvents']:.0f} event(s) behind", file=out)
+        for a in firing:
+            print(
+                f"ALERT {a.get('Severity')}: {a.get('Target')} "
+                f"{a.get('Detail')}",
+                file=out,
+            )

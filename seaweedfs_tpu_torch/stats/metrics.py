@@ -6,8 +6,8 @@ degraded read, the store, the volume server, its mini loop and write
 path, the master's health plane, the scrub engine and repair
 scheduler, the tier engine, the client's retries and hedged reads, the
 push loop, and the cluster telemetry plane: scrape health, alerts, SLO
-burn and incident capsules); the reference's replication and handoff
-families come with those planes.
+burn and incident capsules, and replication's lag and applied events);
+the reference's handoff family comes with its plane.
 
 A Registry renders Prometheus text format 0.0.4 so any scraper
 understands it (weed/stats/metrics.go:14-60). The push loop to a
@@ -489,6 +489,17 @@ TIERED_VOLUMES = DEFAULT_REGISTRY.gauge(
     "weed_tiered_volumes",
     "EC volumes currently holding a remote tier attachment on this node",
     ("server",),
+)
+REPLICATION_LAG = DEFAULT_REGISTRY.gauge(
+    "weed_replication_lag_events",
+    "filer mutation events published but not yet consumed by the "
+    "replication consumer group (logqueue depth)",
+    ("group",),
+)
+REPLICATION_APPLIED = DEFAULT_REGISTRY.counter(
+    "weed_replication_applied_total",
+    "replicated filer events applied to the sink cluster",
+    ("result",),  # ok | error | skipped
 )
 ARBITER_BYTES = DEFAULT_REGISTRY.counter(
     "weed_arbiter_bytes_total",

@@ -158,26 +158,32 @@ def snapshot() -> tuple[int, dict[tuple[str, ...], int]]:
 
 def capture(seconds: float) -> dict:
     """Folded-stack aggregate over the NEXT `seconds` (snapshot → wait
-    → diff). seconds <= 0 returns the since-start aggregate. The wait
-    parks only the calling (operator request) thread."""
-    if _ENABLED and not _started:
-        with _lock:
-            _start_locked()
+    → diff). seconds <= 0 returns the since-start aggregate, empty when
+    no daemon runs the sampler. The wait parks only the calling
+    (operator request) thread, which counts itself as a user of the
+    sampler for the window, so no thread outlives it unowned."""
     if seconds > 0:
-        s0, c0 = snapshot()
-        # hot-loop exemption (analysis/hotloop._EXEMPT_QUALS): this
-        # sleep parks only the requesting operator connection's thread
-        # for the capped capture window — it IS the capture
-        time.sleep(min(seconds, 60.0))
-        s1, c1 = snapshot()
+        held = ensure_started()
+        try:
+            s0, c0 = snapshot()
+            # hot-loop exemption (analysis/hotloop._EXEMPT_QUALS): this
+            # sleep parks only the requesting operator connection's
+            # thread for the capped capture window — it IS the capture
+            time.sleep(min(seconds, 60.0))
+            s1, c1 = snapshot()
+        finally:
+            if held:
+                release()
         samples = s1 - s0
         window = {
             k: n - c0.get(k, 0) for k, n in c1.items() if n - c0.get(k, 0) > 0
         }
         span = seconds
-    else:
+    elif _started:
         samples, window = snapshot()
         span = time.time() - _started_at if _started_at else 0.0
+    else:
+        samples, window, span = 0, {}, 0.0
     return {
         "enabled": _ENABLED,
         "running": running(),

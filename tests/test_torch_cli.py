@@ -18,7 +18,9 @@ sweep of a SIGSTOPped volume server; each subprocess case keeps the time
 limits the reference's gives it. The telemetry plane's commands run as
 the reference's do: `weedload` against each package's in-process
 cluster exits 0 with the reference's report keys, and `master
--telemetryInterval 10` answers /cluster/alerts. The commands whose
+-telemetryInterval 10` answers /cluster/alerts. `filer.replicate` drains a
+logqueue into a local sink as a subprocess, ends with exit code 0 on
+SIGTERM and resumes from its cursor. The commands whose
 planes the port does not have exit 2 naming their ROADMAP item, and a
 `volume` with neither a card nor `-ec.codec` fails naming CUDA. The
 filer plane's commands run: `filer -store lsm` as a subprocess that
@@ -243,12 +245,75 @@ def test_help_lists_the_references_commands():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["mount"], "11d"), (["filer.replicate"], 12),
+    (["mount"], "11d"),
 ])
 def test_unported_planes_exit_2_naming_their_item(argv, item):
     rc, _out, err = run("port", argv)
     assert rc == 2
     assert f"ROADMAP item {item})" in err
+
+
+def test_filer_replicate_drains_a_logqueue_and_resumes_after_sigterm(tmp_path):
+    """`filer.replicate -config` as a process of its own, with
+    notification.toml (a logqueue) in its working directory and a local
+    sink: it replicates what a port filer published, SIGTERM ends it with
+    exit code 0, and restarted it resumes from the committed cursor: only
+    the file written meanwhile is applied, the others are not written
+    again."""
+    from seaweedfs_tpu_torch import notification
+    from seaweedfs_tpu_torch.notification.logqueue import PartitionedLogQueue
+    from tests.test_torch_replication import PortCluster, post, wait_for
+
+    qdir, mirror = tmp_path / "lq", tmp_path / "mirror"
+    (tmp_path / "notification.toml").write_text(
+        f'[notification.logqueue]\nenabled = true\ndir = "{qdir}"\npartitions = 4\n')
+    lq = PartitionedLogQueue(str(qdir), partitions=4)
+    notification.queue = lq
+    cluster, proc = None, None
+    try:
+        cluster = PortCluster(str(tmp_path / "src"))
+        (tmp_path / "replication.toml").write_text(
+            f'[source.filer]\nenabled = true\ngrpcAddress = "{cluster.filer_addr}"\n'
+            f'directory = "/buckets"\n[sink.local]\nenabled = true\n'
+            f'directory = "{mirror}"\n')
+        files = {f"/d{i % 3}/f{i}.bin": os.urandom(1000 + 997 * i) for i in range(6)}
+        for path, data in files.items():
+            post(cluster.filer_addr, "/buckets" + path, data)
+
+        def spawn():
+            return subprocess.Popen(
+                [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.replicate", "-config",
+                 str(tmp_path / "replication.toml")], cwd=str(tmp_path),
+                env=dict(os.environ, PYTHONPATH=str(REPO)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT)
+
+        def mirrored() -> bool:
+            assert proc.poll() is None, proc.stdout.read().decode()[-3000:]
+            return lq.depth("replicate") == 0 and all(
+                (mirror / p.lstrip("/")).is_file()
+                and (mirror / p.lstrip("/")).read_bytes() == d for p, d in files.items())
+
+        proc = spawn()
+        assert wait_for(mirrored, 60), sorted(str(p) for p in mirror.rglob("*"))
+        stamps = {p: os.stat(mirror / p.lstrip("/")).st_ino for p in files}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+        files["/late.bin"] = b"written while the runner was down"
+        post(cluster.filer_addr, "/buckets/late.bin", files["/late.bin"])
+        assert lq.depth("replicate") >= 1
+        proc = spawn()
+        assert wait_for(mirrored, 60), sorted(str(p) for p in mirror.rglob("*"))
+        assert {p: os.stat(mirror / p.lstrip("/")).st_ino for p in stamps} == stamps
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+    finally:
+        notification.queue = None
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        if cluster is not None:
+            cluster.stop()
+        lq.close()
 
 
 def _report_keys(report: dict) -> dict:

@@ -531,3 +531,24 @@ def test_crc_span_sweep_needs_a_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert crc_span_sweep.main() == 1
+
+
+def test_crc_span_sweep_keeps_its_own_shapes():
+    """The sweep names its shapes itself ([1, 4, 14, 224] rows of 1 MiB)
+    and imports nothing of the repo-root chip_smoke."""
+    import subprocess
+    import sys
+
+    from seaweedfs_tpu_torch import crc_span_sweep
+
+    assert crc_span_sweep.SHAPES == (1, 4, 14, 224)
+    assert crc_span_sweep.LANES * 4 == 1 << 20
+    code = ("import sys\n"
+            "import seaweedfs_tpu_torch.crc_span_sweep as s\n"
+            "assert 'chip_smoke' not in sys.modules\n"
+            "print('chip_smoke' in open(s.__file__).read())\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False"

@@ -1237,8 +1237,9 @@ def test_notification_core_and_broker_backends_wait():
 
     q = notification.configure(Configuration({"notification": {"memory": {"enabled": True}}}))
     assert isinstance(q, notification.MemoryQueue) and notification.queue is q
+    assert notification.BROKER_BACKENDS == ("kafka", "aws_sqs", "google_pub_sub")
     for kind in notification.BROKER_BACKENDS:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 12\)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item 12b\)"):
             notification.configure(Configuration({"notification": {kind: {"enabled": True}}}))
     assert notification.configure(Configuration({})) is None
 
@@ -1256,3 +1257,37 @@ def test_filer_modules_and_commands_import_no_torch():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+def test_flush_returns_after_the_loops_in_flight_deletions(monkeypatch):
+    """flush_chunk_deletions() returns only once every chunk deletion
+    queued before it was sent, including a batch the deletion loop took
+    and is still sending: a test (or stop()) that flushes and then reads
+    the holders sees the chunks gone. The reference's flush returns at
+    once with an empty batch there."""
+    from seaweedfs_tpu_torch.client import operation as op
+    from seaweedfs_tpu_torch.filer.filer import Filer
+    from seaweedfs_tpu_torch.filer.filerstore import new_store
+
+    sent, entered, gate = [], threading.Event(), threading.Event()
+
+    def slow_delete(master, fids):
+        entered.set()
+        assert gate.wait(30)
+        sent.extend(fids)
+        return []
+
+    monkeypatch.setattr(op, "delete_files", slow_delete)
+    f = Filer(new_store("memory"), masters=["127.0.0.1:1"])
+    f.delete_chunks_async(["3,01637037d6"])
+    looping = threading.Thread(target=f.flush_chunk_deletions)
+    looping.start()
+    assert entered.wait(30)
+    flushed = threading.Event()
+    flusher = threading.Thread(target=lambda: (f.flush_chunk_deletions(), flushed.set()))
+    flusher.start()
+    assert not flushed.wait(0.5), "the flush returned while a batch was still in flight"
+    gate.set()
+    looping.join(30)
+    flusher.join(30)
+    assert flushed.is_set() and not looping.is_alive() and sent == ["3,01637037d6"]

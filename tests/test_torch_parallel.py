@@ -285,6 +285,9 @@ SERVER_SLICE = (
     # WebDAV, the query engine and the s3 tier backend's slice
     "webdav/__init__.py", "webdav/webdav_server.py", "query/__init__.py",
     "query/json_query.py", "storage/backend_s3.py",
+    # the logqueue and replication's slice
+    "notification/logqueue.py", "replication/__init__.py", "replication/source.py",
+    "replication/sink.py", "replication/replicator.py", "replication/replicate_runner.py",
 )
 
 

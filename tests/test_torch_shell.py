@@ -268,20 +268,26 @@ class TestVolumePlanners:
 def test_command_names_equal_the_references():
     assert sorted(COMMANDS) == sorted(REF_COMMANDS)
     assert len([n for n in COMMANDS if n.startswith("fs.")]) == 11
-    # the integrity plane's verbs run (ROADMAP item 9), the capsules'
-    # (item 13) and the filer's fs.* (item 11); replication's still waits
-    assert sorted(port_commands.WAITING) == ["replication.lag"]
-    assert not any(isinstance(COMMANDS[n], port_commands.Waiting) for n in COMMANDS
-                   if n.startswith("fs."))
+    # every verb runs: the integrity plane's (ROADMAP item 9), the
+    # capsules' (item 13), the filer's fs.* (item 11) and replication.lag
+    # (item 12a); none is a stub that raises
+    assert not hasattr(port_commands, "WAITING")
+    assert isinstance(COMMANDS["replication.lag"], port_commands.ReplicationLag)
     for name, cmd in COMMANDS.items():
         assert cmd.name == name and cmd.help == REF_COMMANDS[name].help, name
 
 
-@pytest.mark.parametrize("name", sorted(port_commands.WAITING))
-def test_waiting_verbs_raise_naming_their_item(name):
-    item = port_commands.WAITING[name][0]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\)"):
-        run_command(CommandEnv(["127.0.0.1:0"]), f"{name} -volumeId 1")
+@pytest.mark.parametrize("line", ["replication.lag", "replication.lag -json"])
+def test_replication_lag_without_a_master_prints_as_the_references(line):
+    """replication.lag runs (it waited for ROADMAP item 12a): against a
+    master that does not answer, it reports no filer and no alert, in
+    the reference's words."""
+    out = io.StringIO()
+    ref_commands.run_command(ref_env.CommandEnv(["127.0.0.1:1"]), line, out)
+    got = run_command(CommandEnv(["127.0.0.1:1"]), line)
+    assert got == out.getvalue()
+    assert "no filer gateways registered" in got or json.loads(got) == {
+        "Filers": {}, "Alerts": []}
 
 
 def test_help_lists_every_verb():

@@ -38,24 +38,6 @@ def _scrape(ts, t: float, rows):
     ts.record_scrape([(n, tuple(sorted(labels.items())), v) for n, labels, v in rows], t)
 
 
-@pytest.fixture(autouse=True)
-def _no_ownerless_sampler():
-    """A capsule's profile section reads the port's sampling profiler,
-    whose capture() starts the sampler when no daemon of the process
-    holds it. Such a sampler, which no daemon's stop() releases, is
-    stopped after the test: tests/test_torch_profiler.py, which may run
-    next in this process, expects none."""
-    from seaweedfs_tpu_torch.telemetry import profiler
-
-    yield
-    with profiler._lock:
-        ownerless = profiler._started and profiler._users == 0
-        if ownerless:
-            profiler._users = 1
-    if ownerless:
-        profiler.release()
-
-
 # ----------------------------------------------------------------------
 # SLO engine: measurement math against a real TargetStore
 
