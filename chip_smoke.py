@@ -244,6 +244,24 @@ Phases, each of which raises on a fault (the script then exits nonzero):
      and restarted: it resumes from its cursor, rewrites nothing on B,
      and carries a later file over; neither filer nor the runner maps
      libcuda or torch; a fault names 3m and its step;
+ 3n. the event stream leaving the cluster (run_cloud_phase): a
+     kafka_fake broker process (4 partitions), cluster A as 3m's with a
+     `filer -collection cloud -maxMB 32` publishing to [notification.kafka]
+     and two more filers publishing to [notification.aws_sqs] and
+     [notification.google_pub_sub] at FakeSqs and FakePubSub
+     (tests/cloud_fakes.py, in this process, as FakeGcs, FakeAzure and
+     FakeB2 are); 64 MiB (CLOUD_BYTES) of 3m's file mix and one 40 MiB
+     file POSTed, the broker's high watermarks equal to the filer's
+     events; ec.encode and ec.balance -force (K1 + K4), a holder of at
+     most 4 shards of every volume SIGKILLed; three `filer.replicate
+     -config` processes read the topic into sink.gcs, sink.azure and
+     sink.backblaze: every object SHA-256 equal, K1 rising on the
+     survivors; 32 files POSTed to each queue filer meanwhile, each fake
+     accepting 32 signed messages naming them; a directory deleted from
+     all three clouds (no B2 version left); the GCS runner SIGTERMed
+     (exit 0) and restarted from its offsets uploading only a later
+     file; no filer, runner or the broker maps libcuda or torch; a fault
+     names 3n and its step;
   4. the batch path (BASELINE.json config 3, "batched ec.encode over
      256 sealed volumes"): write 256 volumes of about 4 MiB, encode them
      through ec_files.write_ec_files_batch (WEED_EC_PIPELINE_BATCH=16,
@@ -4833,12 +4851,13 @@ class _PhaseProcs:
         with open(os.path.join(self.logs, name + ".log"), errors="replace") as f:
             return f.read()[-3000:]
 
-    def spawn(self, name: str, args: list, cwd: str | None = None) -> subprocess.Popen:
-        """`args` in a process of its own; with `cwd`, run there (where
-        its config files lie), the repo on its PYTHONPATH."""
+    def spawn(self, name: str, args: list, cwd: str | None = None,
+              module: str = "seaweedfs_tpu_torch") -> subprocess.Popen:
+        """`python -m module args` in a process of its own; with `cwd`, run
+        there (where its config files lie), the repo on its PYTHONPATH."""
         with open(os.path.join(self.logs, name + ".log"), "w") as log_file:
             self.procs[name] = subprocess.Popen(
-                self.cli + args, cwd=cwd or self.here, stdout=log_file,
+                self.cli[:-1] + [module] + args, cwd=cwd or self.here, stdout=log_file,
                 env=self.env if cwd is None else _repo_on_path(self.env),
                 stderr=subprocess.STDOUT)
         return self.procs[name]
@@ -7279,6 +7298,663 @@ def run_replication_phase(workdir: str, volume_bytes: int, seed: int, device=Non
     return runs
 
 
+CLOUD_BYTES = CUT_BYTES // 4  # 3n's files besides the big one: 3m's 128 MiB cut 2x
+CLOUD_SINKS = ("gcs", "azure", "backblaze")  # one filer.replicate runner a sink
+CLOUD_QUEUE_FILES = 32  # files POSTed to each of the SQS and Pub/Sub filers
+
+
+class _CountingObjects(dict):
+    """A cloud fake's object map that counts its stores (uploads)."""
+
+    puts = 0
+
+    def __setitem__(self, key, value):
+        self.puts += 1
+        super().__setitem__(key, value)
+
+
+def _cloud_fakes(seed: int) -> dict:
+    """tests/cloud_fakes.py's GCS, Azure, B2, SQS and Pub/Sub fakes as 3n
+    serves them in this process, with their credentials: the Azure
+    account key is 32 bytes from `seed`; FakeSqs checks SigV4 with the
+    port's key derivation (its own imports the reference's), FakePubSub
+    answers 401 to a publish without the Bearer token; the sinks' object
+    maps count their uploads."""
+    import base64
+    import hashlib
+    import hmac
+    import importlib.util
+
+    # by its path: a `tests` package elsewhere on sys.path would shadow the repo's
+    spec = importlib.util.spec_from_file_location("cloud_fakes", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "cloud_fakes.py"))
+    cloud_fakes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cloud_fakes)
+    FakeAzure, FakeB2, FakeGcs = cloud_fakes.FakeAzure, cloud_fakes.FakeB2, cloud_fakes.FakeGcs
+    FakePubSub, FakeSqs = cloud_fakes.FakePubSub, cloud_fakes.FakeSqs
+
+    class Sqs(FakeSqs):
+        def _check_sig(self, handler, body: bytes) -> bool:
+            from seaweedfs_tpu_torch.s3api.auth import derive_signing_key
+
+            auth = handler.headers.get("Authorization", "")
+            if f"Credential={self.access_key}/" not in auth:
+                return False
+            amz_date = handler.headers.get("x-amz-date", "")
+            headers = {"content-type": handler.headers.get("Content-Type", ""),
+                       "host": handler.headers.get("Host", ""), "x-amz-date": amz_date}
+            signed = sorted(headers)
+            canonical = "\n".join(["POST", "/", "", "".join(f"{k}:{headers[k]}\n" for k in signed),
+                                   ";".join(signed), hashlib.sha256(body).hexdigest()])
+            scope = f"{amz_date[:8]}/{self.region}/sqs/aws4_request"
+            sts = "\n".join(["AWS4-HMAC-SHA256", amz_date, scope,
+                             hashlib.sha256(canonical.encode()).hexdigest()])
+            want = hmac.new(derive_signing_key(self.secret_key, amz_date[:8], self.region, "sqs"),
+                            sts.encode(), hashlib.sha256).hexdigest()
+            return f"Signature={want}" in auth
+
+    class PubSub(FakePubSub):
+        token = "smoke-bearer-token"
+
+        def _handler_class(self):
+            base, fake = super()._handler_class(), self
+
+            class H(base):
+                def do_POST(self):
+                    if self.headers.get("Authorization") != f"Bearer {fake.token}":
+                        n = int(self.headers.get("Content-Length", "0"))
+                        self.rfile.read(n)
+                        return self._json({"error": {"code": 401}}, 401)
+                    base.do_POST(self)
+
+            return H
+
+    key = base64.b64encode(np.random.default_rng(seed).bytes(32)).decode()
+    fakes = {"gcs": FakeGcs(), "azure": FakeAzure("weedacct", key, "weed"),
+             "backblaze": FakeB2("weedkeyid", "weedappkey", "weedbucket"),
+             "sqs": Sqs("AKIDWEEDSMOKE", "weed-smoke-secret", "us-east-1", "weedq"),
+             "pubsub": PubSub("weedproj", "weedtopic")}
+    for kind in CLOUD_SINKS:
+        fakes[kind].objects = _CountingObjects()
+    fakes["azure"].account_key = key
+    return fakes
+
+
+def _creation_events_fault(published: list, entries: dict) -> str | None:
+    """What is wrong with `published`, the [(key, EventNotification)] a
+    filer sent while a fresh tree was written into it, against `entries`,
+    {path: is_directory} of that tree; None when each event creates the
+    entry its key names and each entry is created: a file once, a
+    directory once or more, since two writers that find it missing both
+    create it and both announce it (filer/filer.py `_ensure_dirs`)."""
+    counts: dict = {}
+    for key, ev in published:
+        parent = ev.new_parent_path.rstrip("/")
+        if ev.HasField("old_entry") or f"{parent}/{ev.new_entry.name}" != key:
+            return f"the event under key {key} is not the creation of that entry: {ev}"
+        counts[key] = counts.get(key, 0) + 1
+    if set(counts) != set(entries):
+        return (f"the topic's keys and the filer's entries differ: "
+                f"{sorted(set(entries) - set(counts))[:5]} have no event, "
+                f"{sorted(set(counts) - set(entries))[:5]} are no entry")
+    twice = {k: n for k, n in counts.items() if n > 1 and not entries[k]}
+    if twice:
+        return f"files announced more than once: {twice}"
+    return None
+
+
+def run_cloud_phase(workdir: str, volume_bytes: int, seed: int, device=None,
+                    card: str = "", smi: str = "", big_bytes: int = REPL_BIG_BYTES) -> dict:
+    """The filer's event stream leaving the cluster (ROADMAP item 12b):
+    Kafka, SQS and Pub/Sub, and replication into GCS, Azure and B2, from
+    a cluster whose volume servers decode on the card; every process
+    `python -m seaweedfs_tpu_torch` (the broker `python -m
+    seaweedfs_tpu_torch.notification.kafka_fake`) in a directory of its
+    own under `workdir`, the cloud fakes of tests/cloud_fakes.py in this
+    process; on `device` (None: the card; "cpu" runs the volume servers
+    with -ec.codec cpu, a rehearsal):
+      a. a kafka_fake broker (REPL_PARTITIONS partitions), a master
+         (-telemetryInterval 1, -repairInterval 0), three `volume` servers
+         (racks 0/1/0), a `filer -store lsm -collection cloud -maxMB 32`
+         whose notification.toml enables [notification.kafka] at the
+         broker, and two more filers on the master, one publishing to
+         [notification.aws_sqs] at FakeSqs, one to
+         [notification.google_pub_sub] at FakePubSub (a token set);
+      b. `volume_bytes` of files log-uniform over 1 KiB-1 MiB under
+         /cloud, 1-3 directories deep, and one of `big_bytes` (two
+         chunks), POSTed from REPL_CLIENTS threads; the broker's high
+         watermarks sum to the filer's events: a creation of each entry
+         (files, directories, /cloud), a file's once, a directory's more
+         than once where concurrent writers both created it;
+      c. ec.encode -collection cloud -fullPercent 0 and ec.balance -force
+         through a `shell` process (K1 + K4 on the cards);
+      d. the holder with the most shards among those holding at most 4 of
+         every volume SIGKILLed;
+      e. three `filer.replicate -config` processes read the one topic,
+         each with its own offset_dir and sink (sink.gcs, sink.azure,
+         sink.backblaze at the fakes): within a deadline each fake holds
+         exactly the files under /cloud (the sink's directory joined to
+         the path), every object SHA-256 equal to its file; the K1
+         launches of the survivors rose (a survivor that served no
+         degraded interval is asked directly for a file on the lost
+         shards); K1 and K5 deltas printed; meanwhile
+      h. CLOUD_QUEUE_FILES files are POSTed to each of the SQS and Pub/Sub
+         filers: each fake accepts that many messages (SigV4-signed, with
+         the Bearer token), each an EventNotification naming its file;
+      f. a top directory DELETEd recursively on the filer is gone from all
+         three fakes, B2 keeping no version of its files;
+      g. SIGTERM ends the GCS runner with 0, its offset files at the
+         broker's high watermarks; started again it uploads nothing until
+         a file written meanwhile reaches GCS, then SIGTERM ends it with 0;
+      i. no filer, runner or the broker maps libcuda or torch; SIGTERM
+         ends every process with exit code 0 (the killed holder aside).
+    Raises naming 3n and the step on any fault; returns cloud_encode and
+    cloud_degraded with the volume servers' launches."""
+    import hashlib
+    import signal
+    import urllib.parse
+
+    from google.protobuf import text_format
+
+    from seaweedfs_tpu_torch.ec import locate
+    from seaweedfs_tpu_torch.notification.kafka import KafkaClient
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.pb import rpc
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.storage.volume import scan_volume_file
+    from seaweedfs_tpu_torch.util.availability import free_port
+
+    _check_room(workdir, REPL_ROOM if volume_bytes >= 1 << 26
+                else 6 * (volume_bytes + big_bytes) + (1 << 27), "phase 3n")
+    on_card = device is None
+    env = {k: v for k, v in os.environ.items() if k != "WEED_EC_CODEC"}
+    if not on_card:
+        env["WEED_EC_CODEC"] = "cpu"
+    codec_args = [] if on_card else ["-ec.codec", "cpu"]
+    run = _PhaseProcs("3n cloud", workdir, env)
+    step = "a start"
+
+    def fail(msg: str):
+        raise AssertionError(f"3n cloud, step {step}: {msg}")
+
+    phase_t0 = time.perf_counter()
+    walls: dict = {}
+    runs: dict = {}
+    shell = None
+    victim = None
+    failed = None
+    maps_seen: dict = {}
+    fakes = _cloud_fakes(seed + 230)
+    mport, fport, kport = free_port(), free_port(), free_port()
+    qports = {"sqs": free_port(), "pubsub": free_port()}
+    ports = [free_port() for _ in range(3)]
+    dirs = [os.path.join(workdir, f"vs{i}") for i in range(3)]
+    maddr, khosts, topic = f"127.0.0.1:{mport}", f"127.0.0.1:{kport}", "seaweedfs_filer"
+    mirrors = {"gcs": "gcs-mirror", "azure": "azure-mirror", "backblaze": "b2-mirror"}
+    sinks = {
+        "gcs": f'[sink.gcs]\nenabled = true\nbucket = "weed"\ntoken = "smoke-gcs-token"\n'
+               f'endpoint = "{fakes["gcs"].endpoint}"\n',
+        "azure": f'[sink.azure]\nenabled = true\naccount_name = "weedacct"\n'
+                 f'account_key = "{fakes["azure"].account_key}"\ncontainer = "weed"\n'
+                 f'endpoint = "{fakes["azure"].endpoint}"\n',
+        "backblaze": f'[sink.backblaze]\nenabled = true\nb2_account_id = "weedkeyid"\n'
+                     f'b2_master_application_key = "weedappkey"\nbucket = "weedbucket"\n'
+                     f'endpoint = "{fakes["backblaze"].endpoint}"\n'}
+    queue_tomls = {
+        "sqs": f'[notification.aws_sqs]\nenabled = true\naws_access_key_id = "AKIDWEEDSMOKE"\n'
+               f'aws_secret_access_key = "weed-smoke-secret"\nregion = "us-east-1"\n'
+               f'sqs_queue_name = "weedq"\nendpoint = "{fakes["sqs"].endpoint}"\n',
+        "pubsub": f'[notification.google_pub_sub]\nenabled = true\nproject_id = "weedproj"\n'
+                  f'topic = "weedtopic"\ntoken = "{fakes["pubsub"].token}"\n'
+                  f'endpoint = "{fakes["pubsub"].endpoint}"\n'}
+
+    def home(name: str) -> str:
+        d = os.path.join(workdir, "run", name)
+        os.makedirs(d)
+        return d
+
+    def server_launches() -> dict:
+        out = {}
+        for i in range(3):
+            if f"volume{i}" not in run.rcs:
+                m = _cli_metrics(ports[i])
+                out[i] = dict(_cli_launches(m),
+                              degraded=int(m.get("weed_ec_degraded_read_total", 0)))
+        return out
+
+    def launch_delta(before: dict, after: dict) -> dict:
+        return {k: sum(after[i][k] - before[i][k] for i in after) for k in _counts()}
+
+    def highs() -> dict:
+        c = KafkaClient(khosts)
+        try:
+            return {p: c.fetch(topic, p, 0)[1] for p in c.metadata(topic)}
+        finally:
+            c.close()
+
+    def filer_entries(root: str) -> dict:
+        """{path: is_directory} of the entries at and below `root` on the filer."""
+        out = {root: True}
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+            todo = [root]
+            while todo:
+                d = todo.pop()
+                for r in stub.ListEntries(fpb.ListEntriesRequest(directory=d, limit=100000),
+                                          timeout=60):
+                    out[f"{d}/{r.entry.name}"] = r.entry.is_directory
+                    if r.entry.is_directory:
+                        todo.append(f"{d}/{r.entry.name}")
+        return out
+
+    def topic_events() -> list:
+        """[(key, EventNotification)] of every record on the topic."""
+        c = KafkaClient(khosts)
+        try:
+            out = []
+            for p in c.metadata(topic):
+                offset, high = 0, 1
+                while offset < high:
+                    records, high = c.fetch(topic, p, offset)
+                    if not records:
+                        break
+                    for _off, key, value in records:
+                        ev = fpb.EventNotification()
+                        ev.ParseFromString(value)
+                        out.append(((key or b"").decode(), ev))
+                    offset = records[-1][0] + 1
+            return out
+        finally:
+            c.close()
+
+    def cloud_keys(kind: str) -> set:
+        return set(fakes[kind].objects.copy())
+
+    def want_keys(kind: str) -> set:
+        return {mirrors[kind] + p[len("/cloud"):] for p in files}
+
+    def spawn_runner(name: str, kind: str) -> None:
+        run.spawn(name, ["filer.replicate", "-config", "replication.toml"],
+                  cwd=runner_homes[kind])
+
+    def post(c, item):
+        port_path, body = item
+        status, _, reply = _http(c, "POST", urllib.parse.quote(port_path), body)
+        if status != 201:
+            fail(f"POST {port_path}: {status} {reply[:300]!r}")
+
+    started = []
+    try:
+        for f in fakes.values():
+            f.start()
+            started.append(f)
+        # --- a. the broker, cluster A and the three filers ---
+        t0 = time.perf_counter()
+        run.spawn("broker", [str(kport), str(REPL_PARTITIONS)], cwd=home("broker"),
+                  module="seaweedfs_tpu_torch.notification.kafka_fake")
+        run.spawn("master", ["master", "-ip", "127.0.0.1", "-port", str(mport),
+                             "-volumeSizeLimitMB", str(CLUSTER_LIMIT_MB), "-repairInterval",
+                             "0", "-telemetryInterval", "1"], cwd=home("master"))
+        run.wait(lambda: urllib.request.urlopen(f"http://{maddr}/cluster/status",
+                                                timeout=2).close() is None, "the master")
+        for i, d in enumerate(dirs):
+            os.mkdir(d)
+            run.spawn(f"volume{i}", ["volume", "-ip", "127.0.0.1", "-port", str(ports[i]),
+                                     "-dir", d, "-max", "100", "-mserver", maddr,
+                                     "-rack", f"rack{i % 2}", "-scrubInterval", "0"]
+                      + codec_args, cwd=home(f"volume{i}"))
+        run.wait(lambda: len(highs()) == REPL_PARTITIONS, "the kafka_fake broker")
+        filer_homes = {"filer": home("filer"), "sqs": home("filer_sqs"),
+                       "pubsub": home("filer_pubsub")}
+        with open(os.path.join(filer_homes["filer"], "notification.toml"), "w") as f:
+            f.write(f'[notification.kafka]\nenabled = true\nhosts = "{khosts}"\n'
+                    f'topic = "{topic}"\n')
+        for kind, text in queue_tomls.items():
+            with open(os.path.join(filer_homes[kind], "notification.toml"), "w") as f:
+                f.write(text)
+        for name, port, collection in (("filer", fport, "cloud"), ("sqs", qports["sqs"], "sqs"),
+                                       ("pubsub", qports["pubsub"], "pubsub")):
+            run.spawn(name if name == "filer" else f"filer_{name}",
+                      ["filer", "-ip", "127.0.0.1", "-port", str(port), "-master", maddr,
+                       "-store", "lsm", "-storePath", os.path.join(workdir, f"{name}-lsm"),
+                       "-collection", collection, "-maxMB", "32"], cwd=filer_homes[name])
+        cenv = CommandEnv([maddr])
+        run.wait(lambda: len(cenv.collect_topology().nodes) == 3, "three volume servers")
+        for port in (fport, *qports.values()):
+            run.wait(lambda port=port: urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/", timeout=5).status == 200, f"the filer on {port}")
+        walls["a_up"] = time.perf_counter() - t0
+
+        # --- b. the tree through the filer, onto the topic ---
+        step = "b fill"
+        t0 = time.perf_counter()
+        files = {"/cloud" + p[len("/repl"):]: b
+                 for p, b in _repl_files(volume_bytes, seed + 231).items()}
+        files["/cloud/big/big.bin"] = np.random.default_rng(seed + 232).bytes(big_bytes)
+        digests = {p: hashlib.sha256(b).digest() for p, b in files.items()}
+        rng = np.random.default_rng(seed + 233)
+        qfiles = {kind: {f"/{kind}-{i:02d}.bin": rng.bytes(int(rng.integers(1024, 65536)))
+                         for i in range(CLOUD_QUEUE_FILES)} for kind in qports}
+        make_s = time.perf_counter() - t0
+        paths = sorted(files)
+        total = sum(map(len, files.values()))
+        t0 = time.perf_counter()
+        _fan(fport, REPL_CLIENTS, [(p, files[p]) for p in paths], post)
+        walls["b_fill"] = time.perf_counter() - t0
+        entries = filer_entries("/cloud")
+        run.wait(lambda: sum(highs().values()) >= len(entries), "the topic holding an event "
+                 f"for each of the filer's {len(entries)} entries", 30)
+        high = highs()
+        published = topic_events()
+        events = len(published)
+        if sum(high.values()) != events:
+            fail(f"the broker's high watermarks {high} sum to {sum(high.values())}, a fetch "
+                 f"of every partition read {events} events")
+        fault = _creation_events_fault(published, entries)
+        if fault:
+            fail(fault)
+        with rpc.dial(f"127.0.0.1:{fport + 10000}") as ch:
+            stub = rpc.filer_stub(ch)
+
+            def chunk_fids(path: str) -> list:
+                d, _, name = path.rpartition("/")
+                resp = stub.LookupDirectoryEntry(
+                    fpb.LookupDirectoryEntryRequest(directory=d, name=name), timeout=30)
+                return [chunk.fid for chunk in resp.entry.chunks]
+
+            fids = {p: chunk_fids(p) for p in paths}
+        if len(fids["/cloud/big/big.bin"]) != -(-big_bytes // (32 << 20)):
+            fail(f"the big file holds {len(fids['/cloud/big/big.bin'])} chunks")
+
+        # --- c. ec.encode and ec.balance ---
+        step = "c encode"
+        vols = {}
+        for d in dirs:
+            for f in os.listdir(d):
+                if f.startswith("cloud_") and f.endswith(".dat"):
+                    path = os.path.join(d, f)
+                    vols[int(f[6:-4])] = (os.path.getsize(path), {
+                        nd.id: (off, nd.size) for nd, off in scan_volume_file(path)})
+        shell = _CliShell(run.cli + ["shell", "-master", maddr], env,
+                          os.path.join(run.logs, "shell.log"), cwd=home("shell"))
+        run.procs["shell"] = shell.proc
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        _, text = shell.run("ec.encode -collection cloud -fullPercent 0")
+        if text.count("ec encoded volume") != len(vols):
+            fail(f"ec.encode: {text[-2000:]} over volumes {sorted(vols)}")
+        shell.run("ec.balance -force")
+        walls["c_encode_balance"] = time.perf_counter() - t0
+        k1 = server_launches()
+        encode_launches = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3n cloud, step c ec.encode", encode_launches,
+                         ("gf_apply", "crc32c_rows"))
+        held: dict = {i: {} for i in range(3)}
+        for i, d in enumerate(dirs):
+            for f in os.listdir(d):
+                if f.startswith("cloud_") and ".ec" in f and f[-2:].isdigit():
+                    held[i].setdefault(int(f[6:].split(".")[0]), []).append(int(f[-2:]))
+        runs["cloud_encode"] = {"wall_s": walls["c_encode_balance"],
+                                "launches": encode_launches, "sigs": {}}
+
+        # --- d. a shard holder lost ---
+        step = "d kill"
+        can_lose = [i for i in held if held[i] and max(map(len, held[i].values())) <= 4]
+        if not can_lose:
+            fail(f"no holder holds at most 4 shards of every volume: {held}")
+        victim = max(can_lose, key=lambda i: sum(map(len, held[i].values())))
+        lost = {vid: set(s) for vid, s in held[victim].items()}
+        touched, touched_fids = [], []
+        for path in paths:
+            for fid in fids[path]:
+                vid_s, rest = fid.split(",")
+                vid, nid = int(vid_s), int(rest[:-8], 16)
+                dat_size, needles = vols[vid]
+                off, size = needles[nid]
+                shards = {iv.to_shard_id_and_offset()[0] for iv in locate.locate_data(
+                    locate.LARGE_BLOCK_SIZE, locate.SMALL_BLOCK_SIZE, dat_size, off,
+                    16 + size + 4 + 8)}
+                if shards & lost.get(vid, set()):
+                    touched.append(path)
+                    if len(fids[path]) == 1:
+                        touched_fids.append((path, fid))
+                    break
+        if not touched_fids:
+            fail(f"no one-chunk file has bytes on shards {lost}")
+        run.procs[f"volume{victim}"].send_signal(signal.SIGKILL)
+        run.rcs[f"volume{victim}"] = run.procs[f"volume{victim}"].wait(30)
+        run.wait(lambda: len(cenv.collect_topology().nodes) == 2, "the master dropping the "
+                 "killed holder", 30)
+        log(f"3n cloud: broker (kafka_fake, {REPL_PARTITIONS} partitions), master, three "
+            f"volume servers and three filers (kafka, aws_sqs, google_pub_sub) up in "
+            f"{walls['a_up']:.3f} s; {len(paths)} files ({total} B, "
+            f"{sum(map(len, fids.values()))} chunks; made in {make_s:.3f} s) POSTed in "
+            f"{walls['b_fill']:.3f} s ({total / walls['b_fill'] / 1e6:.1f} MB/s), the topic's "
+            f"high watermarks {high} = the filer's {events} events ({len(entries)} entries, "
+            f"{events - len(entries)} repeated directory creations); ec.encode + ec.balance of "
+            f"{len(vols)} volumes {walls['c_encode_balance']:.3f} s, launches "
+            f"{ {k: v for k, v in encode_launches.items() if v} }; volume{victim} (shards "
+            f"{ {v: sorted(s) for v, s in lost.items()} }) SIGKILLed, {len(touched)} files on "
+            f"its shards")
+
+        # --- e. three runners drain the topic into three clouds; h. the queues meanwhile ---
+        step = "e replicate"
+        runner_homes = {}
+        for kind in CLOUD_SINKS:
+            runner_homes[kind] = home(f"runner_{kind}")
+            with open(os.path.join(runner_homes[kind], "notification.toml"), "w") as f:
+                f.write(f'[notification.kafka]\nenabled = true\nhosts = "{khosts}"\n'
+                        f'topic = "{topic}"\n'
+                        f'offset_dir = "{os.path.join(runner_homes[kind], "offsets")}"\n')
+            with open(os.path.join(runner_homes[kind], "replication.toml"), "w") as f:
+                f.write(f'[source.filer]\nenabled = true\ngrpcAddress = "127.0.0.1:{fport}"\n'
+                        f'directory = "/cloud"\n\n{sinks[kind]}directory = "{mirrors[kind]}"\n')
+        k0 = server_launches()
+        t0 = time.perf_counter()
+        for kind in CLOUD_SINKS:
+            spawn_runner(kind, kind)
+        queue_errors: list = []
+
+        def post_queues():
+            try:
+                th0 = time.perf_counter()
+                for kind, qf in qfiles.items():
+                    _fan(qports[kind], 2, sorted(qf.items()), post)
+                walls["h_queues"] = time.perf_counter() - th0
+            except Exception as e:  # noqa: BLE001 — raised in step h
+                queue_errors.append(e)
+
+        poster = threading.Thread(target=post_queues)
+        poster.start()
+        drained = {}
+
+        def all_drained() -> bool:
+            for kind in CLOUD_SINKS:
+                if kind not in drained and cloud_keys(kind) == want_keys(kind):
+                    drained[kind] = time.perf_counter() - t0
+            return len(drained) == len(CLOUD_SINKS)
+
+        run.wait(all_drained, "GCS, Azure and B2 each holding every file under /cloud", 600)
+        walls["e_drain"] = time.perf_counter() - t0
+        k1 = server_launches()
+        for kind in CLOUD_SINKS:
+            objects = fakes[kind].objects.copy()
+            bad = [p for p in paths if hashlib.sha256(
+                objects[mirrors[kind] + p[len("/cloud"):]]).digest() != digests[p]]
+            if bad:
+                fail(f"{len(bad)} objects in {kind} differ from their files (first {bad[:3]})")
+        degraded = launch_delta(k0, k1)
+        if on_card:
+            _must_launch("3n cloud, step e the runners' reads", degraded, ("gf_apply",))
+        direct = {}
+        for i in sorted(k1):
+            mine = [(p, fid) for p, fid in touched_fids if int(fid.split(",")[0]) in held[i]]
+            if not mine:
+                continue
+            served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                path, fid = mine[0]
+                with urllib.request.urlopen(f"http://127.0.0.1:{ports[i]}/{fid}",
+                                            timeout=60) as r:
+                    body = r.read()
+                if body != files[path]:
+                    fail(f"volume{i}'s GET of {fid} ({path}) gave {len(body)} B")
+                direct[i] = fid
+                k1[i] = server_launches()[i]
+                served = k1[i]["degraded"] - k0[i]["degraded"]
+            if served == 0:
+                fail(f"volume{i} served no degraded interval, even asked for "
+                     f"{direct.get(i)} directly")
+            if on_card and k1[i]["gf_apply"] <= k0[i]["gf_apply"]:
+                fail(f"volume{i} served {served} degraded intervals but its K1 launches did "
+                     f"not rise ({k0[i]['gf_apply']} -> {k1[i]['gf_apply']})")
+        maps_seen = {n: _maps_has(run.procs[n].pid, "libcuda", "libtorch")
+                     for n in ("broker", "filer", "filer_sqs", "filer_pubsub") + CLOUD_SINKS}
+        runs["cloud_degraded"] = {"wall_s": walls["e_drain"], "launches": degraded,
+                                  "sigs": {}, "files": len(paths), "touched": len(touched)}
+        log(f"3n cloud on {card}: three `filer.replicate` runners drained {events} events "
+            f"each into GCS / Azure / B2 in "
+            f"{' / '.join(f'{drained[k]:.3f}' for k in CLOUD_SINKS)} s "
+            f"({3 * total / walls['e_drain'] / 1e6:.1f} MB/s of objects in all) with "
+            f"volume{victim} lost; {3 * len(paths)} objects SHA-256 equal; the survivors' "
+            f"launches {degraded['gf_apply']} K1, {degraded['gf_bits']} K5 (K1 "
+            f"{ {i: k1[i]['gf_apply'] - k0[i]['gf_apply'] for i in k1} }, K5 "
+            f"{ {i: k1[i]['gf_bits'] - k0[i]['gf_bits'] for i in k1} }, degraded intervals "
+            f"{ {i: k1[i]['degraded'] - k0[i]['degraded'] for i in k1} } by server"
+            f"{'; asked directly: ' + str(direct) if direct else ''}); {smi}")
+
+        # --- h. SQS and Pub/Sub ---
+        step = "h queues"
+        poster.join(300)
+        if queue_errors or poster.is_alive():
+            fail(f"POSTs to the queue filers: {queue_errors or 'still running'}")
+        run.wait(lambda: all(len(fakes[k].messages) >= CLOUD_QUEUE_FILES for k in qports),
+                 "the SQS and Pub/Sub fakes' messages", 60)
+        got = {"sqs": sorted((k, text_format.Parse(b, fpb.EventNotification()).new_entry.name)
+                             for k, b in fakes["sqs"].messages),
+               "pubsub": sorted((k, fpb.EventNotification.FromString(d).new_entry.name)
+                                for k, d in fakes["pubsub"].messages)}
+        for kind in qports:
+            want = sorted((p, p[1:]) for p in qfiles[kind])
+            if got[kind] != want:
+                fail(f"{kind} accepted {len(got[kind])} messages naming "
+                     f"{got[kind][:3]}..., want {want[:3]}... ({len(want)})")
+
+        # --- f. a directory deleted ---
+        step = "f delete"
+        top = max({p.split("/")[2] for p in paths if p.count("/") > 3},
+                  key=lambda t: sum(p.startswith(f"/cloud/{t}/") for p in paths))
+        gone = [p for p in paths if p.startswith(f"/cloud/{top}/")]
+        t0 = time.perf_counter()
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            status, _, body = _http(c, "DELETE", f"/cloud/{top}?recursive=true")
+        finally:
+            c.close()
+        if status not in (200, 202, 204):
+            fail(f"DELETE /cloud/{top}?recursive=true: {status} {body[:200]!r}")
+
+        def swept() -> bool:
+            return all(not any(k.startswith(f"{mirrors[kind]}/{top}/") for k in cloud_keys(kind))
+                       for kind in CLOUD_SINKS) and not any(
+                k.startswith(f"{mirrors['backblaze']}/{top}/")
+                for k in list(fakes["backblaze"].versions))
+
+        run.wait(swept, f"the {len(gone)} files under /cloud/{top} gone from every cloud", 120)
+        walls["f_delete"] = time.perf_counter() - t0
+        files = {p: b for p, b in files.items() if p not in set(gone)}
+        for kind in CLOUD_SINKS:
+            if cloud_keys(kind) != want_keys(kind):
+                fail(f"{kind} holds {len(cloud_keys(kind))} objects after the delete, want "
+                     f"{len(files)}")
+
+        # --- g. the GCS runner restarted ---
+        step = "g restart"
+        offsets = os.path.join(runner_homes["gcs"], "offsets")
+
+        def committed() -> dict:
+            return {p: int(open(os.path.join(offsets, f"p{p:03d}")).read())
+                    for p in range(REPL_PARTITIONS)
+                    if os.path.exists(os.path.join(offsets, f"p{p:03d}"))}
+
+        high = highs()
+        run.wait(lambda: committed() == {p: h for p, h in high.items() if h},
+                 f"the GCS runner's offsets at the high watermarks {high}", 60)
+        t0 = time.perf_counter()
+        run.procs["gcs"].send_signal(signal.SIGTERM)
+        run.rcs["gcs"] = run.procs["gcs"].wait(60)
+        if run.rcs["gcs"] != 0:
+            fail(f"the GCS runner exited {run.rcs['gcs']} on SIGTERM: {run.tail('gcs')}")
+        puts = fakes["gcs"].objects.puts
+        spawn_runner("gcs2", "gcs")
+        run.wait(lambda: "consuming kafka" in run.tail("gcs2"), "the restarted runner", 60)
+        time.sleep(2.5)  # more than two of its polls
+        if fakes["gcs"].objects.puts != puts:
+            fail(f"the restarted runner uploaded {fakes['gcs'].objects.puts - puts} objects "
+                 f"from its offsets {committed()}")
+        late = "/cloud/late/after-restart.bin"
+        files[late] = np.random.default_rng(seed + 234).bytes(300_000)
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            post(c, (late, files[late]))
+        finally:
+            c.close()
+        run.wait(lambda: f"{mirrors['gcs']}/late/after-restart.bin" in cloud_keys("gcs"),
+                 "the file written after the restart in GCS", 60)
+        if fakes["gcs"].objects.puts != puts + 1 or hashlib.sha256(
+                fakes["gcs"].objects[f"{mirrors['gcs']}/late/after-restart.bin"]).digest() != \
+                hashlib.sha256(files[late]).digest():
+            fail(f"GCS took {fakes['gcs'].objects.puts - puts} uploads for the late file")
+        walls["g_restart"] = time.perf_counter() - t0
+
+        # --- i. the processes ---
+        step = "i processes"
+        maps_seen["gcs2"] = _maps_has(run.procs["gcs2"].pid, "libcuda", "libtorch")
+        run.procs["gcs2"].send_signal(signal.SIGTERM)
+        run.rcs["gcs2"] = run.procs["gcs2"].wait(60)
+        if run.rcs["gcs2"] != 0:
+            fail(f"the restarted GCS runner exited {run.rcs['gcs2']} on SIGTERM")
+        if any(any(m.values()) for m in maps_seen.values()):
+            fail(f"a filer, runner or the broker maps {maps_seen}")
+        run.rcs["shell"] = shell.exit()
+        if run.rcs["shell"]:
+            fail(f"the shell exited {run.rcs['shell']}")
+        runs["cloud"] = {"walls": walls, "files": len(paths), "events": events,
+                         "touched": len(touched), "bytes": total,
+                         "queues": {k: len(fakes[k].messages) for k in qports}}
+    except Exception as e:  # noqa: BLE001 — re-raised below, named by its step
+        failed = e
+    finally:
+        if shell is not None and shell.proc.poll() is None:
+            shell.proc.kill()
+        rcs = run.finish()
+        for f in started:
+            f.stop()
+    if failed is not None:
+        for name in run.procs:
+            if name != "shell":
+                log(f"3n cloud: {name} exited {rcs.get(name)}; its log ends: "
+                    f"{run.tail(name)[-1500:]!r}")
+        if str(failed).startswith("3n cloud, step"):
+            raise failed
+        raise AssertionError(f"3n cloud, step {step}: {type(failed).__name__}: "
+                             f"{failed}") from failed
+    bad = {n: rc for n, rc in rcs.items() if rc != 0 and n != f"volume{victim}"}
+    if bad:
+        raise AssertionError(f"3n cloud, step i processes: processes exited non-zero "
+                             f"{bad}: { {n: run.tail(n) for n in bad if n != 'shell'} }")
+    walls["phase"] = time.perf_counter() - phase_t0
+    log(f"3n cloud: SQS and Pub/Sub accepted {CLOUD_QUEUE_FILES} messages each (SigV4, Bearer) "
+        f"in {walls.get('h_queues', 0):.3f} s; /cloud/{top} ({len(gone)} files) gone from the "
+        f"three clouds in {walls['f_delete']:.3f} s; the GCS runner SIGTERMed (0), restarted "
+        f"from its offsets with no upload, the late file over, SIGTERMed (0) in "
+        f"{walls['g_restart']:.3f} s; {len(rcs) - 1} processes exited 0 (volume{victim} "
+        f"killed), none of the {len(maps_seen)} filers, runners and the broker mapping libcuda "
+        f"or libtorch; walls (s) { {k: round(v, 3) for k, v in walls.items()} }")
+    return runs
+
+
 # --- phase 4: the batch path ------------------------------------------------
 
 
@@ -7681,6 +8357,7 @@ def main() -> int:
                                                            card, smi)),
         ("3m replication", lambda w: run_replication_phase(w, REPL_BYTES, args.seed, None,
                                                            card, smi)),
+        ("3n cloud", lambda w: run_cloud_phase(w, CLOUD_BYTES, args.seed, None, card, smi)),
         ("4 batch", lambda w: run_batch_phase(w, BATCH_VOLUMES, BATCH_VOLUME_BYTES, args.seed,
                                               None, card)),
     )
@@ -7714,7 +8391,8 @@ def main() -> int:
              "cluster_k5", "cluster_rebuild") + ADMIN_PATHS + CLI_PATHS + (
              "edge_ec", "tele_degraded", "filer_encode", "filer_degraded", "s3_encode",
              "s3_degraded", "webdav_encode", "webdav_degraded", "tier_encode",
-             "tier_degraded", "repl_encode", "repl_degraded", "batch_encode",
+             "tier_degraded", "repl_encode", "repl_degraded", "cloud_encode",
+             "cloud_degraded", "batch_encode",
              "batch_rebuild", "batch_verify")
     total = {kn: sum(runs[r]["launches"][kn] for r in paths) for kn in _counts()}
     log(f"launches over every path (single-volume encode and rebuilds, degraded reads, "
@@ -7730,7 +8408,8 @@ def main() -> int:
         f"through the gateway, the WebDAV/tier phase's two ec.encode runs, degraded reads "
         f"through WebDAV and reads of an EC volume tiered to the S3 gateway with four shard "
         f"objects lost, the replication phase's ec.encode and the consumer's degraded chunk "
-        f"reads, batch encode, rebuild and verify) "
+        f"reads, the cloud phase's ec.encode and its three runners' degraded chunk reads, "
+        f"batch encode, rebuild and verify) "
         f"on {card}: "
         f"{total}; K1 decode4 {k1_dec['ms']:.4f} ms, K1 decode1 {k1_dec1['ms']:.4f} ms, "
         f"K2 decode4 {k2_dec['ms']:.4f} ms")

@@ -5,11 +5,13 @@ Behavioral match of weed/notification/configuration.go: a process-wide
 EventNotification) messages into (filer2/filer_notify.go:9-39).
 The port of seaweedfs_tpu/notification/__init__.py, the core the filer
 publishes to. Backends here: log (glog-style), memory (in-process,
-subscribable), dirqueue (durable file-per-message directory) and
+subscribable), dirqueue (durable file-per-message directory),
 logqueue (embedded partitioned segmented log with consumer groups, the
-Kafka-role broker, notification/logqueue.py). The external broker
-backends (kafka, aws_sqs, google_pub_sub) are ROADMAP item 12b;
-`configure` raises naming that item when notification.toml enables one.
+Kafka-role broker, notification/logqueue.py), kafka (real wire-protocol
+producer, notification/kafka.py), and aws_sqs / google_pub_sub (the AWS
+Query protocol with SigV4 and the Pub/Sub REST publish endpoint,
+notification/cloud_queues.py). None need client libraries; the gates
+are connectivity and credentials.
 """
 
 from __future__ import annotations
@@ -123,9 +125,9 @@ class DirQueue(NotificationQueue):
             yield seq, header["key"], msg
 
 
-# the external broker backends, each with the notification.toml section
-# that enables it (ROADMAP item 12b)
-BROKER_BACKENDS = ("kafka", "aws_sqs", "google_pub_sub")
+# kafka / aws_sqs / google_pub_sub live in kafka.py and cloud_queues.py
+# — real wire-protocol implementations, gated on connectivity or
+# credentials rather than on client libraries.
 
 
 def configure(cfg) -> NotificationQueue | None:
@@ -145,13 +147,41 @@ def configure(cfg) -> NotificationQueue | None:
             cfg.get_string("notification.logqueue.dir", "./notifications"),
             partitions=cfg.get_int("notification.logqueue.partitions", 4),
         )
+    elif cfg.get_bool("notification.kafka.enabled"):
+        # real wire-protocol producer (notification/kafka.py); the gate
+        # is connectivity, not a library — constructing raises with
+        # guidance when no broker answers
+        from seaweedfs_tpu_torch.notification.kafka import KafkaQueue
+
+        queue = KafkaQueue(
+            cfg.get_string("notification.kafka.hosts", "localhost:9092"),
+            topic=cfg.get_string("notification.kafka.topic", "seaweedfs_filer"),
+        )
+    elif cfg.get_bool("notification.aws_sqs.enabled"):
+        from seaweedfs_tpu_torch.notification.cloud_queues import SqsQueue
+
+        queue = SqsQueue(
+            cfg.get_string("notification.aws_sqs.aws_access_key_id", ""),
+            cfg.get_string("notification.aws_sqs.aws_secret_access_key", ""),
+            cfg.get_string("notification.aws_sqs.region", "us-east-1"),
+            cfg.get_string("notification.aws_sqs.sqs_queue_name", ""),
+            endpoint=cfg.get_string("notification.aws_sqs.endpoint", ""),
+        )
+    elif cfg.get_bool("notification.google_pub_sub.enabled"):
+        from seaweedfs_tpu_torch.notification.cloud_queues import PubSubQueue
+
+        queue = PubSubQueue(
+            cfg.get_string("notification.google_pub_sub.project_id", ""),
+            cfg.get_string("notification.google_pub_sub.topic", "seaweedfs_filer_topic"),
+            token=cfg.get_string("notification.google_pub_sub.token", ""),
+            token_file=cfg.get_string(
+                "notification.google_pub_sub.token_file", ""
+            ),
+            endpoint=cfg.get_string(
+                "notification.google_pub_sub.endpoint",
+                "https://pubsub.googleapis.com",
+            ),
+        )
     else:
-        for kind in BROKER_BACKENDS:
-            if cfg.get_bool(f"notification.{kind}.enabled"):
-                raise NotImplementedError(
-                    f"the {kind} notification queue is not ported yet "
-                    "(ROADMAP item 12b); the port's queues are log, memory, "
-                    "dirqueue and logqueue"
-                )
         queue = None
     return queue

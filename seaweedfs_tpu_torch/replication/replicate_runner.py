@@ -1,13 +1,12 @@
 """`weed filer.replicate` — consume the notification queue and drive a
 Replicator (weed/command/filer_replicate.go runFilerReplicate).
 
-The port of seaweedfs_tpu/replication/replicate_runner.py: the logqueue
-and dirqueue arms. A config that asks for a cloud sink (sink.gcs,
-sink.azure, sink.backblaze) or the kafka queue raises
-NotImplementedError naming ROADMAP item 12b, which brings them; the
-command line turns that into exit code 2. Both loops also end, after
-committing what they applied, when `stop` is set: `filer.replicate`
-sets it on SIGTERM and SIGINT, and a restart resumes from the cursor.
+The port of seaweedfs_tpu/replication/replicate_runner.py: the logqueue,
+kafka and dirqueue arms into the filer, local, s3, gcs, azure and
+backblaze sinks. Every loop also ends, after committing what it
+applied, when `stop` is set: `filer.replicate` sets it on SIGTERM and
+SIGINT, and a restart resumes from the cursor (the kafka arm's offset
+files).
 """
 
 from __future__ import annotations
@@ -22,12 +21,9 @@ from seaweedfs_tpu_torch.replication.sink import FilerSink, LocalSink, S3Sink
 from seaweedfs_tpu_torch.replication.source import FilerSource
 from seaweedfs_tpu_torch.scrub.arbiter import get_arbiter
 from seaweedfs_tpu_torch.stats.metrics import REPLICATION_APPLIED, REPLICATION_LAG
+from seaweedfs_tpu_torch.util import durable
 from seaweedfs_tpu_torch.util import wlog
 from seaweedfs_tpu_torch.util.config import load_config, Configuration
-
-# the reference's cloud sinks (replication/cloud_sinks.py), by their
-# replication.toml section
-CLOUD_SINKS = ("gcs", "azure", "backblaze")
 
 
 def repl_enabled() -> bool:
@@ -65,14 +61,57 @@ def build_replicator(repl_cfg: Configuration) -> Replicator:
             directory=s.get("directory", ""),
             region=s.get("region", "us-east-1"),
         )
+    elif repl_cfg.get_bool("sink.gcs.enabled"):
+        from seaweedfs_tpu_torch.replication.cloud_sinks import GcsSink
+
+        s = repl_cfg.sub("sink.gcs")
+        endpoint = s.get("endpoint", "https://storage.googleapis.com")
+        if not s.get("token", "") and "googleapis.com" in endpoint:
+            # real GCS always needs a bearer token; only custom
+            # endpoints (emulators, the test fake) may go tokenless
+            raise RuntimeError(
+                "sink.gcs needs an OAuth bearer `token` (see "
+                "replication/cloud_sinks.py), or a custom `endpoint`"
+            )
+        sink = GcsSink(
+            s.get("bucket", ""),
+            token=s.get("token", ""),
+            directory=s.get("directory", ""),
+            endpoint=endpoint,
+        )
+    elif repl_cfg.get_bool("sink.azure.enabled"):
+        from seaweedfs_tpu_torch.replication.cloud_sinks import AzureSink
+
+        s = repl_cfg.sub("sink.azure")
+        if not s.get("account_key", ""):
+            raise RuntimeError(
+                "sink.azure needs account_name/account_key (the SharedKey "
+                "credentials); see replication/cloud_sinks.py"
+            )
+        sink = AzureSink(
+            s.get("account_name", ""),
+            s.get("account_key", ""),
+            s.get("container", ""),
+            directory=s.get("directory", ""),
+            endpoint=s.get("endpoint", ""),
+        )
+    elif repl_cfg.get_bool("sink.backblaze.enabled"):
+        from seaweedfs_tpu_torch.replication.cloud_sinks import B2Sink
+
+        s = repl_cfg.sub("sink.backblaze")
+        if not s.get("b2_master_application_key", ""):
+            raise RuntimeError(
+                "sink.backblaze needs b2_account_id/"
+                "b2_master_application_key; see replication/cloud_sinks.py"
+            )
+        sink = B2Sink(
+            s.get("b2_account_id", ""),
+            s.get("b2_master_application_key", ""),
+            s.get("bucket", ""),
+            directory=s.get("directory", ""),
+            endpoint=s.get("endpoint", "https://api.backblazeb2.com"),
+        )
     else:
-        for kind in CLOUD_SINKS:
-            if repl_cfg.get_bool(f"sink.{kind}.enabled"):
-                raise NotImplementedError(
-                    f"the sink.{kind} replication sink is not ported yet "
-                    "(ROADMAP item 12b); the port's sinks are filer, local "
-                    "and s3"
-                )
         raise RuntimeError("no enabled sink in replication.toml")
     return Replicator(source, sink)
 
@@ -125,10 +164,28 @@ def run_replicate(
         finally:
             lq.close()
     if notif_cfg.get_bool("notification.kafka.enabled"):
-        raise NotImplementedError(
-            "consuming the kafka notification queue is not ported yet "
-            "(ROADMAP item 12b); the port consumes logqueue and dirqueue"
+        from seaweedfs_tpu_torch.notification.kafka import KafkaSubscriber
+
+        hosts = notif_cfg.get_string("notification.kafka.hosts", "localhost:9092")
+        sub = KafkaSubscriber(
+            hosts,
+            topic=notif_cfg.get_string(
+                "notification.kafka.topic", "seaweedfs_filer"
+            ),
         )
+        adapter = _KafkaOffsetAdapter(
+            sub,
+            notif_cfg.get_string(
+                "notification.kafka.offset_dir", "./kafka_offsets"
+            ),
+        )
+        wlog.info("filer.replicate consuming kafka %s", hosts)
+        try:
+            return _consume_logqueue(
+                adapter, replicator, poll_interval, stop_after_idle, stop
+            )
+        finally:
+            sub.close()
     qdir = notif_cfg.get_string("notification.dirqueue.dir", "./notifications")
     dirqueue = notification.DirQueue(qdir)
     offset_file = os.path.join(qdir, ".replicate_offset")
@@ -159,6 +216,43 @@ def run_replicate(
             return 0
 
 
+class _KafkaOffsetAdapter:
+    """Present a KafkaSubscriber through the logqueue consumer surface
+    (poll/commit/trim) so the at-least-once drain loop below serves
+    both. Offsets are durable on the consumer side (one file per
+    partition, atomic replace) — the reference's sarama consumer keeps
+    them broker-side via group coordination, which kafka.py
+    deliberately omits (single subscriber per topic; see its module
+    docstring)."""
+
+    def __init__(self, sub, offset_dir: str):
+        self._sub = sub
+        self._dir = offset_dir
+        os.makedirs(offset_dir, exist_ok=True)
+        for p in sub.partitions:
+            try:
+                with open(os.path.join(offset_dir, f"p{p:03d}")) as f:
+                    sub.offsets[p] = int(f.read().strip() or "0")
+            except (OSError, ValueError):
+                pass
+
+    def poll(self, group: str, max_records: int = 256):
+        return self._sub.poll(max_records)
+
+    def commit(self, group: str, partition: int, next_offset: int) -> None:
+        self._sub.commit(partition, next_offset)
+        path = os.path.join(self._dir, f"p{partition:03d}")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(next_offset))
+        # same contract as logqueue.commit: lost = re-replicate (safe,
+        # idempotent PUTs), torn = parse failure on restart
+        durable.publish(tmp, path)
+
+    def trim(self) -> int:
+        return 0  # retention is the broker's concern
+
+
 _MAX_EVENT_RETRIES = 8
 
 
@@ -181,11 +275,14 @@ def _consume_logqueue(lq, replicator, poll_interval, stop_after_idle, stop=None)
     def _sample_lag() -> None:
         # lag = events the producer wrote that this consumer hasn't
         # committed past; surfaced on /metrics for the telemetry
-        # collector's RULE_REPL_LAG alert
-        try:
-            REPLICATION_LAG.set(lq.depth(group), group)
-        except OSError:
-            pass
+        # collector's RULE_REPL_LAG alert (the Kafka adapter has no
+        # cheap depth — it just doesn't report)
+        depth = getattr(lq, "depth", None)
+        if callable(depth):
+            try:
+                REPLICATION_LAG.set(depth(group), group)
+            except OSError:
+                pass
 
     while True:
         if stop.is_set():

@@ -16,8 +16,7 @@ GetSinkToDirectory) with three concrete sinks:
   the port's own S3 gateway included.
 
 The port of seaweedfs_tpu/replication/sink.py. The cloud sinks (GCS,
-Azure, B2: the reference's replication/cloud_sinks.py) are ROADMAP item
-12b; replicate_runner refuses a config that enables one.
+Azure, B2) are in cloud_sinks.py, each an AssemblingObjectSink.
 """
 
 from __future__ import annotations

@@ -1231,17 +1231,55 @@ def test_lsm_namespace_survives_a_filer_restart(tmp_path):
         t.stop()
 
 
-def test_notification_core_and_broker_backends_wait():
+@pytest.mark.parametrize("kind", ["memory", "none", "kafka", "aws_sqs", "google_pub_sub"])
+def test_notification_configure_builds_each_queue(kind):
+    """`configure` builds the process queue that notification.toml
+    enables: the in-process core, nothing, or each broker backend against
+    its fake (the kafka_fake broker, tests/cloud_fakes.py's FakeSqs and
+    FakePubSub), and the queue it built delivers one event there."""
     from seaweedfs_tpu_torch import notification
+    from seaweedfs_tpu_torch.notification.cloud_queues import PubSubQueue, SqsQueue
+    from seaweedfs_tpu_torch.notification.kafka import KafkaQueue
+    from seaweedfs_tpu_torch.notification.kafka_fake import FakeKafkaBroker
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
     from seaweedfs_tpu_torch.util.config import Configuration
+    from tests.cloud_fakes import FakePubSub, FakeSqs
 
-    q = notification.configure(Configuration({"notification": {"memory": {"enabled": True}}}))
-    assert isinstance(q, notification.MemoryQueue) and notification.queue is q
-    assert notification.BROKER_BACKENDS == ("kafka", "aws_sqs", "google_pub_sub")
-    for kind in notification.BROKER_BACKENDS:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 12b\)"):
-            notification.configure(Configuration({"notification": {kind: {"enabled": True}}}))
-    assert notification.configure(Configuration({})) is None
+    fake, section, cls = None, {}, type(None)
+    if kind == "memory":
+        section, cls = {"memory": {"enabled": True}}, notification.MemoryQueue
+    elif kind == "kafka":
+        fake = FakeKafkaBroker(partitions=3)
+        section, cls = {"kafka": {"enabled": True, "hosts": f"{fake.host}:{fake.port}"}}, KafkaQueue
+    elif kind == "aws_sqs":
+        fake = FakeSqs("AK", "SK", "us-east-1", "q")
+        section, cls = {"aws_sqs": {"enabled": True, "aws_access_key_id": "AK",
+                                    "aws_secret_access_key": "SK", "sqs_queue_name": "q"}}, SqsQueue
+    elif kind == "google_pub_sub":
+        fake = FakePubSub("p", "t")
+        section, cls = {"google_pub_sub": {"enabled": True, "project_id": "p", "topic": "t",
+                                           "token": "tok"}}, PubSubQueue
+    if fake is not None:
+        fake.start()
+        if kind != "kafka":
+            section[kind]["endpoint"] = fake.endpoint
+    try:
+        q = notification.configure(Configuration({"notification": section}))
+        assert type(q) is cls and notification.queue is q
+        if q is None:
+            return
+        q.send_message("/k/v.bin", fpb.EventNotification(new_entry=fpb.Entry(name="v.bin")))
+        if kind == "memory":
+            assert q.receive(timeout=1)[0] == "/k/v.bin"
+        elif kind == "kafka":
+            assert [len(v) for v in fake.logs.values()] == [1]
+            q.close()
+        else:
+            assert [k for k, _ in fake.messages] == ["/k/v.bin"]
+    finally:
+        notification.queue = None
+        if fake is not None:
+            fake.stop()
 
 
 def test_filer_modules_and_commands_import_no_torch():

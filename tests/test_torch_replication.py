@@ -4,12 +4,15 @@ against the reference's: the counterparts of tests/test_replication.py's
 TestQueues, TestReplicationEndToEnd and TestS3Sink over port clusters in
 this process, then the same event stream applied by both packages'
 replicators through each sink (a local directory, a filer, an S3 bucket
-on the port's gateway), which must leave the same tree, byte for byte,
-equal to the source's. The cloud sinks and the kafka queue (ROADMAP item
-12b) are refused naming that item, and WEED_REPL=0 consumes nothing.
-Every wait polls a condition under a deadline."""
+on the port's gateway, and GCS, Azure and B2 over the protocol fakes of
+tests/cloud_fakes.py), which must leave the same tree, byte for byte,
+equal to the source's. `filer.replicate -config` into sink.gcs runs from
+the command line, and WEED_REPL=0 consumes nothing. Every wait polls a
+condition under a deadline."""
 
+import base64
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -20,6 +23,7 @@ import grpc
 import pytest
 
 from seaweedfs_tpu.pb import filer_pb2 as ref_fpb
+from seaweedfs_tpu.replication import cloud_sinks as ref_cloud_sinks
 from seaweedfs_tpu.replication import replicator as ref_replicator
 from seaweedfs_tpu.replication import sink as ref_sink
 from seaweedfs_tpu.replication import source as ref_source
@@ -28,6 +32,7 @@ from seaweedfs_tpu_torch.filer import filechunks
 from seaweedfs_tpu_torch.notification.logqueue import PartitionedLogQueue
 from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
 from seaweedfs_tpu_torch.pb import rpc
+from seaweedfs_tpu_torch.replication import cloud_sinks as port_cloud_sinks
 from seaweedfs_tpu_torch.replication import replicate_runner
 from seaweedfs_tpu_torch.replication import sink as port_sink
 from seaweedfs_tpu_torch.replication.replicator import Replicator
@@ -41,6 +46,7 @@ from seaweedfs_tpu_torch.server.master_server import MasterServer
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
 from seaweedfs_tpu_torch.util.availability import free_port
 from seaweedfs_tpu_torch.util.config import Configuration, load_config
+from tests.cloud_fakes import FakeAzure, FakeB2, FakeGcs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -454,35 +460,60 @@ def _apply(side: str, events: list, source_addr: str, sink) -> list:
     return outcomes
 
 
-@pytest.mark.parametrize("kind", ["local", "filer", "s3"])
+_AZURE_KEY = base64.b64encode(b"k" * 32).decode()
+_CLOUD_FAKES = {"gcs": lambda: FakeGcs(), "azure": lambda: FakeAzure("acct", _AZURE_KEY, "c"),
+                "backblaze": lambda: FakeB2("kid", "app", "bkt")}
+
+
+def _cloud_sink(mod, kind: str, endpoint: str):
+    if kind == "gcs":
+        return mod.GcsSink("bkt", token="t", endpoint=endpoint)
+    if kind == "azure":
+        return mod.AzureSink("acct", _AZURE_KEY, "c", endpoint=endpoint)
+    return mod.B2Sink("kid", "app", "bkt", endpoint=endpoint)
+
+
+@pytest.mark.parametrize("kind", ["local", "filer", "s3", "gcs", "azure", "backblaze"])
 def test_same_events_leave_the_same_tree(event_stream, tmp_path, kind):
     """The reference's and the port's replicators apply the same event
-    stream through the same kind of sink: the two trees are equal, file
-    for file and byte for byte, and equal the source's final tree. Both
-    fail on the same events (creates whose chunks the source dropped
-    later in the stream). One departure: the port's LocalSink leaves no
-    empty file where such a create fails."""
+    stream through the same kind of sink (for the clouds, each into a
+    fake of its own): the two trees are equal, file for file and byte
+    for byte, and equal the source's final tree. Both fail on the same
+    events (creates whose chunks the source dropped later in the
+    stream). One departure: the port's LocalSink leaves no empty file
+    where such a create fails."""
     src, dst, events, want = event_stream
-    trees, outcomes = {}, {}
+    trees, outcomes, fakes = {}, {}, []
     s3 = S3Client(dst.s3_addr, "rk", "rs")
-    for side in ("ref", "port"):
-        mod = {"ref": ref_sink, "port": port_sink}[side]
-        if kind == "local":
-            sink = mod.LocalSink(str(tmp_path / side))
-        elif kind == "filer":
-            sink = mod.FilerSink(dst.filer_addr, directory=f"/backup-{side}")
-        else:
-            s3.create_bucket(f"par-{side}")
-            sink = mod.S3Sink(dst.s3_addr, f"par-{side}", "rk", "rs")
-        outcomes[side] = _apply(side, events, src.filer_addr, sink)
-        if kind == "local":
-            trees[side] = local_tree(str(tmp_path / side))
-        elif kind == "filer":
-            sink.close()
-            trees[side] = filer_tree(dst.filer_addr, f"/backup-{side}")
-        else:
-            trees[side] = {"/" + k: s3.get_object(f"par-{side}", k)
-                           for k in s3.list_objects(f"par-{side}", "")}
+    try:
+        for side in ("ref", "port"):
+            mod = {"ref": ref_sink, "port": port_sink}[side]
+            if kind == "local":
+                sink = mod.LocalSink(str(tmp_path / side))
+            elif kind == "filer":
+                sink = mod.FilerSink(dst.filer_addr, directory=f"/backup-{side}")
+            elif kind == "s3":
+                s3.create_bucket(f"par-{side}")
+                sink = mod.S3Sink(dst.s3_addr, f"par-{side}", "rk", "rs")
+            else:
+                fakes.append(_CLOUD_FAKES[kind]())
+                fakes[-1].start()
+                sink = _cloud_sink({"ref": ref_cloud_sinks, "port": port_cloud_sinks}[side],
+                                   kind, fakes[-1].endpoint)
+            outcomes[side] = _apply(side, events, src.filer_addr, sink)
+            if kind == "local":
+                trees[side] = local_tree(str(tmp_path / side))
+            elif kind == "filer":
+                sink.close()
+                trees[side] = filer_tree(dst.filer_addr, f"/backup-{side}")
+            elif kind == "s3":
+                trees[side] = {"/" + k: s3.get_object(f"par-{side}", k)
+                               for k in s3.list_objects(f"par-{side}", "")}
+            else:
+                trees[side] = {"/" + k: v for k, v in fakes[-1].objects.items()}
+    finally:
+        for fake in fakes:
+            fake.stop()
     assert outcomes["port"] == outcomes["ref"]
     assert 0 < sum(o is not None for o in outcomes["port"]) <= 3
     assert trees["port"] == want
@@ -494,6 +525,9 @@ def test_same_events_leave_the_same_tree(event_stream, tmp_path, kind):
         assert {p: b for p, b in trees["ref"].items() if p not in want} == {"/gone/x.bin": b""}
     else:
         assert trees["ref"] == want
+    if kind == "backblaze":
+        # every version of a deleted file went, in both fakes
+        assert all(set(f.versions) == set(f.objects) for f in fakes)
 
 
 # ----------------------------------------------------------------------
@@ -513,51 +547,62 @@ def test_weed_repl_0_consumes_nothing(tmp_path, monkeypatch):
     lq.close()
 
 
-def _repl_toml(path, sink: str) -> str:
-    body = {"gcs": '[sink.gcs]\nenabled = true\nbucket = "b"\ntoken = "t"\n',
-            "azure": '[sink.azure]\nenabled = true\naccount_name = "a"\naccount_key = "k"\n',
-            "backblaze": '[sink.backblaze]\nenabled = true\nb2_account_id = "a"\n'
-                         'b2_master_application_key = "k"\n',
-            "local": f'[sink.local]\nenabled = true\ndirectory = "{path}/mirror"\n'}[sink]
-    p = os.path.join(path, f"replication-{sink}.toml")
-    with open(p, "w") as f:
-        f.write('[source.filer]\nenabled = true\ngrpcAddress = "127.0.0.1:1"\n'
-                'directory = "/buckets"\n' + body)
-    return p
+def test_filer_replicate_command_runs_sink_gcs(tmp_path):
+    """From the command line, `filer.replicate -config` with sink.gcs
+    drains a logqueue into a GCS fake, each file an object under the
+    configured directory, and SIGTERM ends it with exit code 0."""
+    qdir = tmp_path / "lq"
+    (tmp_path / "notification.toml").write_text(
+        f'[notification.logqueue]\nenabled = true\ndir = "{qdir}"\npartitions = 2\n')
+    lq = PartitionedLogQueue(str(qdir), partitions=2)
+    gcs = FakeGcs()
+    gcs.start()
+    notification.queue = lq
+    cluster, proc = None, None
+    try:
+        cluster = PortCluster(str(tmp_path / "src"))
+        files = {f"/buckets/g/d{i % 2}/f{i}.bin": os.urandom(700 * i + 1) for i in range(4)}
+        for path, data in files.items():
+            post(cluster.filer_addr, path, data)
+        (tmp_path / "replication.toml").write_text(
+            f'[source.filer]\nenabled = true\ngrpcAddress = "{cluster.filer_addr}"\n'
+            f'directory = "/buckets"\n[sink.gcs]\nenabled = true\nbucket = "b"\n'
+            f'directory = "m"\nendpoint = "{gcs.endpoint}"\n')
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "filer.replicate", "-config",
+             str(tmp_path / "replication.toml")], cwd=str(tmp_path),
+            env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        want = {"m" + p[len("/buckets"):]: d for p, d in files.items()}
 
+        def drained() -> bool:
+            assert proc.poll() is None, proc.stdout.read().decode()[-3000:]
+            return dict(gcs.objects) == want and lq.depth("replicate") == 0
 
-@pytest.mark.parametrize("what", ["gcs", "azure", "backblaze", "kafka"])
-def test_cloud_sinks_and_kafka_name_item_12b(tmp_path, monkeypatch, what):
-    """A config that enables a cloud sink, or the kafka queue, is refused
-    with NotImplementedError naming ROADMAP item 12b: nothing falls back
-    to another sink or queue."""
-    monkeypatch.chdir(tmp_path)
-    if what == "kafka":
-        (tmp_path / "notification.toml").write_text(
-            '[notification.kafka]\nenabled = true\nhosts = "127.0.0.1:1"\n')
-        config = _repl_toml(str(tmp_path), "local")
-    else:
-        config = _repl_toml(str(tmp_path), what)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 12b\)"):
-        replicate_runner.run_replicate(config_path=config, stop_after_idle=0.2)
-
-
-def test_filer_replicate_command_exits_2_naming_12b(tmp_path):
-    """From the command line the refusal is exit code 2 and the item on
-    stderr, as for every plane the port does not have."""
-    config = _repl_toml(str(tmp_path), "gcs")
-    out = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "filer.replicate",
-                          "-config", config], cwd=str(tmp_path), capture_output=True,
-                         text=True, timeout=120, env=dict(os.environ, PYTHONPATH=REPO))
-    assert out.returncode == 2, out.stderr[-2000:]
-    assert "sink.gcs" in out.stderr and "ROADMAP item 12b)" in out.stderr
+        assert wait_for(drained, 60), sorted(gcs.objects)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(30) == 0
+    finally:
+        notification.queue = None
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        if cluster is not None:
+            cluster.stop()
+        gcs.stop()
+        lq.close()
 
 
 def test_replication_modules_import_no_torch():
-    """The runner never touches the card: the queue, the replication
-    modules and the command import neither torch nor jax."""
+    """The runner never touches the card: the queues, the brokers' and
+    clouds' clients, the replication modules and the command import
+    neither torch nor jax."""
     code = ("import sys\n"
             "import seaweedfs_tpu_torch.notification.logqueue\n"
+            "import seaweedfs_tpu_torch.notification.kafka\n"
+            "import seaweedfs_tpu_torch.notification.kafka_fake\n"
+            "import seaweedfs_tpu_torch.notification.cloud_queues\n"
+            "import seaweedfs_tpu_torch.replication.cloud_sinks\n"
             "import seaweedfs_tpu_torch.replication.replicate_runner\n"
             "import seaweedfs_tpu_torch.command.filer_tools\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n")
